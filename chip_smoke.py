@@ -3,31 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ``RDPipeline(RadarConfig(),
-max_detections=16).detect`` on 512-frame batches at the default TI
-geometry, and ``python -m radar_tpu_torch.cli detect --full`` — on
-``cuda:0``, in phases that each print one line:
+Drives the port's paths on ``cuda:0`` at the default TI geometry with
+512-frame batches: the main path ``RDPipeline(RadarConfig(),
+max_detections=16).detect`` (kernel 1, the detect kernel); ``detect``
+with ``rd_impl='mega-maps'`` (kernel 2, the maps kernel, then kernel 3,
+top-K); ``detect_integrated`` (kernel 2, then kernel 4, the CFAR
+kernel, on the summed maps, then kernel 3); and ``python -m
+radar_tpu_torch.cli detect --full [--integrate 4]``.  Phases, each
+printing one line:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
-2. the CUDA detect kernel against its plain PyTorch version at B=512
-   (plus a K=48 batch with exhausted slots and a reduced TDM geometry
-   with mean clutter), and the kernel's launch count on the main path;
-3. the kernel against the float64 golden model on 4 frames;
+2. kernel 1 against its plain PyTorch version at B=512 (plus a K=48
+   batch with exhausted slots and a reduced TDM geometry with mean
+   clutter), its launch count on the main path, and a checksum of its
+   outputs;
+3. kernel 1 against the float64 golden model on 4 frames;
 4. the CLI on a 65-frame capture: 64 records, both targets found;
-5. CUDA-event timing of kernel and plain version at B=512 and B=1, and
-   a profiler breakdown by kernel.
+5. CUDA-event timing of kernel 1 and its plain version at B=512 and
+   B=1, and a profiler breakdown by kernel;
+6. kernels 2, 3 and 4 against their plain versions at B=512;
+7. 'mega' against 'mega-maps' bit for bit at K=16 and 48, and K=200
+   through the maps fall-through against the plain maps path;
+8. ``detect_integrated`` (n=4; base and mean clutter; with and without
+   range walk) against the all-plain path, and 4 groups against the
+   golden;
+9. the CLI with ``--integrate 4 --clutter mean``: 16 group records;
+10. timing of kernels 2-4 and of the two paths, their bounds, and a
+    profiler breakdown of ``detect_integrated``.
 
 Any failed check raises, so the script exits non-zero before its last
 line; without CUDA it exits 1 at once.  The line before the last is the
 kernel summary JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-It imports nothing of JAX.
+It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -46,6 +62,15 @@ K_DET = 16
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+def outputs_digest(outputs) -> str:
+    """sha256 (first 16 hex digits) of a kernel's output tensors' bytes,
+    in order: equal digests mean bit-identical outputs."""
+    h = hashlib.sha256()
+    for t in outputs:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def card() -> str:
@@ -74,8 +99,9 @@ def _offset_tol(nbr, lo, hi, eps):
     lm, lc, lp = (np.log(np.maximum(nbr[..., i], 1e-30)) for i in (lo, 0, hi))
     e = np.maximum(np.maximum(eps[..., lo], eps[..., 0]), eps[..., hi])
     curv = np.maximum(np.abs(lm - 2 * lc + lp), 1e-30)
-    off = 0.5 * np.abs(lm - lp) / curv
-    tol = 2 * e * (1 + 4 * off) / curv
+    with np.errstate(over="ignore"):   # flat cells: tol inf, clamped below
+        off = 0.5 * np.abs(lm - lp) / curv
+        tol = 2 * e * (1 + 4 * off) / curv
     return np.where(curv > 8 * e, np.minimum(tol, 1.0), 1.0)
 
 
@@ -164,7 +190,7 @@ def compare(a: dict, b: dict, cfg, max_flips: int, valid_only: bool = False,
               power_rtol + rel_nbr[sel], 1e-2)
     nbr_b = (b if "nbr" in b else a)["nbr"][cl]
     eps = power_rtol + rel_nbr + 1e-2 / np.maximum(nbr_b, 1e-30)
-    from radar_tpu.config import LIGHT_SPEED
+    from radar_tpu_torch.config import LIGHT_SPEED
     widths = {    # one bin, in metres and in m/s
         "range_m_interp": (1, 2, cfg.sample_rate_hz / cfg.range_fft_size
                            * LIGHT_SPEED / (2.0 * cfg.slope_hz_per_s)),
@@ -191,21 +217,55 @@ def run_detect(fn, frames, base, k, cfg) -> dict:
     return res
 
 
-def golden_check(capture, res, cfg) -> float:
-    """Detection sets equal to the float64 golden's (golden range-Doppler
-    map, RX sum, golden CA-CFAR, edge guard, stable top-K); power within
-    1e-3 relative.  Returns the max relative power error."""
-    from radar_tpu import golden
-    from radar_tpu.io.capture import decode_shorts
+def golden_power(capture, cfg, n: int, walk: bool = False) -> np.ndarray:
+    """float64 golden power maps of capture frames 1.. in groups of
+    ``n`` (n = 1: single frames): decode, clutter removal per
+    ``cfg.clutter_mode`` ('mean': the mean over all chirps; else the
+    frame-0 base), virtual cube, range-Doppler map, RX sum, then the
+    sum over each group, with each Doppler row first shifted by its
+    velocity's range migration over the frames left in the group when
+    ``walk`` (zero fill)."""
+    from radar_tpu_torch import golden
+    from radar_tpu_torch.io.capture import decode_shorts
+
+    cube = decode_shorts(capture[1:], cfg)
+    if cfg.clutter_mode == "mean":
+        cube = cube - cube.mean(axis=-2, keepdims=True)
+    else:
+        cube = cube - decode_shorts(capture[0], cfg)
+    rd = golden.range_doppler_map(golden.virtual_cube(cube, cfg), cfg)
+    power = (rd.real ** 2 + rd.imag ** 2).sum(axis=-3)
+    d_sz, r_sz = power.shape[-2:]
+    pw = power.reshape((-1, n, d_sz, r_sz))
+    if walk:
+        from radar_tpu_torch.config import LIGHT_SPEED
+
+        frame_s = cfg.num_chirps * cfg.chirp_interval_s
+        r_res = (cfg.sample_rate_hz / r_sz * LIGHT_SPEED
+                 / (2.0 * cfg.slope_hz_per_s))
+        out = np.zeros_like(pw)
+        for f in range(n):
+            for d in range(d_sz):
+                v = ((d - d_sz // 2) / (d_sz * cfg.slow_time_interval_s)
+                     * cfg.wavelength_m / 2.0)
+                s = int(np.rint(v * (n - 1 - f) * frame_s / r_res))
+                lo, hi = max(0, s), min(r_sz, r_sz + s)
+                out[:, f, d, lo:hi] = pw[:, f, d, lo - s:hi - s]
+        pw = out
+    return pw.sum(axis=1)
+
+
+def golden_match(power, n_pulses: int, res, cfg) -> float:
+    """Detection sets of ``res`` equal to the golden's on the float64
+    maps ``power`` (golden CA-CFAR at ``n_pulses``, edge guard, stable
+    top-K); power within 1e-3 relative.  Returns the max relative power
+    error."""
+    from radar_tpu_torch import golden
 
     n = res["valid"].shape[0]
     top_idx = res["doppler_bin"] * cfg.range_fft_size + res["range_bin"]
-    cube = decode_shorts(capture[1:n + 1], cfg) - decode_shorts(capture[0], cfg)
-    rd = golden.range_doppler_map(golden.virtual_cube(cube, cfg), cfg)
-    power = (rd.real ** 2 + rd.imag ** 2).sum(axis=-3)
     hits, _ = golden.ca_cfar_2d(power, cfg.cfar_guard, cfg.cfar_train,
-                                cfg.cfar_pfa, cfg.cfar_range_mode,
-                                cfg.cfar_pulses_effective)
+                                cfg.cfar_pfa, cfg.cfar_range_mode, n_pulses)
     r_size = cfg.range_fft_size
     hits &= np.arange(r_size) < r_size - cfg.range_edge_guard_effective
     flat = np.where(hits, power, -np.inf).reshape(n, -1)
@@ -214,13 +274,460 @@ def golden_check(capture, res, cfg) -> float:
     for f in range(n):
         want = {int(i) for i in order[f] if np.isfinite(flat[f, i])}
         got = set(top_idx[f][res["valid"][f]].tolist())
-        assert want == got, f"frame {f}: golden {sorted(want)} vs kernel {sorted(got)}"
+        assert want == got, f"frame {f}: golden {sorted(want)} vs port {sorted(got)}"
         for k, i in enumerate(top_idx[f]):
             if res["valid"][f, k]:
                 rel = abs(res["power"][f, k] - flat[f, i]) / flat[f, i]
                 worst = max(worst, rel)
     assert worst <= 1e-3, f"power {worst:.2e} relative to the golden"
     return worst
+
+
+def golden_check(capture, res, cfg) -> float:
+    """:func:`golden_match` of single-frame results against the golden
+    maps of capture frames 1..n (base clutter)."""
+    n = res["valid"].shape[0]
+    return golden_match(golden_power(capture[:n + 1], cfg, 1),
+                        cfg.cfar_pulses_effective, res, cfg)
+
+
+def maps_check(name, got, want) -> float:
+    """Power maps (..., D, R) held as ``compare`` holds power: rtol 2e-4
+    plus the f32 floor 16 eps sqrt(peak / p) of each map's strongest
+    cell, atol 1e-2.  Returns max |got - want|."""
+    got, want = got.double(), want.double()
+    peak = want.flatten(-2).amax(-1)[..., None, None]
+    rtol = 2e-4 + 16 * F32_EPS * torch.sqrt(peak / want.clamp_min(1e-30))
+    bad = (got - want).abs() > rtol * want.abs() + 1e-2
+    assert not bad.any(), f"{name}: {int(bad.sum())} cells beyond tolerance"
+    return float((got - want).abs().max())
+
+
+def threshold_check(name, power, got, want) -> tuple[float, int]:
+    """Threshold maps within 1e-3 relative; hit maps equal except on
+    cells whose power lies within 1e-3 of the threshold.  Returns (max
+    relative threshold error, cells whose hit decision differs)."""
+    rel = ((got.double() - want.double()).abs()
+           / want.double().clamp_min(1e-30))
+    worst = float(rel.max())
+    assert worst <= 1e-3, f"{name}: threshold {worst:.2e} relative"
+    flipped = (power > got) ^ (power > want)
+    edge = (power.double() - want.double()).abs() <= 1e-3 * want.double()
+    assert not (flipped & ~edge).any(), (
+        f"{name}: {int((flipped & ~edge).sum())} hit decisions differ off "
+        "the threshold's 1e-3 band")
+    return worst, int(flipped.sum())
+
+
+# -- bounds (H100 SXM, NVIDIA data sheet: the card's least time) -------------
+
+F32_RATE = 67e12    # non-tensor f32 FLOP/s
+HBM_RATE = 3.35e12  # device memory bytes/s
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(ms, 'operations' or 'bytes'): the larger of the work at the f32
+    rate and the bytes (inputs read once, outputs written once) at the
+    memory rate."""
+    t_ops, t_bytes = flops / F32_RATE * 1e3, nbytes / HBM_RATE * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def front_end_flops(cfg, b: int) -> float:
+    """The f32 work that the front end of kernels 1 and 2 needs on ``b``
+    frames, counted for the algorithm that needs the least, FFTs (5 N
+    log2 N flops a complex N-point transform): per chirp row, the base
+    subtraction and range window (4 flops a complex sample) and the range
+    FFT; per (virtual channel, range bin) column, the Doppler window (2
+    flops a complex sample), the Doppler FFT and the power sum (4 flops a
+    cell).  The kernels do dense DFT products instead, about 23x this."""
+    r, d = cfg.range_fft_size, cfg.doppler_fft_size
+    rows = b * cfg.num_chirps * cfg.num_rx
+    cols = b * cfg.num_virtual_rx * r
+    return (rows * (4.0 * cfg.num_samples + 5.0 * r * math.log2(r))
+            + cols * (2.0 * cfg.chirps_per_tx + 5.0 * d * math.log2(d)
+                      + 4.0 * d))
+
+
+def cfar_flops(cfg, n_cells: int, kind: str = "ca") -> float:
+    """Adds and the multiply of the strip-form window sums per cell."""
+    gd, gr = cfg.cfar_guard
+    td, tr = cfg.cfar_train
+    wr = gr + tr
+    rng = (2 * wr + 1 + 2 * tr) if kind == "ca" else 2 * (wr + tr) + 1
+    return float(n_cells) * (2 * td + 2 * gd + 1 + rng + 1)
+
+
+def front_end_bytes(cfg, b: int, base: bool) -> float:
+    """int16 frames, the base in the raw interleave and the constants."""
+    s2 = 2 * cfg.num_samples
+    return (b * cfg.shorts_per_frame * 2
+            + (cfg.num_chirps * cfg.num_rx * s2 * 4 if base else 0)
+            + s2 * 2 * cfg.range_fft_size * 4
+            + 2 * cfg.chirps_per_tx * cfg.doppler_fft_size * 4)
+
+
+def alternate(fns: dict, *args, device_only: bool = False) -> dict:
+    """Median ms of 10 CUDA-event timings of each function, run in turns
+    (in order, then reversed) on one card.  ``device_only``: the device's
+    work alone (``cuda_time_ms(queue_ahead=True)``), without the host's
+    launch gaps; else the time a caller waits for the stream."""
+    from radar_tpu_torch.utils.timing import cuda_time_ms
+
+    samples = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            samples[name] += cuda_time_ms(fns[name], *args, iters=5, warmup=2,
+                                          queue_ahead=device_only)
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def profile_line(fn, label: str, calls: int = 3) -> str:
+    """``torch.profiler`` device us per call of ``fn()``, by name (the
+    eight largest, kernels and the ops that launched them), the host's
+    enqueue time and the wall time per call, the device's idle share
+    (1 - kernel time / wall time) and the peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    rows, busy_us = [], 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / calls, evt.key))
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += getattr(evt, "self_device_time_total", 0.0)
+    rows.sort(reverse=True)
+    timing = (f"host enqueue {t_host / calls * 1e3:.3f} ms/call, wall "
+              f"{t_wall / calls * 1e3:.3f} ms/call")
+    if not rows:
+        return (f"profile {label}: no device time reported (not measured); "
+                f"{timing}; peak memory {peak_mb:.0f} MiB")
+    idle = (f"device idle {1.0 - busy_us / 1e6 / t_wall:.1%} (profiled)"
+            if busy_us > 0 else "device idle not measured")
+    return (f"profile {label} (device us/call): "
+            + "; ".join(f"{name[:48]} {us:.1f}" for us, name in rows[:8])
+            + f"; kernels {busy_us / calls:.1f} us/call; {timing}; {idle}; "
+            f"peak memory {peak_mb:.0f} MiB")
+
+
+def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
+    """Phases 6-10: kernels 2 (maps), 3 (top-K) and 4 (CFAR) against
+    their plain versions, 'mega' against 'mega-maps', non-coherent
+    integration against the plain path and the golden, the CLI with
+    --integrate, and timing.  Returns the kernels-line entries of
+    kernels 2-4, timed and counted on the NCI path (n = 4, 'mean'
+    clutter, 128 groups of a 512-frame batch)."""
+    import dataclasses
+
+    from radar_tpu_torch import cli
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.io.synthetic import synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline, neighbour_samples
+    from radar_tpu_torch.ops.cfar import ca_cfar_2d, go_so_cfar_2d
+    from radar_tpu_torch.ops.cuda import cfar as cfar_k
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.ops.cuda import topk as topk_k
+    from radar_tpu_torch.ops.cuda.cfar import ca_cfar_2d_cuda
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        detections_from_shorts_cuda,
+        power_cfar_from_shorts_cuda,
+        power_cfar_from_shorts_reference,
+        power_from_shorts_cuda,
+        power_from_shorts_reference,
+    )
+    from radar_tpu_torch.ops.cuda.topk import top_k_sorted, topk_cuda
+
+    dev = frames.device
+    n_int = 4
+    groups = BATCH // n_int
+    d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+    n_cells = d_size * r_size
+    cfg_mean = dataclasses.replace(cfg, clutter_mode="mean")
+    cfg_int = dataclasses.replace(
+        cfg_mean, cfar_n_pulses=n_int * cfg.cfar_pulses_effective)
+    r_ok = torch.arange(r_size, device=dev) < (
+        r_size - cfg.range_edge_guard_effective)
+
+    def reset():
+        megakernel.maps_launches = cfar_k.launches = topk_k.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"mega_maps": megakernel.maps_launches,
+                "ca_cfar": cfar_k.launches, "topk": topk_k.launches}
+
+    def nbr_of(power, res):
+        d = torch.from_numpy(res["doppler_bin"]).to(dev, torch.int64)
+        r = torch.from_numpy(res["range_bin"]).to(dev, torch.int64)
+        return neighbour_samples(power, d * r_size + r, d, r).cpu().numpy()
+
+    # -- 6. kernels 2, 3, 4 against their plain versions -------------------
+    power_k = power_from_shorts_cuda(frames, base, cfg, consts)
+    power_p = power_from_shorts_reference(frames, base, cfg)
+    power_err = maps_check("kernel 2 power", power_k, power_p)
+    parts = []
+    for kind in ("ca", "goca", "soca"):
+        ck = dataclasses.replace(cfg, cfar_kind=kind)
+        pk, th_k = power_cfar_from_shorts_cuda(frames, base, ck, consts)
+        assert torch.equal(pk, power_k), f"kernel 2 power with {kind} CFAR"
+        # the plain threshold of the kernel's own power isolates the CFAR
+        th_p = (ca_cfar_2d(pk, ck) if kind == "ca"
+                else go_so_cfar_2d(pk, ck, kind[:2]))[1]
+        rel, flipped = threshold_check(f"kernel 2 {kind}", pk, th_k, th_p)
+        parts.append(f"{kind} {rel:.2e} rel, {flipped} hits flipped")
+        if kind == "ca":
+            th_ca = th_k
+    say(f"kernel 2 vs plain B={BATCH}: power max |err| {power_err:.4g} "
+        "(rtol 2e-4 + f32 floor); thresholds within 1e-3, flips only "
+        "within 1e-3 of the threshold: " + "; ".join(parts))
+
+    power_mean = power_from_shorts_cuda(frames, base, cfg_mean, consts)
+    p_sum = power_mean.reshape(groups, n_int, d_size, r_size).sum(dim=1)
+    hits4, th4_k = ca_cfar_2d_cuda(p_sum, cfg_int)
+    th4_p = ca_cfar_2d(p_sum, cfg_int)[1]
+    rel4, flipped4 = threshold_check("kernel 4 NCI", p_sum, th4_k, th4_p)
+    cfar_err = float((th4_k - th4_p).abs().max())
+    rel512, flipped512 = threshold_check(
+        f"kernel 4 on {BATCH} maps", power_k,
+        ca_cfar_2d_cuda(power_k, cfg)[1], ca_cfar_2d(power_k, cfg)[1])
+    # the kernel's other layouts: a band cut short, the whole map where
+    # the Doppler halo reaches around the axis, a window wider than it
+    odd = []
+    rng = np.random.default_rng(0)
+    for shape, mode in (((6, 36, 20), "reflect"), ((6, 24, 40), "wrap"),
+                        ((3, 4, 12), "reflect")):
+        c = dataclasses.replace(cfg, cfar_range_mode=mode)
+        pw = torch.from_numpy(rng.exponential(size=shape).astype(
+            np.float32)).to(dev)
+        odd.append(threshold_check(f"kernel 4 {shape}", pw,
+                                   ca_cfar_2d_cuda(pw, c)[1],
+                                   ca_cfar_2d(pw, c)[1])[0])
+    say(f"kernel 4 vs plain on {groups} summed n={n_int} maps (Erlang-"
+        f"{cfg_int.cfar_pulses_effective} alpha): {rel4:.2e} rel, "
+        f"{flipped4} hits flipped, max |err| {cfar_err:.4g}; on {BATCH} "
+        f"maps: {rel512:.2e} rel, {flipped512} hits flipped; 36x20, "
+        f"24x40 wrap, 4x12 maps: worst {max(odd):.2e} rel")
+
+    masked = torch.where((power_k > th_ca) & r_ok, power_k,
+                         float("-inf")).reshape(BATCH, -1)
+    rng = np.random.default_rng(0)
+    ties = rng.integers(0, 8, (32, n_cells)).astype(np.float32)
+    sparse = np.full((32, n_cells), -np.inf, np.float32)
+    for i in range(32):
+        cells = rng.choice(n_cells, i % 24, replace=False)
+        sparse[i, cells] = rng.integers(0, 4, cells.size)
+    rows = torch.cat([masked, torch.from_numpy(
+        np.concatenate([ties, sparse])).to(dev)])
+    short = int((torch.isfinite(rows).sum(-1) < K_DET).sum())
+    for k in (K_DET, 200):
+        vk, ik = topk_cuda(rows, k)
+        vp, ip = top_k_sorted(rows, k)
+        assert torch.equal(ik, ip) and torch.equal(vk, vp), f"kernel 3 K={k}"
+        if k == K_DET:
+            fin = torch.isfinite(vp)
+            topk_err = float((vk[fin] - vp[fin]).abs().max())
+    say(f"kernel 3 vs top_k_sorted: {rows.shape[0]} rows ({short} with "
+        f"fewer than {K_DET} finite cells, 32 of ties), K={K_DET} and 200 "
+        "bit-exact")
+
+    # -- 7. 'mega' against 'mega-maps' ---------------------------------------
+    bit_fields = ("valid", "num_hits", "doppler_bin", "range_bin", "power",
+                  "range_m_interp", "velocity_mps_interp")
+    for k in (K_DET, 48):
+        a = result_to_numpy(RDPipeline(cfg, k, device=dev, rd_impl="mega")
+                            .detect(frames, base))
+        maps = RDPipeline(cfg, k, device=dev, rd_impl="mega-maps")
+        reset()
+        b = result_to_numpy(maps.detect(frames, base))
+        if k == K_DET:
+            maps_counts = counts()
+        for f in bit_fields:
+            np.testing.assert_array_equal(
+                b[f], a[f], err_msg=f"'mega' vs 'mega-maps' K={k}: {f}")
+        a["nbr"] = detections_from_shorts_cuda(frames, base, k, cfg,
+                                               consts)[2].cpu().numpy()
+        compare(b, a, cfg, max_flips=0, f32_floor=True)
+    assert maps_counts["mega_maps"] > 0 and maps_counts["topk"] > 0, \
+        maps_counts
+    flips = {}
+    for k, impl in ((200, "auto"), (K_DET, "fused")):
+        # K=200 through 'auto' falls through to the maps path; 'fused'
+        # runs the plain front end, then kernels 4 and 3
+        reset()
+        got = result_to_numpy(RDPipeline(cfg, k, device=dev, rd_impl=impl)
+                              .detect(frames, base))
+        cnt = counts()
+        assert cnt["topk"] > 0 and (impl == "auto" or cnt["ca_cfar"] > 0), cnt
+        want = result_to_numpy(RDPipeline(
+            cfg, k, device=dev, rd_impl="fused", cfar_impl="xla",
+            topk_impl="xla").detect(frames, base))
+        want["nbr"] = nbr_of(power_p, want)
+        flips[impl] = compare(got, want, cfg, max_flips=2, f32_floor=True)[0]
+    say(f"'mega' vs 'mega-maps' B={BATCH} K={K_DET} and 48: bit-identical "
+        f"{', '.join(bit_fields)}, azimuth within the gate; mega-maps "
+        f"launches {maps_counts}; vs the plain maps path: K=200 through "
+        f"'auto' (maps fall-through) {flips['auto']} flips, 'fused' "
+        f"(kernels 4 and 3) K={K_DET} {flips['fused']} flips")
+
+    # -- 8. non-coherent integration ----------------------------------------
+    parts, nci_counts = [], None
+    for c in (cfg, cfg_mean):
+        kp = RDPipeline(c, K_DET, device=dev)
+        pp = RDPipeline(c, K_DET, device=dev, rd_impl="fused",
+                        cfar_impl="xla", topk_impl="xla")
+        for walk in (False, True):
+            reset()
+            got = result_to_numpy(kp.detect_integrated(frames, base, n_int,
+                                                       walk))
+            cnt = counts()
+            assert all(v > 0 for v in cnt.values()), cnt
+            if c is cfg_mean and not walk:
+                nci_counts = cnt
+            want = result_to_numpy(pp.detect_integrated(frames, base, n_int,
+                                                        walk))
+            got["nbr"] = nbr_of(kp.integrated_power(frames, base, n_int,
+                                                    walk), got)
+            want["nbr"] = nbr_of(pp.integrated_power(frames, base, n_int,
+                                                     walk), want)
+            flips, _ = compare(got, want, c, max_flips=2, f32_floor=True)
+            worst = golden_match(
+                golden_power(capture[:4 * n_int + 1], c, n_int, walk),
+                n_int * c.cfar_pulses_effective,
+                {key: v[:4] for key, v in got.items()}, c)
+            parts.append(f"{'mean' if c is cfg_mean else 'base'}"
+                         f"{' walk' if walk else ''} "
+                         f"{flips} flips, golden power {worst:.1e}, valid "
+                         f"{int(got['valid'].sum())}")
+    say(f"detect_integrated B={BATCH} n={n_int} vs plain ({groups} groups) "
+        "and vs golden (4 groups, equal sets): " + "; ".join(parts)
+        + f"; launches (mean) {nci_counts}")
+
+    # -- 9. the CLI with --integrate ---------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_path = os.path.join(tmp, "cap.bin")
+        out_path = os.path.join(tmp, "nci.jsonl")
+        write_capture(cap_path, synthesize_capture(targets, 65, cfg,
+                                                   noise_std=5.0, seed=1),
+                      cfg)
+        reset()
+        rc = cli.main(["detect", cap_path, "--full", "--integrate",
+                       str(n_int), "--clutter", "mean", "--device", "cuda",
+                       "--out", out_path])
+        assert rc == 0, f"cli detect --integrate returned {rc}"
+        cli_counts = counts()
+        with open(out_path) as f:
+            records = [json.loads(ln) for ln in f if ln.strip()]
+    assert [r["frame"] for r in records] == list(range(4, 65, 4)), \
+        [r["frame"] for r in records]
+    assert all(v > 0 for v in cli_counts.values()), cli_counts
+    frame_s = cfg.num_chirps * cfg.chirp_interval_s
+    for rec in records:
+        for r0, v, _, _ in TARGETS:
+            want_r = r0 + v * rec["frame"] * frame_s
+            assert any(abs(d["range_m_interp"] - want_r) < 1.0
+                       and abs(d["velocity_mps_interp"] - v) < 1.0
+                       for d in rec["detections"]), (
+                f"group ending at frame {rec['frame']}: target at "
+                f"{want_r:.2f} m, {v} m/s not in {rec['detections']}")
+    say(f"cli detect --full --integrate {n_int} --clutter mean: "
+        f"{len(records)} group records (frames 4..64), both targets in "
+        f"every record, launches {cli_counts}")
+
+    # -- 10. timing ----------------------------------------------------------
+    t2 = alternate({
+        "kernel": lambda x: power_from_shorts_cuda(x, base, cfg, consts),
+        "plain": lambda x: power_from_shorts_reference(x, base, cfg)}, frames,
+        device_only=True)
+    t2c = alternate({
+        "kernel": lambda x: power_cfar_from_shorts_cuda(x, base, cfg, consts),
+        "plain": lambda x: power_cfar_from_shorts_reference(x, base, cfg)},
+        frames, device_only=True)
+    masked_sum = torch.where(hits4 & r_ok, p_sum,
+                             float("-inf")).reshape(groups, -1)
+    t4, t3 = {}, {}
+    for n, maps_n, rows_n in ((groups, p_sum, masked_sum),
+                              (BATCH, power_k, masked)):
+        t4[n] = alternate({
+            "kernel": lambda x: ca_cfar_2d_cuda(x, cfg_int),
+            "plain": lambda x: ca_cfar_2d(x, cfg_int)}, maps_n,
+            device_only=True)
+        t3[n] = alternate({
+            "kernel": lambda x: topk_cuda(x, K_DET),
+            "plain": lambda x: top_k_sorted(x, K_DET),
+            "library": lambda x: torch.topk(x, K_DET)}, rows_n,
+            device_only=True)
+    maps_pipe = RDPipeline(cfg, K_DET, device=dev, rd_impl="mega-maps")
+    nci_pipe = RDPipeline(cfg_mean, K_DET, device=dev)
+    plain_nci = RDPipeline(cfg_mean, K_DET, device=dev, rd_impl="fused",
+                           cfar_impl="xla", topk_impl="xla")
+    e2e = alternate({
+        "detect mega-maps": lambda x: maps_pipe.detect(x, base),
+        "detect_integrated": lambda x: nci_pipe.detect_integrated(
+            x, base, n_int),
+        "plain detect_integrated": lambda x: plain_nci.detect_integrated(
+            x, base, n_int)}, frames)
+
+    def fmt(t):
+        return ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+
+    say(f"timing on {gpu} (device only, median of 10): kernel 2 B={BATCH} "
+        f"power {fmt(t2)}; with CA-CFAR {fmt(t2c)}; kernel 4 {groups} maps "
+        f"{fmt(t4[groups])}; {BATCH} maps {fmt(t4[BATCH])}; kernel 3 K="
+        f"{K_DET} {groups} rows {fmt(t3[groups])}; {BATCH} rows "
+        f"{fmt(t3[BATCH])}")
+    say(f"timing on {gpu} B={BATCH} (host-inclusive, median of 10): "
+        + ", ".join(f"{k} {v:.4f} ms ({BATCH / v * 1e3:.0f} frames/s)"
+                    for k, v in e2e.items()))
+    say(profile_line(lambda: nci_pipe.detect_integrated(frames, base, n_int),
+                     f"detect_integrated B={BATCH} n={n_int}"))
+
+    fe_bytes = front_end_bytes(cfg, BATCH, True)
+    b2 = bound(front_end_flops(cfg, BATCH), fe_bytes + BATCH * n_cells * 4)
+    b2c = bound(front_end_flops(cfg, BATCH) + cfar_flops(cfg, BATCH * n_cells),
+                fe_bytes + 2 * BATCH * n_cells * 4)
+    b4, b3 = {}, {}
+    for n in (groups, BATCH):
+        b4[n] = bound(cfar_flops(cfg, n * n_cells), 2 * n * n_cells * 4)
+        b3[n] = bound(float(K_DET) * n * n_cells,
+                      n * n_cells * 4 + n * K_DET * 8)
+    say(f"bounds (ms, H100 SXM peaks): kernel 2 {b2[0]:.4f} ({b2[1]}), with "
+        f"CFAR {b2c[0]:.4f} ({b2c[1]}); kernel 4 " + ", ".join(
+            f"{n} maps {b4[n][0]:.5f} ({b4[n][1]})" for n in b4)
+        + "; kernel 3 " + ", ".join(
+            f"{n} rows {b3[n][0]:.5f} ({b3[n][1]})" for n in b3))
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        dict(common, name="mega_maps",
+             source="radar_tpu_torch/csrc/megakernel.cu",
+             replaces="radar_tpu/ops/pallas/megakernel.py:307",
+             launches=nci_counts["mega_maps"], max_abs_err=power_err,
+             ms=t2["kernel"], plain_ms=t2["plain"], bound_ms=b2[0],
+             bound_by=b2[1]),
+        dict(common, name="topk", source="radar_tpu_torch/csrc/topk.cu",
+             replaces="radar_tpu/ops/pallas/topk_kernel.py:34",
+             launches=nci_counts["topk"], max_abs_err=topk_err,
+             ms=t3[groups]["kernel"], plain_ms=t3[groups]["plain"],
+             bound_ms=b3[groups][0], bound_by=b3[groups][1],
+             library_ms=t3[groups]["library"]),
+        dict(common, name="ca_cfar", source="radar_tpu_torch/csrc/cfar.cu",
+             replaces="radar_tpu/ops/pallas/cfar_kernel.py:177",
+             launches=nci_counts["ca_cfar"], max_abs_err=cfar_err,
+             ms=t4[groups]["kernel"], plain_ms=t4[groups]["plain"],
+             bound_ms=b4[groups][0], bound_by=b4[groups][1]),
+    ]
 
 
 # ---------------------------------------------------------------------------
@@ -231,11 +738,11 @@ def main() -> int:
               "needs one CUDA GPU", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from radar_tpu.config import RadarConfig
-    from radar_tpu.io.capture import write_capture
-    from radar_tpu.io.synthetic import SceneTarget, synthesize_capture
     from radar_tpu_torch import _build, cli
+    from radar_tpu_torch.config import RadarConfig
     from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
     from radar_tpu_torch.models.rd_pipeline import (
         RDPipeline,
         assemble_result_from_kernel,
@@ -291,6 +798,9 @@ def main() -> int:
     say(f"kernel vs plain B={BATCH} K={K_DET}: {flips} flips, max |power "
         f"err| {max_abs_err:.4g}, valid {int(kern['valid'].sum())}, "
         f"main-path launches {main_launches}")
+    digest = outputs_digest(detections_from_shorts_cuda(frames, base, K_DET,
+                                                        cfg))
+    say(f"kernel 1 outputs B={BATCH} seed 0 K={K_DET}: sha256 {digest}")
     kern48 = run_detect(detections_from_shorts_cuda, frames, base, 48, cfg)
     plain48 = run_detect(detections_from_shorts_reference, frames, base, 48,
                          cfg)
@@ -369,31 +879,16 @@ def main() -> int:
             + ", ".join(f"{k} {v:.4f} ms/batch ({b / v * 1e3:.0f} frames/s)"
                         for k, v in med.items()))
 
-    torch.cuda.reset_peak_memory_stats()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        for _ in range(3):
-            pipe.detect(frames, base)
-        torch.cuda.synchronize()
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    rows = []
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 3.0, evt.key))
-    rows.sort(reverse=True)
-    if rows:
-        say("profile detect B=512 (device us/call): "
-            + "; ".join(f"{name[:48]} {us:.1f}" for us, name in rows[:8])
-            + f"; peak memory {peak_mb:.0f} MiB")
-    else:
-        say("profile: no device time reported (not measured); peak memory "
-            f"{peak_mb:.0f} MiB")
+    say(profile_line(lambda: pipe.detect(frames, base), f"detect B={BATCH}"))
 
-    say(json.dumps({"kernels": [{
+    flops = (front_end_flops(cfg, BATCH)
+             + cfar_flops(cfg, BATCH * cfg.doppler_fft_size
+                          * cfg.range_fft_size))
+    out_bytes = (BATCH * K_DET * (4 + 4 + 20 + 8 * cfg.num_virtual_rx)
+                 + 4 * BATCH)
+    bound_ms, bound_by = bound(flops,
+                               front_end_bytes(cfg, BATCH, True) + out_bytes)
+    kernels = [{
         "name": "mega_detect",
         "route": "cuda",
         "source": "radar_tpu_torch/csrc/megakernel.cu",
@@ -402,7 +897,12 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "ms": timings[BATCH]["kernel"],
         "plain_ms": timings[BATCH]["plain"],
-    }]}))
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }]
+    kernels += maps_phases(cfg, capture, frames, base, consts, gpu, targets)
+    say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, at first
-use, and loaded with ``ctypes``.  The library lands in ``build/<digest>/``
+(``sm_90a``) at first use, one ``nvcc -c`` per ``.cu`` file, all started
+together, then linked into one shared library with a plain C interface
+and loaded with ``ctypes``.  The library lands in ``build/<digest>/``
 beside this file (listed in ``.gitignore``); the digest covers the
-sources, the flags and the compiler path, so an edited source rebuilds.
+sources and headers, the flags and the compiler path, so an edited
+source rebuilds.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines without a CUDA toolkit.
@@ -24,9 +26,9 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 LIB_NAME = "libradar_kernels.so"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",   # registers / shared memory / spills into build.log
 )
 
@@ -66,6 +68,24 @@ def _digest(nvcc: str) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: list[list[str]], log: list[str]) -> None:
+    """Run the commands side by side; append each one's output to
+    ``log``; raise with the first failure's output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    failed = None
+    for cmd, proc in zip(cmds, procs):
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, out)
+    if failed is not None:
+        raise RuntimeError(
+            f"nvcc failed with exit code {failed[0]}:\n{failed[1][-4000:]}"
+        )
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless the library for their digest exists;
     returns its path.  Raises with nvcc's output when the build fails."""
@@ -76,20 +96,22 @@ def build() -> Path:
     if lib_path.is_file():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources() if s.suffix == ".cu")]
+    tag = os.getpid()
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [out_dir / f"{s.stem}.{tag}.o" for s in units]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    log: list[str] = []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            + (proc.stderr or proc.stdout)[-4000:]
-        )
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                  for s, o in zip(units, objs)], log)
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]], log)
+    finally:
+        build_seconds = time.perf_counter() - t0
+        (out_dir / "build.log").write_text("".join(log))
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, lib_path)
     return lib_path
 
@@ -110,6 +132,21 @@ def _declare(lib) -> None:
         + [ctypes.c_float,  # coef
            ptr]             # stream
     )
+    fn.restype = i32
+    fn = lib.radar_mega_maps
+    fn.argtypes = (
+        [ptr] * 8           # raw, base_raw, a2, ft_re, ft_im, z, power,
+                            # thresh
+        + [i32] * 14        # geometry, clutter, CFAR kind and window
+        + [ctypes.c_float,  # coef
+           ptr]             # stream
+    )
+    fn.restype = i32
+    fn = lib.radar_cfar_threshold
+    fn.argtypes = [ptr] * 2 + [i32] * 9 + [ctypes.c_float, ptr]
+    fn.restype = i32
+    fn = lib.radar_topk
+    fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     fn.restype = i32
     lib.radar_cuda_error_string.argtypes = [i32]
     lib.radar_cuda_error_string.restype = ctypes.c_char_p

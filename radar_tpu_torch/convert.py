@@ -1,14 +1,26 @@
 """State carried across from the JAX package.
 
-The pipelines have no weights; the only state is the base frame.  These
-helpers let both packages run on the same base and compare results as
-NumPy arrays.
+The pipelines have no weights; the state is the configuration and the
+base frame.  These helpers let both packages run on equal
+configurations and the same base, and compare results as NumPy arrays.
+They import nothing of the JAX package: they read what it hands over.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+
+from radar_tpu_torch.config import RadarConfig
+
+
+def config_from_jax(cfg) -> RadarConfig:
+    """The port's :class:`RadarConfig` with the field values of ``cfg``,
+    any dataclass with the same fields (the JAX package's
+    ``RadarConfig``)."""
+    return RadarConfig(**dataclasses.asdict(cfg))
 
 
 def base_from_numpy(base, device="cpu") -> torch.Tensor:

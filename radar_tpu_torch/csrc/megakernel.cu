@@ -1,9 +1,11 @@
-// Mega detect kernel for Hopper (sm_90a): raw int16 radar frames ->
-// per-frame CFAR detection lists, neighbour samples and AoA snapshots.
+// Mega kernels for Hopper (sm_90a): raw int16 radar frames -> per-frame
+// CFAR detection lists (the detect entry), or -> power maps and CFAR
+// threshold maps (the maps entry).
 //
-// Replaces the TPU kernel radar_tpu/ops/pallas/megakernel.py
-// _mega_detect_kernel (entry detections_from_shorts_pallas).  It computes
-// what that kernel computes, per frame:
+// The detect entry radar_mega_detect replaces the TPU kernel
+// radar_tpu/ops/pallas/megakernel.py _mega_detect_kernel (entry
+// detections_from_shorts_pallas).  It computes what that kernel
+// computes, per frame:
 //   1. raw frame minus the raw-space base (I/Q interleave kept),
 //   2. the range DFT with decode and window folded into a (2S, 2R) constant,
 //   3. 'base' or 'mean' clutter removal (mean over ALL chirps, pre-demux),
@@ -34,16 +36,30 @@
 // until it used 16-byte loads prefetched a tile ahead (PERF.md).
 // Tensor-core tiers and fusing the intermediates away are later work.
 //
-// The kernels allocate nothing; the caller passes every buffer.  The
+// The maps entry radar_mega_maps replaces the TPU kernel _mega_kernel
+// (launcher _mega_call; entries power_from_shorts_pallas and
+// power_cfar_from_shorts_pallas): stages (a) and (b) as they are, so its
+// power maps are bit-identical to the detect entry's, then, for the
+// with-CFAR form, the threshold kernel of cfar.cu (CA, GO or SO) on
+// them.  Its bound is the detect entry's front end: 61 GFLOP of f32 DFT
+// per 512-frame batch, about 0.9 ms at 67 TFLOP/s, against 105 MB in and
+// 34 MB of power (plus 34 MB of threshold) out, about 0.05 ms.  The CFAR
+// strip sums and the block argmax live in cfar_common.cuh, shared with
+// the threshold and top-K kernels, so the two entries' detections agree
+// bit for bit.
+//
+// The kernels allocate nothing; the caller passes every buffer.  Each
 // entry point returns the first CUDA error of its launches.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "cfar_common.cuh"
+
 namespace {
 
-constexpr float kF32Min = -3.40282346638528859811704183484516925440e+38f;
+using radar_cfar::kF32Min;
 
 // Vector loads from 16- (8-) byte aligned shared memory into registers.
 __device__ __forceinline__ void load4(float* dst, const float* src) {
@@ -325,35 +341,8 @@ __global__ void __launch_bounds__(256) doppler_power_kernel(
 // (c) per-frame detection: CFAR, mask, top-K, neighbours, snapshots.
 
 constexpr int kDetThreads = 512;
-constexpr int kDetCellsPerThread = 36;  // D*R <= 18432 (MAX_CELLS, the wrapper)
+constexpr int kDetCellsPerThread = radar_cfar::kMaxCells / kDetThreads;
 constexpr int kMaxK = 128;
-
-// Index maps of the CFAR windows.  Nearly every offset lands inside the
-// axis or one period off it, so those cases skip the integer division.
-__device__ __forceinline__ int wrap_index(int p, int n) {
-  if (p >= 0 && p < n) return p;
-  if (p < 0 && p >= -n) return p + n;
-  if (p >= n && p < 2 * n) return p - n;
-  const int q = p % n;
-  return q < 0 ? q + n : q;
-}
-
-// numpy 'reflect' padding: the edge is not repeated, period 2n - 2.
-__device__ __forceinline__ int reflect_index(int p, int n) {
-  if (p >= 0 && p < n) return p;
-  if (n == 1) return 0;
-  const int period = 2 * n - 2;
-  if (p < 0 && p > -n) return -p;
-  if (p >= n && p <= period) return period - p;
-  int q = p % period;
-  if (q < 0) q += period;
-  return q >= n ? period - q : q;
-}
-
-// lax.top_k order: larger value first, ties to the lower flat index.
-__device__ __forceinline__ bool better(float va, int ia, float vb, int ib) {
-  return va > vb || (va == vb && ia < ib);
-}
 
 __global__ void __launch_bounds__(kDetThreads) detect_kernel(
     const float* __restrict__ power, const float* __restrict__ z,
@@ -380,28 +369,11 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
   const float* pf = power + b * n_cells;
   for (int i = tid; i < n_cells; i += kDetThreads) p[i] = pf[i];
   __syncthreads();
-
-  // Doppler strips (wrap).  Summing per offset through the index map
-  // reproduces the band matrices' multiplicities when a window is wider
-  // than the axis; cells whose window stays inside the axis skip the map.
-  for (int i = tid; i < n_cells; i += kDetThreads) {
-    const int d = i / r_size, r = i % r_size;
-    const bool inside = d >= wd && d + wd < d_size;
-    float s1 = 0.f, s2 = 0.f;
-    for (int o = gd + 1; o <= wd; ++o) {
-      s1 += p[(inside ? d - o : wrap_index(d - o, d_size)) * r_size + r];
-      s1 += p[(inside ? d + o : wrap_index(d + o, d_size)) * r_size + r];
-    }
-    for (int o = -gd; o <= gd; ++o)
-      s2 += p[(inside ? d + o : wrap_index(d + o, d_size)) * r_size + r];
-    y1[i] = s1;
-    y2[i] = s2;
-  }
+  radar_cfar::doppler_strips(p, y1, y2, d_size, 0, d_size, r_size, gd, wd,
+                             kDetThreads);
   __syncthreads();
 
   // Range strips (reflect or wrap), threshold, range-edge guard, mask.
-  // ring = y1 @ Sr^T + y2 @ (Sr - Gr)^T: the cell under test and its
-  // guard box never enter a partial sum (no total - inner cancellation).
   // Non-hits hold the f32-min sentinel, so taken cells (-inf) sort below
   // every untaken one and exhausted slots come out in lax.top_k order.
   float mv[kDetCellsPerThread];
@@ -412,17 +384,8 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
     mv[j] = -CUDART_INF_F;
     if (i < n_cells) {
       const int d = i / r_size, r = i % r_size;
-      const float* y1r = y1 + d * r_size;
-      const float* y2r = y2 + d * r_size;
-      const bool inside = r >= wr && r + wr < r_size;
-      float ring = 0.f;
-      for (int o = -wr; o <= wr; ++o) {
-        const int q = inside       ? r + o
-                      : range_wrap ? wrap_index(r + o, r_size)
-                                   : reflect_index(r + o, r_size);
-        ring += y1r[q];
-        if (o < -gr || o > gr) ring += y2r[q];
-      }
+      const float ring = radar_cfar::ca_ring(y1 + d * r_size, y2 + d * r_size,
+                                             r, r_size, range_wrap, gr, wr);
       const float pv = p[i];
       const bool hit = pv > ring * coef && r < r_valid;
       mv[j] = hit ? pv : kF32Min;
@@ -450,43 +413,12 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
 #pragma unroll
     for (int j = 0; j < kDetCellsPerThread; ++j) {
       const int i = tid + j * kDetThreads;
-      if (i < n_cells && better(mv[j], i, bv, bi)) {
+      if (i < n_cells && radar_cfar::better(mv[j], i, bv, bi)) {
         bv = mv[j];
         bi = i;
       }
     }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-      const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < n_warps ? red_v[lane] : -CUDART_INF_F;
-      bi = lane < n_warps ? red_i[lane] : 0x7fffffff;
-#pragma unroll
-      for (int off = 16; off > 0; off /= 2) {
-        const float ov = __shfl_down_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_down_sync(0xffffffffu, bi, off);
-        if (better(ov, oi, bv, bi)) {
-          bv = ov;
-          bi = oi;
-        }
-      }
-      if (lane == 0) {
-        s_val[kk] = bv;
-        s_idx[kk] = bi;
-      }
-    }
-    __syncthreads();
+    radar_cfar::block_argmax(bv, bi, red_v, red_i, &s_val[kk], &s_idx[kk]);
     const int win = s_idx[kk];
 #pragma unroll
     for (int j = 0; j < kDetCellsPerThread; ++j)
@@ -506,8 +438,8 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
     nb[0] = row[r];
     nb[1] = row[r > 0 ? r - 1 : r];
     nb[2] = row[r < r_size - 1 ? r + 1 : r];
-    nb[3] = p[wrap_index(d - 1, d_size) * r_size + r];
-    nb[4] = p[wrap_index(d + 1, d_size) * r_size + r];
+    nb[3] = p[radar_cfar::wrap_index(d - 1, d_size) * r_size + r];
+    nb[4] = p[radar_cfar::wrap_index(d + 1, d_size) * r_size + r];
   }
 
   // Snapshots: s[k, tv] = sum_kc F[d_k, kc] * z[kc*TX + tx, v, r_k], one
@@ -543,6 +475,41 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
   }
 }
 
+// Stages (a) and (b) of the maps entry and of the detect entry: raw
+// frames -> power maps (B, D, R) through the range planes z.
+cudaError_t front_end(const int16_t* raw, const float* base_raw,
+                      const float* a2, const float* ft_re,
+                      const float* ft_im, float* z, float* power,
+                      int n_frames, int n_chirps, int n_rx, int n_tx, int s2,
+                      int r_size, int d_size, int clutter_mean,
+                      cudaStream_t stream) {
+  const int kc_size = n_chirps / n_tx;
+  const int rows_per_frame = n_chirps * n_rx;
+  const long long m_total = (long long)n_frames * rows_per_frame;
+
+  dim3 grid_a((unsigned)((m_total + kRaBM - 1) / kRaBM),
+              (2 * r_size + kRaBN - 1) / kRaBN);
+  range_gemm_kernel<<<grid_a, 256, 0, stream>>>(
+      raw, clutter_mean ? nullptr : base_raw, a2, z, m_total, s2, 2 * r_size,
+      rows_per_frame);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  if (clutter_mean) {
+    const long long n_columns = (long long)n_frames * n_rx * 2 * r_size;
+    chirp_mean_kernel<<<(unsigned)((n_columns + 255) / 256), 256, 0,
+                        stream>>>(z, n_chirps, n_rx, 2 * r_size, n_columns);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+
+  dim3 grid_b(n_frames, (r_size + kDpBR - 1) / kDpBR,
+              (d_size + kDpBD - 1) / kDpBD);
+  doppler_power_kernel<<<grid_b, 256, 0, stream>>>(
+      z, ft_re, ft_im, power, n_chirps, n_rx, n_tx, r_size, d_size, kc_size);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -573,30 +540,10 @@ int radar_mega_detect(const int16_t* raw, const float* base_raw,
       s2 % 8 != 0 || r_size % 4 != 0 || d_size % 4 != 0)
     return cudaErrorInvalidValue;
   const int kc_size = n_chirps / n_tx;
-  const int rows_per_frame = n_chirps * n_rx;
-  const long long m_total = (long long)n_frames * rows_per_frame;
-
-  dim3 grid_a((unsigned)((m_total + kRaBM - 1) / kRaBM),
-              (2 * r_size + kRaBN - 1) / kRaBN);
-  range_gemm_kernel<<<grid_a, 256, 0, stream>>>(
-      raw, clutter_mean ? nullptr : base_raw, a2, z, m_total, s2, 2 * r_size,
-      rows_per_frame);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  if (clutter_mean) {
-    const long long n_columns = (long long)n_frames * n_rx * 2 * r_size;
-    chirp_mean_kernel<<<(unsigned)((n_columns + 255) / 256), 256, 0,
-                        stream>>>(z, n_chirps, n_rx, 2 * r_size, n_columns);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-
-  dim3 grid_b(n_frames, (r_size + kDpBR - 1) / kDpBR,
-              (d_size + kDpBD - 1) / kDpBD);
-  doppler_power_kernel<<<grid_b, 256, 0, stream>>>(
-      z, ft_re, ft_im, power, n_chirps, n_rx, n_tx, r_size, d_size, kc_size);
-  err = cudaGetLastError();
+  cudaError_t err =
+      front_end(raw, base_raw, a2, ft_re, ft_im, z, power, n_frames,
+                n_chirps, n_rx, n_tx, s2, r_size, d_size, clutter_mean,
+                stream);
   if (err != cudaSuccess) return err;
 
   const size_t smem = 3 * (size_t)n_cells * sizeof(float);
@@ -609,6 +556,32 @@ int radar_mega_detect(const int16_t* raw, const float* base_raw,
       n_rx, n_tx, r_size, d_size, kc_size, k_det, range_wrap, guard_d,
       guard_r, win_d, win_r, r_valid, coef);
   return cudaGetLastError();
+}
+
+// The maps entry: stages (a) and (b) on ``stream``, then, when
+// ``thresh`` is not NULL, the CFAR threshold of ``kind`` (0 CA, 1 GO,
+// 2 SO; cfar.cu) of every power map.  Shapes as radar_mega_detect, plus
+// thresh (B, D, R) f32 or NULL.
+int radar_mega_maps(const int16_t* raw, const float* base_raw,
+                    const float* a2, const float* ft_re, const float* ft_im,
+                    float* z, float* power, float* thresh, int n_frames,
+                    int n_chirps, int n_rx, int n_tx, int s2, int r_size,
+                    int d_size, int clutter_mean, int kind, int range_wrap,
+                    int guard_d, int guard_r, int win_d, int win_r,
+                    float coef, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n_frames <= 0) return cudaSuccess;
+  if (n_chirps % n_tx != 0 || s2 % 8 != 0 || r_size % 4 != 0 ||
+      d_size % 4 != 0)
+    return cudaErrorInvalidValue;
+  const cudaError_t err =
+      front_end(raw, base_raw, a2, ft_re, ft_im, z, power, n_frames,
+                n_chirps, n_rx, n_tx, s2, r_size, d_size, clutter_mean,
+                stream);
+  if (err != cudaSuccess || thresh == nullptr) return err;
+  return radar_cfar_threshold(power, thresh, n_frames, d_size, r_size, kind,
+                              range_wrap, guard_d, guard_r, win_d, win_r,
+                              coef, stream);
 }
 
 }  // extern "C"

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from radar_tpu.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.decode import decode_to_cube, rx0_slice
 from radar_tpu_torch.ops.detect import PeakDetection, peak_detect
 from radar_tpu_torch.ops.preproc import clutter_subtract_pad

@@ -7,28 +7,39 @@
 
 Static shapes throughout: CFAR hits fold into a fixed top-K list masked
 by validity.  ``rd_impl`` 'auto'/'mega' runs everything up to the
-detection lists in the detect op of ``ops/cuda/megakernel.py`` (the CUDA
-kernel for CUDA tensors, its plain version for CPU tensors); after it
-only O(B*K) physics is left (:func:`assemble_result_from_kernel`).
-'fused' runs the plain maps path (:func:`assemble_result`).
+detection lists in the detect op of ``ops/cuda/megakernel.py`` (kernel
+1); after it only O(B*K) physics is left
+(:func:`assemble_result_from_kernel`).  'mega-maps' runs the maps op of
+the same module (kernel 2: power and CFAR threshold maps), then top-K
+(kernel 3) and :func:`assemble_result`; 'fused' runs the plain front end
+and then the CFAR (kernel 4) and top-K (kernel 3) kernels.  Each op
+launches its CUDA kernel for CUDA tensors and takes its plain version
+for CPU tensors; ``cfar_impl`` / ``topk_impl`` 'xla' pin the plain
+versions.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from radar_tpu.config import DEFAULT_CONFIG, LIGHT_SPEED, RadarConfig
+from radar_tpu_torch.config import DEFAULT_CONFIG, LIGHT_SPEED, RadarConfig
 from radar_tpu_torch.ops.aoa import angle_fft_spectrum
-from radar_tpu_torch.ops.cfar import ca_cfar_2d
+from radar_tpu_torch.ops.cfar import cfar_detect
 from radar_tpu_torch.ops.cuda.megakernel import (
     K_MAX,
     detections_from_shorts,
     mega_constants,
+    power_cfar_from_shorts,
+    power_from_shorts,
+    snapshots_from_shorts,
 )
+from radar_tpu_torch.ops.cuda.topk import top_k_sorted, topk_cuda
 from radar_tpu_torch.ops.decode import decode_to_cube
 from radar_tpu_torch.ops.fuseddft import fused_rd_planes
 from radar_tpu_torch.utils.device import resolve_device
@@ -54,20 +65,15 @@ class RDResult(NamedTuple):
 # stage helpers
 # --------------------------------------------------------------------------
 
-def top_k_sorted(flat: torch.Tensor, k: int):
-    """``lax.top_k`` order on the last axis: values descending, ties to
-    the LOWEST index, so exhausted (-inf) slots hold the untaken indices
-    in ascending order.  ``torch.topk`` does not promise that order; a
-    stable descending sort does.  Returns (values, int32 indices)."""
-    vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k].to(torch.int32)
-
-
-def topk_cells(power: torch.Tensor, hits: torch.Tensor, k: int):
+def topk_cells(power: torch.Tensor, hits: torch.Tensor, k: int,
+               topk_impl: str = "xla"):
     """Fold a CFAR hit map into a static top-K detection list.
 
     Args:
       power: float32 (..., D, R); hits: bool (..., D, R).
+      topk_impl: 'xla' (:func:`top_k_sorted`, the plain version) or
+        'pallas' (the CUDA top-K kernel; raises for tensors that are not
+        on a CUDA device).
 
     Returns:
       (num_hits (...,), top_idx (..., K) flat cell index, top_power,
@@ -77,7 +83,10 @@ def topk_cells(power: torch.Tensor, hits: torch.Tensor, k: int):
     num_hits = hits.sum(dim=(-2, -1)).to(torch.int32)
     masked = torch.where(hits, power, float("-inf"))
     flat = masked.reshape(masked.shape[:-2] + (d_size * r_size,))
-    top_power, top_idx = top_k_sorted(flat, k)
+    if topk_impl == "pallas":
+        top_power, top_idx = topk_cuda(flat, k)
+    else:
+        top_power, top_idx = top_k_sorted(flat, k)
     valid = torch.isfinite(top_power)
     top_power = torch.where(valid, top_power, 0.0)
     d_bin = top_idx // r_size
@@ -260,13 +269,14 @@ def _result(num_hits, d_bin, r_bin, top_power, valid, snaps,
     )
 
 
-def assemble_result(power, rd_snaps, hits, k: int,
-                    cfg: RadarConfig) -> RDResult:
+def assemble_result(power, rd_snaps, hits, k: int, cfg: RadarConfig,
+                    topk_impl: str = "xla") -> RDResult:
     """Tail of the maps path: range-edge guard, top-K, physics, AoA.
 
     Args:
       power: (..., D, R) integrated power (full map).
       rd_snaps: callable top_idx -> (..., K, rx) snapshot gatherer.
+      topk_impl: as :func:`topk_cells`.
     """
     guard = cfg.range_edge_guard_effective
     if guard:
@@ -275,7 +285,7 @@ def assemble_result(power, rd_snaps, hits, k: int,
         r_idx = torch.arange(power.shape[-1], device=power.device)
         hits = hits & (r_idx < power.shape[-1] - guard)
     num_hits, top_idx, top_power, valid, d_bin, r_bin = topk_cells(
-        power, hits, k
+        power, hits, k, topk_impl
     )
     range_interp, vel_interp = interp_cell_physics(
         power, top_idx, d_bin, r_bin, cfg
@@ -300,6 +310,26 @@ def assemble_result_from_kernel(
     )
     return _result(num_hits, d_bin, r_bin, top_power, valid, snaps,
                    range_interp, vel_interp, cfg)
+
+
+def range_walk_sources(cfg: RadarConfig, n: int):
+    """(src (N, D, R) int64 clamped, ok (N, D, R) bool): for frame f of
+    an n-frame group and Doppler bin d, range bin r of the aligned map
+    reads bin ``src`` of frame f's map, or zero where ``ok`` is false.
+    Each Doppler bin's rows shift by its own velocity's migration over
+    the frames left in the group, ``round(v_d * (n-1-f) * dt / r_res)``
+    bins, so every frame lands on the group's last frame's range grid."""
+    d_sz, r_sz = cfg.doppler_fft_size, cfg.range_fft_size
+    dt_f = cfg.num_chirps * cfg.chirp_interval_s
+    r_res = ((cfg.sample_rate_hz / r_sz) * LIGHT_SPEED
+             / (2.0 * cfg.slope_hz_per_s))
+    v_d = ((np.arange(d_sz) - d_sz // 2)
+           / (d_sz * cfg.slow_time_interval_s) * cfg.wavelength_m / 2.0)
+    shift = np.rint(v_d[None, :] * (n - 1 - np.arange(n))[:, None]
+                    * dt_f / r_res).astype(np.int32)            # (N, D)
+    src = np.arange(r_sz)[None, None, :] - shift[:, :, None]
+    return (torch.from_numpy(np.clip(src, 0, r_sz - 1).astype(np.int64)),
+            torch.from_numpy((src >= 0) & (src < r_sz)))
 
 
 def pack_detections(out: RDResult) -> torch.Tensor:
@@ -327,7 +357,7 @@ def pack_detections(out: RDResult) -> torch.Tensor:
 # the pipeline
 # --------------------------------------------------------------------------
 
-_ROADMAP_CFAR = "ROADMAP.md queue 1 item 8 (standalone CFAR and OS-CFAR)"
+_IMPLS = ("auto", "xla", "pallas")
 
 
 class RDPipeline(nn.Module):
@@ -338,13 +368,20 @@ class RDPipeline(nn.Module):
         pipe = RDPipeline(cfg, max_detections=16, device="cuda")
         base = pipe.prepare_base(frames[0])     # empty-scene frame(s)
         out = pipe.detect(frames[1:], base)      # RDResult, batched
+        nci = pipe.detect_integrated(frames[1:], base, 4)  # per 4 frames
 
     Attributes:
-      rd_impl: 'auto'/'mega' (the detect op: CUDA kernel on CUDA
-        tensors, its plain version on CPU tensors) or 'fused' (the plain
-        maps path).  Other JAX front ends are not ported yet.
-      cfar_impl: 'auto' or 'xla' (the JAX names); both run the CA
-        threshold of the selected path.
+      rd_impl: 'auto'/'mega' (kernel 1, the detect op, for CA-CFAR with
+        ``cfar_impl`` 'auto' and K <= 128; otherwise the maps path, as in
+        the JAX package), 'mega-maps' (kernel 2, the maps op, then the
+        top-K and the tail) or 'fused' (the plain front end, then CFAR
+        and top-K).  Other JAX front ends are not ported yet.
+      cfar_impl: 'auto' (under 'mega'/'mega-maps' the threshold inside
+        the maps op; elsewhere the CFAR kernel for CUDA tensors, the
+        plain version for CPU tensors), 'xla' (the plain version) or
+        'pallas' (the CFAR kernel; raises for CPU tensors).
+      topk_impl: 'auto' (the top-K kernel for CUDA tensors, the plain
+        version for CPU tensors), 'xla' or 'pallas', likewise.
 
     The DFT and band constants are buffers, so ``.to(device)`` moves
     them; the pipeline holds no random state.
@@ -353,23 +390,24 @@ class RDPipeline(nn.Module):
     def __init__(self, cfg: RadarConfig = DEFAULT_CONFIG,
                  max_detections: int = 16, *, device,
                  cfar_impl: str = "auto", rd_impl: str = "auto",
-                 keystone: bool = False):
+                 topk_impl: str = "auto", keystone: bool = False):
         super().__init__()
-        if rd_impl not in ("auto", "mega", "fused"):
+        if rd_impl not in ("auto", "mega", "mega-maps", "fused"):
             raise NotImplementedError(
                 f"rd_impl {rd_impl!r} is not ported yet (ROADMAP.md queue 1 "
-                "items 6 and 10: the maps flavour and the verification "
-                "front ends)"
+                "item 10: the verification front ends)"
             )
-        if cfg.cfar_kind != "ca":
+        if cfg.cfar_kind == "os":
             raise NotImplementedError(
-                f"cfar_kind {cfg.cfar_kind!r} is not ported yet "
-                f"({_ROADMAP_CFAR})"
+                "cfar_kind 'os' is not ported yet (ROADMAP.md queue 2 items "
+                "5-6: the OS-CFAR kernels)"
             )
-        if cfar_impl not in ("auto", "xla"):
-            raise NotImplementedError(
-                f"cfar_impl {cfar_impl!r} is not ported yet ({_ROADMAP_CFAR})"
-            )
+        for name, impl in (("cfar_impl", cfar_impl), ("topk_impl", topk_impl)):
+            if impl not in _IMPLS:
+                raise NotImplementedError(
+                    f"{name} {impl!r} has no counterpart in the port (it "
+                    f"takes {', '.join(_IMPLS)}; ROADMAP.md queue 1 item 8)"
+                )
         if cfg.clutter_mode in ("mti2", "mti3"):
             raise NotImplementedError(
                 f"clutter_mode {cfg.clutter_mode!r} is not ported yet "
@@ -379,15 +417,17 @@ class RDPipeline(nn.Module):
             raise NotImplementedError(
                 "keystone is not ported yet (ROADMAP.md queue 1 item 10)"
             )
-        if rd_impl != "fused" and max_detections > K_MAX:
-            raise NotImplementedError(
-                f"max_detections {max_detections} > {K_MAX} needs the maps "
-                "path, which is not ported yet (ROADMAP.md queue 1 item 6)"
-            )
         self.cfg = cfg
         self.max_detections = int(max_detections)
         self.cfar_impl = cfar_impl
         self.rd_impl = rd_impl
+        self.topk_impl = topk_impl
+        if self._detect_kernel() and cfg.cfar_kind != "ca":
+            raise NotImplementedError(
+                f"cfar_kind {cfg.cfar_kind!r} inside the detect kernel is "
+                "not ported yet (ROADMAP.md queue 1 item 8: GO/SO in kernel "
+                "1); rd_impl='mega-maps' takes it"
+            )
         device = resolve_device(device)
         for name, t in mega_constants(cfg).items():
             self.register_buffer(name, t.to(device), persistent=False)
@@ -398,6 +438,28 @@ class RDPipeline(nn.Module):
 
     def _as_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    def _detect_kernel(self) -> bool:
+        """Whether :meth:`detect` runs the detect op (kernel 1): the
+        JAX package's condition, less GO/SO (which raise)."""
+        return (self.rd_impl in ("auto", "mega") and self.cfar_impl == "auto"
+                and self.max_detections <= K_MAX)
+
+    @staticmethod
+    def _resolve(impl: str, t: torch.Tensor) -> str:
+        """'auto' -> 'pallas' (the kernel) on CUDA tensors, else 'xla'."""
+        if impl == "auto":
+            return "pallas" if t.is_cuda else "xla"
+        return impl
+
+    def _cfar(self, power: torch.Tensor, cfg: RadarConfig | None = None):
+        cfg = self.cfg if cfg is None else cfg
+        return cfar_detect(power, cfg,
+                           self._resolve(self.cfar_impl, power))[0]
+
+    def _tail(self, power, hits, snaps_fn) -> RDResult:
+        return assemble_result(power, snaps_fn, hits, self.max_detections,
+                               self.cfg, self._resolve(self.topk_impl, power))
 
     # -- base frame --------------------------------------------------------
     def prepare_base(self, frame0_shorts) -> torch.Tensor:
@@ -419,22 +481,91 @@ class RDPipeline(nn.Module):
         (shorts_per_frame,); inputs are moved to the pipeline's device.
         Clutter follows ``cfg.effective_clutter``: with ``clutter_mode``
         'auto', the base when one is given, else the mean over chirps."""
-        cfg = self.cfg
         shorts = self._as_tensor(shorts)
         base = None if base_cube is None else self._as_tensor(base_cube)
-        if self.rd_impl in ("auto", "mega"):
-            consts = dict(self.named_buffers())
+        if self._detect_kernel():
             out = detections_from_shorts(shorts, base, self.max_detections,
-                                         cfg, consts=consts)
-            return assemble_result_from_kernel(*out, cfg)
-        dr, di = fused_rd_planes(shorts, base, cfg)
-        power = (dr * dr + di * di).sum(dim=-3)
-        hits, _ = ca_cfar_2d(power, cfg)
-        return assemble_result(
-            power,
-            lambda top_idx: torch.complex(gather_snapshots(dr, top_idx),
-                                          gather_snapshots(di, top_idx)),
-            hits, self.max_detections, cfg,
-        )
+                                         self.cfg,
+                                         consts=dict(self.named_buffers()))
+            return assemble_result_from_kernel(*out, self.cfg)
+        return self._tail(*self._maps(shorts, base))
 
     forward = detect
+
+    @torch.no_grad()
+    def integrated_power(self, shorts, base_cube=None, n_integrate: int = 2,
+                         range_walk: bool = False) -> torch.Tensor:
+        """The summed power maps of :meth:`detect_integrated`: (B / n, D,
+        R) f32, each the sum of ``n_integrate`` consecutive frames' maps,
+        range-aligned per Doppler bin onto the group's last frame first
+        when ``range_walk`` (cells shifted in from outside the map are
+        zero)."""
+        n = int(n_integrate)
+        if n < 1:
+            raise ValueError(f"n_integrate must be >= 1, got {n}")
+        shorts = self._as_tensor(shorts)
+        base = None if base_cube is None else self._as_tensor(base_cube)
+        b = shorts.shape[0]
+        if b % n:
+            raise ValueError(
+                f"batch of {b} frames does not divide into groups of "
+                f"{n}; pass a multiple (cli detect --integrate trims)"
+            )
+        power = self._maps(shorts, base, want_hits=False)[0]
+        pw = power.reshape((b // n, n) + power.shape[1:])
+        if range_walk and n > 1:
+            src, ok = (t.to(pw.device)
+                       for t in range_walk_sources(self.cfg, n))
+            pw = torch.where(ok, torch.gather(pw, -1, src.expand(pw.shape)),
+                             0.0)
+        return pw.sum(dim=1)
+
+    @torch.no_grad()
+    def detect_integrated(self, shorts, base_cube=None, n_integrate: int = 2,
+                          range_walk: bool = False) -> RDResult:
+        """Non-coherent integration: sum ``n_integrate`` consecutive
+        frames' power maps (:meth:`integrated_power`), then CFAR with the
+        integration-matched alpha (Erlang order ``n *
+        cfg.cfar_pulses_effective``) and detection on the summed map.
+        Snapshots come from each group's last frame.  Returns one
+        :class:`RDResult` row per group (``B // n_integrate`` rows); the
+        batch must divide.  Pair it with a fresh-noise clutter mode
+        ('mean'): under base subtraction every frame carries the same
+        base noise, which integrates coherently."""
+        n = int(n_integrate)
+        shorts = self._as_tensor(shorts)
+        base = None if base_cube is None else self._as_tensor(base_cube)
+        p_int = self.integrated_power(shorts, base, n, range_walk)
+        cfg_int = dataclasses.replace(
+            self.cfg, cfar_n_pulses=n * self.cfg.cfar_pulses_effective)
+        hits = self._cfar(p_int, cfg_int)
+        last = shorts.reshape((-1, n) + shorts.shape[1:])[:, -1]
+        if self.rd_impl == "fused":
+            snaps_fn = self._maps(last, base, want_hits=False)[2]
+        else:
+            def snaps_fn(top_idx):
+                return snapshots_from_shorts(last, base, top_idx, self.cfg)
+        return self._tail(p_int, hits, snaps_fn)
+
+    def _maps(self, shorts, base, want_hits: bool = True):
+        """The front end up to its (power, hits) maps: the maps op for
+        'auto'/'mega'/'mega-maps', the plain planes for 'fused'.  Returns
+        ``(power, hits, snaps_fn)``, ``snaps_fn(top_idx)`` giving the
+        (..., K, TX*V) complex snapshots; ``want_hits=False`` skips the
+        CFAR (``hits`` None)."""
+        cfg = self.cfg
+        if self.rd_impl == "fused":
+            dr, di = fused_rd_planes(shorts, base, cfg)
+            power = (dr * dr + di * di).sum(dim=-3)
+            hits = self._cfar(power) if want_hits else None
+            return power, hits, lambda top_idx: torch.complex(
+                gather_snapshots(dr, top_idx), gather_snapshots(di, top_idx))
+        consts = dict(self.named_buffers())
+        if want_hits and self.cfar_impl == "auto":
+            power, thresh = power_cfar_from_shorts(shorts, base, cfg, consts)
+            hits = power > thresh
+        else:
+            power = power_from_shorts(shorts, base, cfg, consts)
+            hits = self._cfar(power) if want_hits else None
+        return power, hits, lambda top_idx: snapshots_from_shorts(
+            shorts, base, top_idx, cfg)

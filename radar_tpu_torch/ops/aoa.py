@@ -8,7 +8,7 @@ import functools
 import numpy as np
 import torch
 
-from radar_tpu.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 
 
 @functools.lru_cache(maxsize=None)

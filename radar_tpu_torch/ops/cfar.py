@@ -1,10 +1,14 @@
-"""2D cell-averaging CFAR (port of ``radar_tpu.ops.cfar``, 'ca' only).
+"""2D CFAR detectors (port of ``radar_tpu.ops.cfar``): cell-averaging
+(CA) and greatest-of / smallest-of (GOCA / SOCA); OS-CFAR is not ported
+yet (ROADMAP.md queue 2 items 5-6).
 
-Contract of ``radar_tpu.golden.ca_cfar_2d``: Doppler wraps (circular
-after fftshift), range reflects (numpy 'reflect': the edge is not
-repeated, period 2n - 2) or wraps per ``cfg.cfar_range_mode``;
-threshold = alpha * (training-ring mean), alpha Erlang-matched to
-``cfg.cfar_pulses_effective``.
+Contract of ``golden.ca_cfar_2d`` / ``golden.go_so_cfar_2d``: Doppler
+wraps (circular after fftshift), range reflects (numpy 'reflect': the
+edge is not repeated, period 2n - 2) or wraps per
+``cfg.cfar_range_mode``; threshold = alpha * (training-ring mean), or
+the Gandhi-Kassam multiplier times the larger (GO) or smaller (SO) of
+the range-leading and range-lagging half-window sums; every alpha is
+Erlang-matched to ``cfg.cfar_pulses_effective``.
 
 The ring is computed in the cancellation-free STRIP form of the JAX
 band-matrix kernels::
@@ -15,7 +19,8 @@ so the cell under test and its guard box never enter a partial sum:
 ``total - inner`` (or an f32 summed-area table) rounds both sums at the
 magnitude of a ~1e12 peak before they cancel and flips hit decisions
 there.  The CUDA detect kernel computes the same strips by summing over
-offsets through the same index maps.
+offsets through the same index maps (``csrc/cfar_common.cuh``), and
+so does the threshold kernel (``ops/cuda/cfar.py``).
 
 The alpha and band-matrix builders are NumPy copies of the JAX
 package's (that module imports jax); a test holds them bit-equal.
@@ -28,7 +33,8 @@ import functools
 import numpy as np
 import torch
 
-from radar_tpu.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.golden import go_so_cfar_alpha
 
 
 @functools.lru_cache(maxsize=None)   # ~1 ms of bisection per call
@@ -158,3 +164,100 @@ def ca_cfar_2d(
     ring = (tg @ power) @ sr_t + (g @ power) @ srg_t
     threshold = ring * (alpha / n_train)   # the coefficient rounds to f32
     return power > threshold, threshold
+
+
+@functools.lru_cache(maxsize=None)   # the Erlang-N bisection takes ~0.2 s
+def go_so_params(cfg: RadarConfig, kind: str) -> tuple[int, float]:
+    """(n_half, t) shared by every GO/SO twin: cells per half window and
+    the Gandhi-Kassam threshold multiplier (applied to the half SUM)."""
+    gd, gr = cfg.cfar_guard
+    td, tr = cfg.cfar_train
+    wd, wr = gd + td, gr + tr
+    n_half = (2 * wd + 1) * wr - (2 * gd + 1) * gr
+    if n_half <= 0:
+        raise ValueError(
+            f"{kind.upper()}CA-CFAR needs range training cells: "
+            f"cfar_train[1] > 0 (got train={cfg.cfar_train})"
+        )
+    return n_half, float(go_so_cfar_alpha(n_half, cfg.cfar_pfa, kind,
+                                          cfg.cfar_pulses_effective))
+
+
+def go_so_band_matrices(cfg: RadarConfig, d_size: int, r_size: int):
+    """(Td, Gd, AL, ALg, BL, BLg) f32 matrices for the GO/SO half-window
+    sums: lead = Td@p@AL^T - Gd@p@ALg^T, lag mirrored."""
+    gd, gr = cfg.cfar_guard
+    td, tr = cfg.cfar_train
+    wd, wr = gd + td, gr + tr
+    mk_r = (band_wrap_asym if cfg.cfar_range_mode == "wrap"
+            else band_reflect_asym)
+    return (
+        band_wrap(d_size, wd),
+        band_wrap(d_size, gd),
+        mk_r(r_size, 1, wr),
+        mk_r(r_size, 1, gr),
+        mk_r(r_size, -wr, -1),
+        mk_r(r_size, -gr, -1),
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _go_so_operands(cfg: RadarConfig, d_size: int, r_size: int,
+                    device: torch.device):
+    """(Td - Gd, Gd, AL^T, (AL - ALg)^T, BL^T, (BL - BLg)^T) as f32
+    tensors on ``device``: the strip form of the two half sums."""
+    td, gd, al, alg, bl, blg = go_so_band_matrices(cfg, d_size, r_size)
+    return tuple(torch.from_numpy(np.ascontiguousarray(m)).to(device)
+                 for m in (td - gd, gd, al.T, (al - alg).T, bl.T,
+                           (bl - blg).T))
+
+
+def go_so_cfar_2d(
+    power: torch.Tensor,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    kind: str = "go",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GOCA / SOCA detection map (twin of ``golden.go_so_cfar_2d``): the
+    training ring split into its range-leading (offsets > 0) and lagging
+    (< 0) halves, the dr == 0 column in neither; threshold = t * max
+    (GO) or min (SO) of the two half sums.  Each half in the strip form
+    ``(Td - Gd) @ p @ A^T + Gd @ p @ (A - Ag)^T``, like :func:`ca_cfar_2d`.
+
+    Returns (hits bool (..., d, r), threshold float32 (..., d, r))."""
+    _, t = go_so_params(cfg, kind)
+    tg, g, al_t, alg_t, bl_t, blg_t = _go_so_operands(
+        cfg, power.shape[-2], power.shape[-1], power.device)
+    y1, y2 = tg @ power, g @ power
+    lead = y1 @ al_t + y2 @ alg_t
+    lag = y1 @ bl_t + y2 @ blg_t
+    noise = torch.maximum(lead, lag) if kind == "go" else torch.minimum(
+        lead, lag)
+    threshold = noise * t
+    return power > threshold, threshold
+
+
+def cfar_detect(
+    power: torch.Tensor,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    impl: str = "xla",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CFAR family's one dispatch point: ``cfg.cfar_kind`` ('ca',
+    'goca', 'soca') crossed with ``impl`` — 'xla' (the plain version)
+    or 'pallas' (the CUDA threshold kernel of ``ops/cuda/cfar.py``;
+    raises for tensors that are not on a CUDA device).  GO/SO have no
+    kernel of their own, as in the JAX package: both impls take the
+    band products.  Returns (hits, threshold)."""
+    if cfg.cfar_kind == "os":
+        raise NotImplementedError(
+            "cfar_kind 'os' is not ported yet (ROADMAP.md queue 2 items "
+            "5-6: the OS-CFAR kernels)"
+        )
+    if impl not in ("xla", "pallas"):
+        raise ValueError(f"impl must be 'xla' or 'pallas', got {impl!r}")
+    if cfg.cfar_kind in ("goca", "soca"):
+        return go_so_cfar_2d(power, cfg, kind=cfg.cfar_kind[:2])
+    if impl == "xla":
+        return ca_cfar_2d(power, cfg)
+    from radar_tpu_torch.ops.cuda.cfar import ca_cfar_2d_cuda
+
+    return ca_cfar_2d_cuda(power, cfg)

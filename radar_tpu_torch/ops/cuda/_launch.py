@@ -1,0 +1,55 @@
+"""Checks and the launch call shared by the kernel wrappers."""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from radar_tpu_torch import _build
+
+
+def require_cuda(t: torch.Tensor, kernel: str, plain: str) -> None:
+    """Raise unless ``t`` lies on a CUDA device: a kernel never runs on,
+    or falls back to, anything else."""
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"the CUDA {kernel} kernel needs CUDA tensors, got {t.device}; "
+            f"{plain} is the plain version"
+        )
+
+
+def check(name: str, t: torch.Tensor, dtype, shape, device,
+          contiguous: bool = True) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
+            or t.device != device or (contiguous and not t.is_contiguous()):
+        raise ValueError(
+            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
+            f"got {'' if t.is_contiguous() else 'non-contiguous '}{t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
+        )
+
+
+def check_aligned(name: str, t: torch.Tensor) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                         "kernels load 16 bytes at a time); pass a copy")
+
+
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def launch(entry: str, device: torch.device, *args) -> None:
+    """Call the C entry point ``entry`` of the kernel library with
+    ``args`` and the current stream of ``device``; raise on a non-zero
+    CUDA error."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(
+            f"{entry} failed: CUDA error {err} "
+            f"({lib.radar_cuda_error_string(err).decode()})"
+        )

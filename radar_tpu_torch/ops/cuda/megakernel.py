@@ -1,48 +1,64 @@
-"""The detect op: raw int16 frames -> compact detection tensors.
+"""The mega ops: raw int16 frames -> compact detection tensors (kernel
+1), or -> power and CFAR threshold maps (kernel 2).
 
-Port of ``radar_tpu/ops/pallas/megakernel.py``'s detect variant
-(``_mega_detect_kernel``, entry ``detections_from_shorts_pallas``):
-range DFT -> clutter removal -> TDM demux -> Doppler DFT -> power ->
-CA-CFAR -> top-K -> neighbour samples -> AoA snapshots.
+Port of ``radar_tpu/ops/pallas/megakernel.py``:
 
-* :func:`detections_from_shorts_cuda` launches the CUDA kernel
-  (``csrc/megakernel.cu``; design and bounds are noted there) and counts
-  its launches in :data:`launches`.
-* :func:`detections_from_shorts_reference` is its plain PyTorch version,
-  built from the stage modules (``ops/fuseddft.py``, ``ops/cfar.py``,
-  ``models/rd_pipeline.py``).
-* :func:`detections_from_shorts` chooses by tensor device only: CPU
-  tensors get the plain version, CUDA tensors the kernel.  There is no
-  fallback from the kernel to the plain version.
+* the detect op (``_mega_detect_kernel``, entry
+  ``detections_from_shorts_pallas``): range DFT -> clutter removal ->
+  TDM demux -> Doppler DFT -> power -> CA-CFAR -> top-K -> neighbour
+  samples -> AoA snapshots;
+* the maps op (``_mega_kernel``, entries ``power_from_shorts_pallas``
+  and ``power_cfar_from_shorts_pallas``): the same front end up to the
+  power map, plus, in its with-CFAR form, the CA / GOCA / SOCA
+  threshold map;
+* ``snapshots_from_shorts``, the maps path's AoA snapshots recomputed
+  from the raw frames at the detected cells (plain PyTorch, as the JAX
+  package leaves it to XLA).
 
-Both compute in plain float32 whatever ``cfg.dft_precision`` says (the
+Each op has a ``*_cuda`` wrapper that launches the CUDA kernel
+(``csrc/megakernel.cu``; design and bounds are noted there) and counts
+its launches (:data:`launches` for the detect op, :data:`maps_launches`
+for the maps op), a ``*_reference`` plain PyTorch version built from
+the stage modules (``ops/fuseddft.py``, ``ops/cfar.py``), and a
+dispatcher that chooses by tensor device only: CPU tensors get the
+plain version, CUDA tensors the kernel.  There is no fallback from a
+kernel to its plain version.
+
+All compute in plain float32 whatever ``cfg.dft_precision`` says (the
 TPU's bf16 tiers are not emulated; see ``ops/dftmat.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
-from radar_tpu.config import DEFAULT_CONFIG, RadarConfig
-from radar_tpu_torch import _build
-from radar_tpu_torch.ops.cfar import ca_cfar_2d, cfar_alpha
-from radar_tpu_torch.ops.dftmat import _dft_factors
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.ops.cfar import ca_cfar_2d, go_so_cfar_2d
+from radar_tpu_torch.ops.cuda._launch import (
+    check,
+    check_aligned,
+    launch,
+    ptr,
+    require_cuda,
+)
+from radar_tpu_torch.ops.cuda.cfar import check_map_size, threshold_args
+from radar_tpu_torch.ops.cuda.topk import top_k_sorted
+from radar_tpu_torch.ops.dftmat import _dft_factors, dft_matrix
 from radar_tpu_torch.ops.fuseddft import (
     _interleaved_range_factors,
     base_raw_interleave,
     clutter_mode,
     doppler_from_range_planes,
     fused_range_planes,
+    interleaved_range_matrices,
 )
 from radar_tpu_torch.ops.window import resolve_window
 
 K_MAX = 128         # the TPU kernel's selection width (_K_LANE); kept as the gate
-MAX_CELLS = 18432   # D*R: three f32 maps in one block's shared memory
 
 launches = 0        # kernel launches by detections_from_shorts_cuda
+maps_launches = 0   # kernel launches by power_(cfar_)from_shorts_cuda
 
 
 def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]:
@@ -104,7 +120,6 @@ def detections_from_shorts_reference(
     from radar_tpu_torch.models.rd_pipeline import (
         gather_snapshots,
         neighbour_samples,
-        top_k_sorted,
     )
 
     lead = shorts.shape[:-1]
@@ -128,19 +143,37 @@ def detections_from_shorts_reference(
             snaps.reshape(lead + snaps.shape[-2:]))
 
 
-def _check(name: str, t: torch.Tensor, dtype, shape, device,
-           contiguous: bool = True) -> None:
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
-            or t.device != device or (contiguous and not t.is_contiguous()):
-        raise ValueError(
-            f"{name}: expected contiguous {dtype} {tuple(shape)} on {device}, "
-            f"got {'' if t.is_contiguous() else 'non-contiguous '}{t.dtype} "
-            f"{tuple(t.shape)} on {t.device}"
+def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
+    """Checks shared by the two mega kernels' wrappers; returns (frames
+    (B, shorts_per_frame), base in the raw interleave or None, consts,
+    clutter mode)."""
+    require_cuda(shorts, what, f"{what}_reference")
+    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
+    d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+    if s2 % 8 or r_size % 4 or d_size % 4:
+        raise NotImplementedError(
+            f"the mega kernels stage rows with 16-byte loads: num_samples "
+            f"({cfg.num_samples}), range_fft_size ({r_size}) and "
+            f"doppler_fft_size ({d_size}) must be multiples of 4"
         )
-
-
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+    check_map_size(d_size, r_size)
+    mode = clutter_mode(base_cube, cfg)
+    dev = shorts.device
+    x = shorts.reshape(-1, cfg.shorts_per_frame)
+    check("shorts", x, torch.int16, (x.shape[0], cfg.shorts_per_frame), dev)
+    check_aligned("shorts", x)
+    if consts is None:
+        consts = {n: t.to(dev) for n, t in mega_constants(cfg).items()}
+    check("a2", consts["a2"], torch.float32, (s2, 2 * r_size), dev)
+    for name in ("ft_re", "ft_im"):
+        check(name, consts[name], torch.float32,
+              (cfg.chirps_per_tx, d_size), dev)
+    base_raw = None
+    if mode == "base":
+        check("base_cube", base_cube, torch.complex64,
+              (v, c, cfg.num_samples), dev, contiguous=False)
+        base_raw = base_raw_interleave(base_cube).reshape(c * v, s2)
+    return x, base_raw, consts, mode
 
 
 def detections_from_shorts_cuda(
@@ -154,11 +187,6 @@ def detections_from_shorts_cuda(
     for a tensor that is not on a CUDA device, for a geometry the kernel
     does not take, when the build fails and when a launch fails."""
     global launches
-    if shorts.device.type != "cuda":
-        raise ValueError(
-            f"the CUDA detect kernel needs CUDA tensors, got {shorts.device}; "
-            "detections_from_shorts_reference is the plain version"
-        )
     if cfg.cfar_kind != "ca":
         raise NotImplementedError(
             f"cfar_kind {cfg.cfar_kind!r} is not in the kernel (ROADMAP.md "
@@ -166,46 +194,17 @@ def detections_from_shorts_cuda(
         )
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     d_size, r_size, tx = cfg.doppler_fft_size, cfg.range_fft_size, cfg.num_tx
-    kc = cfg.chirps_per_tx
     if not 1 <= k <= min(K_MAX, d_size * r_size):
         raise NotImplementedError(
-            f"max_detections {k} outside the kernel's 1..{K_MAX} "
-            "(ROADMAP.md queue 1 item 6: the maps path)"
+            f"max_detections {k} outside the detect kernel's 1..{K_MAX}; "
+            "RDPipeline takes the maps path there"
         )
-    if s2 % 8 or r_size % 4 or d_size % 4:
-        raise NotImplementedError(
-            f"the detect kernel stages rows with 16-byte loads: num_samples "
-            f"({cfg.num_samples}), range_fft_size ({r_size}) and "
-            f"doppler_fft_size ({d_size}) must be multiples of 4"
-        )
-    if d_size * r_size > MAX_CELLS:
-        raise NotImplementedError(
-            f"a {d_size}x{r_size} map exceeds the detect kernel's "
-            f"{MAX_CELLS}-cell shared-memory gate"
-        )
-    mode = clutter_mode(base_cube, cfg)
+    x, base_raw, consts, mode = _front_end_args(
+        shorts, base_cube, cfg, consts, "detections_from_shorts")
     dev = shorts.device
     lead = shorts.shape[:-1]
-    x = shorts.reshape(-1, cfg.shorts_per_frame)
-    _check("shorts", x, torch.int16, (x.shape[0], cfg.shorts_per_frame), dev)
-    if x.data_ptr() % 16:
-        raise ValueError("shorts must start on a 16-byte boundary (the "
-                         "kernel's row loads are 16 bytes); pass a copy")
     b = x.shape[0]
-    if consts is None:
-        consts = {n: t.to(dev) for n, t in mega_constants(cfg).items()}
-    _check("a2", consts["a2"], torch.float32, (s2, 2 * r_size), dev)
-    for name in ("ft_re", "ft_im"):
-        _check(name, consts[name], torch.float32, (kc, d_size), dev)
-    base_raw = None
-    if mode == "base":
-        _check("base_cube", base_cube, torch.complex64,
-               (v, c, cfg.num_samples), dev, contiguous=False)
-        base_raw = base_raw_interleave(base_cube).reshape(c * v, s2)
-    alpha, n_train = cfar_alpha(cfg.cfar_guard, cfg.cfar_train, cfg.cfar_pfa,
-                                cfg.cfar_pulses_effective)
-    gd, gr = cfg.cfar_guard
-    td, tr = cfg.cfar_train
+    _, range_wrap, gd, gr, wd, wr, coef = threshold_args(cfg, "ca")
 
     f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty((b * c * v, 2 * r_size), **f32)
@@ -216,26 +215,162 @@ def detections_from_shorts_cuda(
     num_hits = torch.empty((b,), dtype=torch.int32, device=dev)
     snaps = torch.empty((b, k, tx * v, 2), **f32)
 
-    lib = _build.load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.radar_mega_detect(
-            _ptr(x), _ptr(base_raw), _ptr(consts["a2"]),
-            _ptr(consts["ft_re"]), _ptr(consts["ft_im"]), _ptr(z), _ptr(power),
-            _ptr(top_idx), _ptr(top_val), _ptr(nbr), _ptr(num_hits),
-            _ptr(snaps),
-            b, c, v, tx, s2, r_size, d_size, k,
-            int(mode == "mean"), int(cfg.cfar_range_mode == "wrap"),
-            gd, gr, gd + td, gr + tr,
-            r_size - cfg.range_edge_guard_effective,
-            float(alpha / n_train), ctypes.c_void_p(stream),
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"radar_mega_detect failed: CUDA error {err} "
-            f"({lib.radar_cuda_error_string(err).decode()})"
-        )
+    launch("radar_mega_detect", dev,
+           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["ft_re"]),
+           ptr(consts["ft_im"]), ptr(z), ptr(power), ptr(top_idx),
+           ptr(top_val), ptr(nbr), ptr(num_hits), ptr(snaps),
+           b, c, v, tx, s2, r_size, d_size, k, int(mode == "mean"),
+           range_wrap, gd, gr, wd, wr,
+           r_size - cfg.range_edge_guard_effective, coef)
     launches += 1
     return (top_idx.reshape(lead + (k,)), top_val.reshape(lead + (k,)),
             nbr.reshape(lead + (k, 5)), num_hits.reshape(lead),
             torch.view_as_complex(snaps).reshape(lead + (k, tx * v)))
+
+
+# ---------------------------------------------------------------------------
+# the maps op (kernel 2)
+
+
+def power_from_shorts(shorts, base_cube, cfg: RadarConfig = DEFAULT_CONFIG,
+                      consts=None) -> torch.Tensor:
+    """Raw int16 frames (..., shorts_per_frame) -> power maps f32
+    (..., D, R), Doppler fftshifted, summed over the virtual channels.
+    CPU tensors take the plain version; CUDA tensors the kernel."""
+    if shorts.device.type == "cpu":
+        return power_from_shorts_reference(shorts, base_cube, cfg)
+    return power_from_shorts_cuda(shorts, base_cube, cfg, consts)
+
+
+def power_cfar_from_shorts(shorts, base_cube,
+                           cfg: RadarConfig = DEFAULT_CONFIG, consts=None):
+    """(power, threshold) f32 (..., D, R): :func:`power_from_shorts`
+    plus the CFAR threshold of ``cfg.cfar_kind`` ('ca', 'goca' or
+    'soca'); hits are ``power > threshold``.  CPU tensors take the plain
+    version; CUDA tensors the kernel."""
+    if shorts.device.type == "cpu":
+        return power_cfar_from_shorts_reference(shorts, base_cube, cfg)
+    return power_cfar_from_shorts_cuda(shorts, base_cube, cfg, consts)
+
+
+def power_from_shorts_reference(shorts, base_cube,
+                                cfg: RadarConfig = DEFAULT_CONFIG):
+    """The plain version of the maps op's power map, on any device."""
+    dr, di = doppler_from_range_planes(
+        *fused_range_planes(shorts, base_cube, cfg), cfg)
+    return (dr * dr + di * di).sum(dim=-3)
+
+
+def power_cfar_from_shorts_reference(shorts, base_cube,
+                                     cfg: RadarConfig = DEFAULT_CONFIG):
+    """The plain version of the maps op's with-CFAR form, on any
+    device: the power map and the strip-form CA / GO / SO threshold."""
+    power = power_from_shorts_reference(shorts, base_cube, cfg)
+    if cfg.cfar_kind == "ca":
+        return power, ca_cfar_2d(power, cfg)[1]
+    return power, go_so_cfar_2d(power, cfg, _map_kind(cfg)[:2])[1]
+
+
+def _map_kind(cfg: RadarConfig) -> str:
+    if cfg.cfar_kind not in ("ca", "goca", "soca"):
+        raise NotImplementedError(
+            f"the maps op's CFAR takes ca/goca/soca, not {cfg.cfar_kind!r} "
+            "(ROADMAP.md queue 2 items 5-6: OS-CFAR)"
+        )
+    return cfg.cfar_kind
+
+
+def power_from_shorts_cuda(shorts, base_cube,
+                           cfg: RadarConfig = DEFAULT_CONFIG, consts=None):
+    """:func:`power_from_shorts` through the CUDA kernel."""
+    return _maps_cuda(shorts, base_cube, cfg, consts, with_cfar=False)
+
+
+def power_cfar_from_shorts_cuda(shorts, base_cube,
+                                cfg: RadarConfig = DEFAULT_CONFIG,
+                                consts=None):
+    """:func:`power_cfar_from_shorts` through the CUDA kernel."""
+    return _maps_cuda(shorts, base_cube, cfg, consts, with_cfar=True)
+
+
+def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
+    """The maps kernel: raises for a tensor that is not on a CUDA
+    device, for a geometry it does not take, when the build fails and
+    when a launch fails."""
+    global maps_launches
+    kind = _map_kind(cfg) if with_cfar else "ca"
+    x, base_raw, consts, mode = _front_end_args(shorts, base_cube, cfg,
+                                                consts, "power_from_shorts")
+    dev = shorts.device
+    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
+    d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+    b = x.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    z = torch.empty((b * c * v, 2 * r_size), **f32)
+    power = torch.empty((b, d_size, r_size), **f32)
+    thresh = torch.empty((b, d_size, r_size), **f32) if with_cfar else None
+    launch("radar_mega_maps", dev,
+           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["ft_re"]),
+           ptr(consts["ft_im"]), ptr(z), ptr(power), ptr(thresh),
+           b, c, v, cfg.num_tx, s2, r_size, d_size, int(mode == "mean"),
+           *threshold_args(cfg, kind))
+    maps_launches += 1
+    shape = shorts.shape[:-1] + (d_size, r_size)
+    if not with_cfar:
+        return power.reshape(shape)
+    return power.reshape(shape), thresh.reshape(shape)
+
+
+def snapshots_from_shorts(shorts, base_cube, top_idx,
+                          cfg: RadarConfig = DEFAULT_CONFIG,
+                          window=True) -> torch.Tensor:
+    """Per-detection virtual-RX snapshots recomputed from the raw frames
+    (port of the JAX function of this name, plain PyTorch on any device):
+
+        snap[b, k, t*V + v] = sum_kc F_dop[d_k, kc] * rng[b, kc, t, v, r_k]
+
+    where rng is the clutter-removed range plane at the detected range
+    bin: K gathered range-DFT rows contracted with the raw frames, then
+    'base' or 'mean' clutter removal, the TDM demux and K gathered
+    Doppler-DFT rows.  The base is subtracted in raw space, as on every
+    range path of the port.
+
+    Args:
+      shorts: int16 (..., shorts_per_frame); top_idx: int (..., K) flat
+        D*R cell index.
+
+    Returns:
+      complex64 (..., K, TX*V), in the order of gathering from
+      ``fused_rd_planes``, before MIMO compensation.
+    """
+    mode = clutter_mode(base_cube, cfg)
+    window = resolve_window(window, cfg)
+    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
+    kc, tx, r_size = cfg.chirps_per_tx, cfg.num_tx, cfg.range_fft_size
+    lead = shorts.shape[:-1]
+    k = top_idx.shape[-1]
+    raw = shorts.reshape(-1, c * v, s2).to(torch.float32)
+    if mode == "base":
+        raw -= base_raw_interleave(base_cube).reshape(c * v, s2)
+    top_idx = top_idx.reshape(-1, k).to(torch.int64)
+    d_bin, r_bin = top_idx // r_size, top_idx % r_size
+    a_re, a_im = interleaved_range_matrices(cfg.num_samples, r_size, window,
+                                            raw.device)
+    # range planes at the detected bins: (B, K, C*V)
+    g_re = torch.einsum("bkj,bmj->bkm", a_re[r_bin], raw)
+    g_im = torch.einsum("bkj,bmj->bkm", a_im[r_bin], raw)
+    b = raw.shape[0]
+    g_re = g_re.reshape(b, k, c, v)
+    g_im = g_im.reshape(b, k, c, v)
+    if mode == "mean":
+        g_re = g_re - g_re.mean(dim=2, keepdim=True)
+        g_im = g_im - g_im.mean(dim=2, keepdim=True)
+    # TDM demux (chirp = kc*TX + tx), then the detection's Doppler row
+    g_re = g_re.reshape(b, k, kc, tx * v)
+    g_im = g_im.reshape(b, k, kc, tx * v)
+    f_dop = dft_matrix(kc, cfg.doppler_fft_size, window, True, raw.device)
+    fr = f_dop.real[d_bin][..., None]                  # (B, K, Kc, 1)
+    fi = f_dop.imag[d_bin][..., None]
+    sr = (fr * g_re - fi * g_im).sum(dim=-2)
+    si = (fr * g_im + fi * g_re).sum(dim=-2)
+    return torch.complex(sr, si).reshape(lead + (k, tx * v))

@@ -1,0 +1,67 @@
+"""Top-K of flattened masked maps: kernel 3.
+
+Port of ``radar_tpu/ops/pallas/topk_kernel.py`` (``_kernel``, entry
+``topk_pallas``): the K largest entries of each row in ``lax.top_k``
+order — values descending, ties to the lowest index, and once the
+finite entries run out, the untaken indices in ascending order with
+value -inf.
+
+* :func:`topk_cuda` launches the CUDA kernel (``csrc/topk.cu``; design
+  and bounds are noted there) and counts its launches in
+  :data:`launches`.
+* :func:`top_k_sorted` is its plain version (a stable descending sort).
+
+``models.rd_pipeline.topk_cells`` picks between them; there is no
+fallback from the kernel to the plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from radar_tpu_torch.ops.cuda._launch import (
+    check,
+    check_aligned,
+    launch,
+    ptr,
+    require_cuda,
+)
+from radar_tpu_torch.ops.cuda.cfar import MAX_CELLS
+
+launches = 0      # kernel launches by topk_cuda
+
+
+def top_k_sorted(flat: torch.Tensor, k: int):
+    """``lax.top_k`` order on the last axis: values descending, ties to
+    the LOWEST index, so exhausted (-inf) slots hold the untaken indices
+    in ascending order.  ``torch.topk`` does not promise that order; a
+    stable descending sort does.  Returns (values, int32 indices)."""
+    vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+def topk_cuda(flat: torch.Tensor, k: int):
+    """:func:`top_k_sorted` through the CUDA kernel, for f32 (..., N).
+    Entries equal to the f32 minimum read as -inf (the kernel's
+    sentinel); masked power maps never hold one.  Raises for a tensor
+    that is not on a CUDA device, for N or K outside the kernel's range,
+    when the build fails and when the launch fails."""
+    global launches
+    require_cuda(flat, "top-K", "top_k_sorted")
+    n = flat.shape[-1]
+    if n > MAX_CELLS or not 1 <= k <= n:
+        raise NotImplementedError(
+            f"top-{k} of {n} cells is outside the top-K kernel's range "
+            f"(1 <= K <= N <= {MAX_CELLS})"
+        )
+    lead = flat.shape[:-1]
+    x = flat.reshape(-1, n)
+    check("flat", x, torch.float32, (x.shape[0], n), flat.device)
+    check_aligned("flat", x)
+    vals = torch.empty((x.shape[0], k), dtype=torch.float32,
+                       device=flat.device)
+    idx = torch.empty((x.shape[0], k), dtype=torch.int32, device=flat.device)
+    launch("radar_topk", flat.device, ptr(x), ptr(vals), ptr(idx),
+           x.shape[0], n, k)
+    launches += 1
+    return vals.reshape(lead + (k,)), idx.reshape(lead + (k,))

@@ -11,7 +11,7 @@ from typing import NamedTuple
 
 import torch
 
-from radar_tpu.config import DEFAULT_CONFIG, LIGHT_SPEED, RadarConfig
+from radar_tpu_torch.config import DEFAULT_CONFIG, LIGHT_SPEED, RadarConfig
 
 
 class PeakDetection(NamedTuple):

@@ -14,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from radar_tpu.golden import window_fn
+from radar_tpu_torch.golden import window_fn
 
 
 @lru_cache(maxsize=16)

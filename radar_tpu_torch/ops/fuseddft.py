@@ -15,8 +15,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from radar_tpu.config import DEFAULT_CONFIG, RadarConfig
-from radar_tpu.golden import window_fn
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.golden import window_fn
 from radar_tpu_torch.ops.dftmat import dft_matrix
 from radar_tpu_torch.ops.window import resolve_window
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from radar_tpu.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 
 
 def range_fft(

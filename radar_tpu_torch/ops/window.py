@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from radar_tpu.golden import window_fn
+from radar_tpu_torch.golden import window_fn
 
 
 def resolve_window(window, cfg):

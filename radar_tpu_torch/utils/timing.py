@@ -35,12 +35,18 @@ def fence(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
-def cuda_time_ms(fn: Callable, *args, iters: int = 5,
-                 warmup: int = 2) -> list[float]:
+SPIN_CYCLES = 2_000_000   # ~1 ms of device clock at the H100's ~2 GHz
+
+
+def cuda_time_ms(fn: Callable, *args, iters: int = 5, warmup: int = 2,
+                 queue_ahead: bool = False) -> list[float]:
     """Device time of each of ``iters`` calls of ``fn(*args)`` in ms,
     from CUDA events around each call on the current stream (after
-    ``warmup`` untimed calls).  Raises when CUDA is unavailable: a
-    device time is never taken from a CPU run."""
+    ``warmup`` untimed calls).  With ``queue_ahead`` the stream first
+    spins ~1 ms on the device before each call, so the host enqueues the
+    call while the device waits and the events time the device's work
+    alone, without the host's launch gaps.  Raises when CUDA is
+    unavailable: a device time is never taken from a CPU run."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms needs a CUDA device")
     for _ in range(warmup):
@@ -50,6 +56,8 @@ def cuda_time_ms(fn: Callable, *args, iters: int = 5,
     for _ in range(iters):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn(*args)
         stop.record()

@@ -1,6 +1,10 @@
-"""The port's NumPy copies of the JAX package's host constant builders are
-bit-equal to the originals (the originals live in modules that import
-jax, which the port may not import)."""
+"""The port's copies of what it needs from the JAX package are equal to
+the originals: the NumPy host constant builders (bit-equal; the
+originals live in modules that import jax), and the configuration, the
+capture I/O, the synthetic scene generator and the float64 golden
+subset (the port may import nothing of the JAX package)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -9,12 +13,33 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from radar_tpu import config as jax_config  # noqa: E402
+from radar_tpu import golden as jax_golden  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
+from radar_tpu.io import capture as jax_capture  # noqa: E402
+from radar_tpu.io import synthetic as jax_synthetic  # noqa: E402
 from radar_tpu.ops import aoa as jax_aoa  # noqa: E402
 from radar_tpu.ops import cfar as jax_cfar  # noqa: E402
 from radar_tpu.ops import dftmat as jax_dftmat  # noqa: E402
 from radar_tpu.ops import fuseddft as jax_fuseddft  # noqa: E402
+from radar_tpu_torch import config, golden  # noqa: E402
+from radar_tpu_torch.convert import config_from_jax  # noqa: E402
+from radar_tpu_torch.io import capture, synthetic  # noqa: E402
 from radar_tpu_torch.ops import aoa, cfar, dftmat, fuseddft  # noqa: E402
+
+CONFIGS = [
+    dict(),
+    dict(num_samples=64, num_chirps=64, num_rx=2, num_tx=2),
+    dict(num_tx=2, cfar_kind="goca", cfar_range_mode="wrap",
+         range_edge_guard=0, cfar_n_pulses=3, window_kind="blackman"),
+    dict(num_chirps=96, num_tx=3, clutter_mode="mean", cfar_kind="soca",
+         rx_cal=(1.0, 1j, -1.0, 0.5 + 0.5j), dft_precision="highest",
+         tx_positions_wl=((0.0, 0.0), (2.0, 0.0), (1.0, 0.5))),
+]
+PROPERTIES = [
+    name for name, v in vars(jax_config.RadarConfig).items()
+    if isinstance(v, property)
+]
 
 
 @pytest.mark.parametrize("n_samples,n_fft,windowed", [
@@ -79,3 +104,197 @@ def test_base_raw_interleave(geom):
     got = fuseddft.base_raw_interleave(torch.from_numpy(base)).numpy()
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
+
+
+def _props(cfg) -> dict:
+    return {name: getattr(cfg, name) for name in PROPERTIES}
+
+
+def test_config_fields_and_defaults():
+    want = [(f.name, f.default, str(f.type))
+            for f in dataclasses.fields(jax_config.RadarConfig)]
+    got = [(f.name, f.default, str(f.type))
+           for f in dataclasses.fields(config.RadarConfig)]
+    assert got == want
+    assert config.LIGHT_SPEED == jax_config.LIGHT_SPEED
+    assert config.DEFAULT_CONFIG == config.RadarConfig()
+    for n in (0, 1, 2, 3, 100, 128, 129, 12800):
+        assert config.next_pow2(n) == jax_config.next_pow2(n)
+    assert sorted(PROPERTIES) == sorted(
+        name for name, v in vars(config.RadarConfig).items()
+        if isinstance(v, property))
+
+
+@pytest.mark.parametrize("overrides", CONFIGS)
+def test_config_derived_values(overrides):
+    cfg = RadarConfig(**overrides)
+    mine = config_from_jax(cfg)
+    assert isinstance(mine, config.RadarConfig)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(cfg)
+    assert _props(mine) == _props(cfg)
+    assert mine.effective_clutter(True) == cfg.effective_clutter(True)
+    assert mine.effective_clutter(False) == cfg.effective_clutter(False)
+    np.testing.assert_array_equal(mine.virtual_positions_wl(),
+                                  cfg.virtual_positions_wl())
+    want_cal = cfg.rx_cal_vector()
+    got_cal = mine.rx_cal_vector()
+    assert (got_cal is None) == (want_cal is None)
+    if want_cal is not None:
+        np.testing.assert_array_equal(got_cal, want_cal)
+    for b in (0, 4096, 16383):
+        assert mine.rescale_peak_bin(b) == cfg.rescale_peak_bin(b)
+        assert mine.bin_to_distance(b) == cfg.bin_to_distance(b)
+        assert mine.bin_to_physical_distance(b) == cfg.bin_to_physical_distance(b)
+    assert mine.distance_to_beat_hz(5.0) == cfg.distance_to_beat_hz(5.0)
+    assert mine.velocity_to_doppler_hz(2.0) == cfg.velocity_to_doppler_hz(2.0)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(cfar_kind="cago"), dict(window_kind="kaiser"),
+    dict(cfar_range_mode="clamp"), dict(dft_precision="low"),
+    dict(clutter_mode="mti4"), dict(cfar_os_stride=0),
+    dict(range_edge_guard=-1), dict(cfar_n_pulses=0),
+    dict(cfar_os_k_frac=1.5), dict(rx_cal=(1.0, 1.0, 1.0)),
+])
+def test_config_validation_errors(bad):
+    with pytest.raises(ValueError) as want:
+        RadarConfig(**bad)
+    with pytest.raises(ValueError) as got:
+        config.RadarConfig(**bad)
+    assert str(got.value) == str(want.value)
+
+
+def test_config_runtime_errors():
+    for fn in (lambda m: m.RadarConfig(clutter_mode="base")
+               .effective_clutter(False),
+               lambda m: m.RadarConfig(num_chirps=127, num_tx=2)
+               .chirps_per_tx):
+        with pytest.raises(ValueError) as want:
+            fn(jax_config)
+        with pytest.raises(ValueError) as got:
+            fn(config)
+        assert str(got.value) == str(want.value)
+
+
+TARGETS = [(3.0, 2.0, 20.0, 2500.0), (8.0, -4.0, -35.0, 1500.0)]
+
+
+@pytest.mark.parametrize("overrides,kw", [
+    (dict(), dict(noise_std=5.0, seed=0)),
+    (dict(num_samples=64, num_chirps=64, num_rx=2, num_tx=2),
+     dict(seed=3, n_base=2, clutter_amplitude=100.0)),
+    (dict(), dict(seed=5, interference_bursts=2, chirp_level_motion=True,
+                  platform_velocity=(0.5, 3.0))),
+])
+def test_synthesize_and_file_bytes(tmp_path, overrides, kw):
+    cfg = RadarConfig(**overrides)
+    want = jax_synthetic.synthesize_capture(
+        [jax_synthetic.SceneTarget(*t) for t in TARGETS], 3, cfg, **kw)
+    mine_cfg = config_from_jax(cfg)
+    got = synthetic.synthesize_capture(
+        [synthetic.SceneTarget(*t) for t in TARGETS], 3, mine_cfg, **kw)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    a, b = tmp_path / "jax.bin", tmp_path / "port.bin"
+    jax_capture.write_capture(a, want, cfg)
+    capture.write_capture(b, got, mine_cfg)
+    assert a.read_bytes() == b.read_bytes()
+    assert capture.frames_in_file(b, mine_cfg) == 3
+    back = capture.read_capture(b, mine_cfg, max_frames=2)
+    np.testing.assert_array_equal(back, jax_capture.read_capture(a, cfg, 2))
+    np.testing.assert_array_equal(capture.decode_shorts(back, mine_cfg),
+                                  jax_capture.decode_shorts(back, cfg))
+    np.testing.assert_array_equal(capture.decode_frame(back[0], mine_cfg),
+                                  jax_capture.decode_frame(back[0], cfg))
+    cube = jax_capture.decode_frame(back[1], cfg)
+    np.testing.assert_array_equal(capture.encode_frame(cube, mine_cfg),
+                                  jax_capture.encode_frame(cube, cfg))
+
+
+def test_capture_errors_match(tmp_path):
+    cfg = RadarConfig(num_samples=64, num_chirps=64, num_rx=2)
+    mine = config_from_jax(cfg)
+    bad = tmp_path / "bad.bin"
+    bad.write_bytes(b"\0" * (cfg.bytes_per_frame + 2))
+    for fn in (lambda m, c: m.frames_in_file(bad, c),
+               lambda m, c: m.decode_shorts(np.zeros(10, np.int16), c),
+               lambda m, c: m.encode_frame(
+                   np.full((2, 64, 64), 4e4 + 0j), c),
+               lambda m, c: m.write_capture(bad, np.zeros((2, 3), np.int16),
+                                            c)):
+        with pytest.raises(ValueError) as want:
+            fn(jax_capture, cfg)
+        with pytest.raises(ValueError) as got:
+            fn(capture, mine)
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("kind", ["hann", "hamming", "blackman",
+                                  "blackmanharris", "rect"])
+def test_golden_windows(kind):
+    np.testing.assert_array_equal(golden.window_fn(100, kind),
+                                  jax_golden.window_fn(100, kind))
+    np.testing.assert_array_equal(golden.hann_window(64),
+                                  jax_golden.hann_window(64))
+
+
+@pytest.mark.parametrize("overrides", CONFIGS[:3])
+def test_golden_range_doppler(overrides):
+    cfg = RadarConfig(**overrides)
+    rng = np.random.default_rng(7)
+    shape = (2, cfg.num_rx, cfg.num_chirps, cfg.num_samples)
+    cube = rng.normal(size=shape) + 1j * rng.normal(size=shape)
+    mine = config_from_jax(cfg)
+    want = jax_golden.virtual_cube(cube, cfg)
+    np.testing.assert_array_equal(golden.virtual_cube(cube, mine), want)
+    for window in (True, False, "hamming"):
+        np.testing.assert_array_equal(
+            golden.range_doppler_map(want, mine, window),
+            jax_golden.range_doppler_map(want, cfg, window))
+
+
+@pytest.mark.parametrize("range_mode", ["reflect", "wrap"])
+@pytest.mark.parametrize("n_pulses", [1, 4])
+def test_golden_cfar(range_mode, n_pulses):
+    rng = np.random.default_rng(8)
+    power = rng.exponential(size=(2, 32, 40))
+    power[0, 5, 7] = 300.0
+    power[1, 20, 38] = 80.0
+    args = ((2, 2), (3, 5), 1e-3)
+    for mine, theirs in (
+        (golden.ca_cfar_2d(power, *args, range_mode, n_pulses),
+         jax_golden.ca_cfar_2d(power, *args, range_mode, n_pulses)),
+        (golden.go_so_cfar_2d(power, *args, "go", range_mode, n_pulses),
+         jax_golden.go_so_cfar_2d(power, *args, "go", range_mode, n_pulses)),
+        (golden.go_so_cfar_2d(power, *args, "so", range_mode, n_pulses),
+         jax_golden.go_so_cfar_2d(power, *args, "so", range_mode, n_pulses)),
+    ):
+        for g, w in zip(mine, theirs):
+            np.testing.assert_array_equal(g, w)
+    assert (golden.ca_cfar_alpha_integrated(84, 1e-4, n_pulses)
+            == jax_golden.ca_cfar_alpha_integrated(84, 1e-4, n_pulses))
+    for kind in ("go", "so"):
+        assert (golden.go_so_cfar_alpha(40, 1e-4, kind, n_pulses)
+                == jax_golden.go_so_cfar_alpha(40, 1e-4, kind, n_pulses))
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(), dict(cfar_range_mode="wrap", cfar_n_pulses=16),
+    dict(cfar_guard=(1, 1), cfar_train=(2, 3), cfar_pfa=1e-3),
+])
+@pytest.mark.parametrize("kind", ["go", "so"])
+def test_go_so_params(overrides, kind):
+    cfg = RadarConfig(**overrides)
+    assert (cfar.go_so_params(config_from_jax(cfg), kind)
+            == jax_cfar.go_so_params(cfg, kind))
+
+
+@pytest.mark.parametrize("range_mode", ["reflect", "wrap"])
+@pytest.mark.parametrize("d_size,r_size", [(128, 128), (32, 64), (8, 5)])
+def test_go_so_band_matrices(range_mode, d_size, r_size):
+    cfg = RadarConfig(cfar_range_mode=range_mode)
+    want = jax_cfar.go_so_band_matrices(cfg, d_size, r_size)
+    got = cfar.go_so_band_matrices(config_from_jax(cfg), d_size, r_size)
+    for w, g in zip(want, got):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)

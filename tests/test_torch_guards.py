@@ -1,6 +1,7 @@
-"""Guards of the port: it imports no JAX, asks for CUDA explicitly, and
-never falls back silently — not from the CUDA kernel to the plain
-version, not to the CPU, not past a failed build."""
+"""Guards of the port: it imports no JAX and nothing of the JAX package,
+asks for CUDA explicitly, and never falls back silently — not from a
+CUDA kernel to its plain version, not to the CPU, not past a failed
+build."""
 
 import ast
 import os
@@ -13,20 +14,23 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu_torch import _build, cli  # noqa: E402
+from radar_tpu_torch.config import RadarConfig  # noqa: E402
 from radar_tpu_torch.models.range_detector import RangeDetector  # noqa: E402
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
-from radar_tpu_torch.ops.cuda import megakernel  # noqa: E402
+from radar_tpu_torch.ops.cuda import cfar, megakernel, topk  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "radar_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"
 ]
-# radar_tpu modules that import no jax (radar_tpu/utils/__init__.py does)
-ALLOWED = ("radar_tpu.config", "radar_tpu.golden", "radar_tpu.io.capture",
-           "radar_tpu.io.synthetic")
-ALLOWED_FROM_PACKAGE = {"config", "golden", "RadarConfig", "DEFAULT_CONFIG"}
+SMALL = dict(num_samples=64, num_chirps=64, num_rx=2)
+
+
+def _foreign(name: str) -> bool:
+    """jax, or the JAX package radar_tpu (not radar_tpu_torch)."""
+    return any(name == top or name.startswith(top + ".")
+               for top in ("jax", "radar_tpu"))
 
 
 def _imports(path: Path):
@@ -42,12 +46,8 @@ def _imports(path: Path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_imports(path):
-    for module, name in _imports(path):
-        assert not (module == "jax" or module.startswith("jax.")), module
-        if module == "radar_tpu":
-            assert name in ALLOWED_FROM_PACKAGE, f"from radar_tpu import {name}"
-        elif module.startswith("radar_tpu."):
-            assert module in ALLOWED, module
+    for module, _ in _imports(path):
+        assert not _foreign(module), f"{path.name} imports {module}"
 
 
 def test_importing_the_port_loads_no_jax():
@@ -58,14 +58,14 @@ def test_importing_the_port_loads_no_jax():
         "radar_tpu_torch.__path__, 'radar_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "import chip_smoke\n"
-        "print(len(mods), sorted(m for m in sys.modules "
-        "if m == 'jax' or m.startswith('jax.')))\n"
+        "print(len(mods), sorted(m for m in sys.modules if any("
+        "m == t or m.startswith(t + '.') for t in ('jax', 'radar_tpu'))))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, check=True,
                          timeout=120).stdout.split(maxsplit=1)
-    assert int(out[0]) >= 15          # every module was imported
+    assert int(out[0]) >= 22          # every module was imported
     assert out[1].strip() == "[]"
 
 
@@ -81,17 +81,74 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
         cli.main(["detect", str(cap), "--full"])     # default device: cuda
 
 
+def _counts():
+    return (megakernel.launches, megakernel.maps_launches, cfar.launches,
+            topk.launches)
+
+
 def test_cuda_wrapper_refuses_non_cuda_tensors():
     cfg = RadarConfig()
     shorts = torch.zeros((2, cfg.shorts_per_frame), dtype=torch.int16)
-    before = megakernel.launches
+    before = _counts()
     with pytest.raises(ValueError, match="CUDA tensors"):
         megakernel.detections_from_shorts_cuda(shorts, None, 16, cfg)
     # the dispatcher sends anything but CPU tensors to the kernel, which
     # raises: no device silently gets the plain version
     with pytest.raises(ValueError, match="CUDA tensors"):
         megakernel.detections_from_shorts(shorts.to("meta"), None, 16, cfg)
-    assert megakernel.launches == before
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_new_wrappers_refuse_non_cuda_tensors(device):
+    """Kernels 2, 3 and 4 raise for tensors that are not on a CUDA
+    device, directly or through a dispatcher, and count no launch."""
+    cfg = RadarConfig(**SMALL)
+    shorts = torch.zeros((2, cfg.shorts_per_frame), dtype=torch.int16,
+                         device=device)
+    power = torch.zeros((2, 64, 64), device=device)
+    before = _counts()
+    calls = [
+        lambda: megakernel.power_from_shorts_cuda(shorts, None, cfg),
+        lambda: megakernel.power_cfar_from_shorts_cuda(shorts, None, cfg),
+        lambda: cfar.ca_cfar_2d_cuda(power, cfg),
+        lambda: topk.topk_cuda(power.reshape(2, -1), 16),
+    ]
+    if device != "cpu":
+        calls += [
+            lambda: megakernel.power_from_shorts(shorts, None, cfg),
+            lambda: megakernel.power_cfar_from_shorts(shorts, None, cfg),
+        ]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("kw", [
+    dict(cfar_impl="pallas"), dict(topk_impl="pallas"),
+    dict(cfar_impl="pallas", rd_impl="fused"),
+    dict(topk_impl="pallas", rd_impl="fused"),
+    dict(cfar_impl="pallas", integrate=True),
+])
+def test_pallas_impls_raise_on_cpu_tensors(kw, monkeypatch):
+    """'pallas' names the kernel: on CPU tensors it raises instead of
+    taking the plain version, and builds nothing."""
+    def no_build():
+        raise AssertionError("a refused call must not build the kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    integrate = kw.pop("integrate", False)
+    cfg = RadarConfig(**SMALL)
+    pipe = RDPipeline(cfg, 8, device="cpu", **{"rd_impl": "mega-maps", **kw})
+    shorts = torch.zeros((4, cfg.shorts_per_frame), dtype=torch.int16)
+    before = _counts()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        if integrate:
+            pipe.detect_integrated(shorts, None, 2)
+        else:
+            pipe.detect(shorts)
+    assert _counts() == before
 
 
 def test_timing_needs_cuda_and_fence_passes_cpu_tensors(monkeypatch):
@@ -115,10 +172,31 @@ def test_cpu_path_never_builds(monkeypatch):
         raise AssertionError("the CPU path must not build the kernels")
 
     monkeypatch.setattr(_build, "load", no_build)
-    cfg = RadarConfig(num_samples=64, num_chirps=64, num_rx=2)
+    cfg = RadarConfig(**SMALL)
     shorts = torch.zeros((2, cfg.shorts_per_frame), dtype=torch.int16)
     out = megakernel.detections_from_shorts(shorts, None, 4, cfg)
     assert out[0].shape == (2, 4)
+
+
+@pytest.mark.parametrize("rd_impl", ["mega-maps", "fused", "auto"])
+def test_cpu_maps_paths_never_build(monkeypatch, rd_impl):
+    """The maps op, the CFAR and top-K dispatch and both pipeline entry
+    points take the plain versions on CPU tensors."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    cfg = RadarConfig(**SMALL)
+    shorts = torch.zeros((4, cfg.shorts_per_frame), dtype=torch.int16)
+    before = _counts()
+    assert megakernel.power_from_shorts(shorts, None, cfg).shape == (4, 64, 64)
+    power, thresh = megakernel.power_cfar_from_shorts(shorts, None, cfg)
+    assert power.shape == thresh.shape == (4, 64, 64)
+    pipe = RDPipeline(cfg, 200 if rd_impl == "auto" else 8, device="cpu",
+                      rd_impl=rd_impl)
+    assert pipe.detect(shorts).valid.shape[0] == 4
+    assert pipe.detect_integrated(shorts, None, 2, True).valid.shape[0] == 2
+    assert _counts() == before
 
 
 def _isolate_build(monkeypatch, tmp_path, path_dir):

@@ -38,7 +38,11 @@ from radar_tpu.models import rd_pipeline as jax_rd  # noqa: E402
 from radar_tpu.ops.pallas.megakernel import (  # noqa: E402
     detections_from_shorts_pallas,
 )
-from radar_tpu_torch.convert import base_from_numpy, result_to_numpy  # noqa: E402
+from radar_tpu_torch.convert import (  # noqa: E402
+    base_from_numpy,
+    config_from_jax,
+    result_to_numpy,
+)
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops.cuda.megakernel import detections_from_shorts  # noqa: E402
 
@@ -89,7 +93,8 @@ def jax_case(name):
 def port_result(cfg, frames, base, k) -> dict:
     return run_detect(
         detections_from_shorts, torch.from_numpy(frames),
-        None if base is None else base_from_numpy(base), k, cfg)
+        None if base is None else base_from_numpy(base), k,
+        config_from_jax(cfg))
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -108,11 +113,12 @@ def test_reference_unbatched_frame():
     """One frame without a batch axis gives the batched frame's result
     (and so the JAX kernel's)."""
     cfg, frames, base, want = jax_case("base-tx1-k16")
+    tcfg = config_from_jax(cfg)
     out = detections_from_shorts(torch.from_numpy(frames[0]),
-                                 base_from_numpy(base), 16, cfg)
+                                 base_from_numpy(base), 16, tcfg)
     assert out[0].shape == (16,) and out[3].shape == ()
     batched = detections_from_shorts(torch.from_numpy(frames),
-                                     base_from_numpy(base), 16, cfg)
+                                     base_from_numpy(base), 16, tcfg)
     for one, many in zip(out, batched):
         torch.testing.assert_close(one, many[0], rtol=0, atol=0)
     got = port_result(cfg, frames[:1], base, 16)
@@ -127,19 +133,20 @@ def test_highest_matches_jax_fused(rd_impl):
                            cfar_impl="xla", topk_impl="xla")
     base = jp.prepare_base(jnp.asarray(shorts[0]))
     want = jax.tree.map(np.asarray, jp.detect(jnp.asarray(shorts[1:]), base))
-    pipe = RDPipeline(cfg, max_detections=16, device="cpu", rd_impl=rd_impl)
+    pipe = RDPipeline(config_from_jax(cfg), max_detections=16, device="cpu",
+                      rd_impl=rd_impl)
     tbase = base_from_numpy(np.asarray(base))
     got = result_to_numpy(pipe.detect(shorts[1:], tbase))
     # the neighbour samples that condition the sub-bin estimates
     got["nbr"] = detections_from_shorts(torch.from_numpy(shorts[1:]), tbase,
-                                        16, cfg)[2].numpy()
+                                        16, pipe.cfg)[2].numpy()
     compare(got, want._asdict(), cfg, max_flips=0, power_rtol=1e-5)
 
 
 def test_reference_matches_golden():
     cfg = RadarConfig()
     shorts = synthesize_capture(TARGETS, 5, cfg, noise_std=5.0, seed=13)
-    pipe = RDPipeline(cfg, max_detections=16, device="cpu")
+    pipe = RDPipeline(config_from_jax(cfg), max_detections=16, device="cpu")
     res = result_to_numpy(pipe.detect(shorts[1:],
                                       pipe.prepare_base(shorts[0])))
     assert res["valid"].any()

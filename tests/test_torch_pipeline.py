@@ -31,7 +31,7 @@ from radar_tpu.models.range_detector import (  # noqa: E402
 )
 from radar_tpu.utils import records as jax_records  # noqa: E402
 from radar_tpu_torch import cli  # noqa: E402
-from radar_tpu_torch.convert import result_to_numpy  # noqa: E402
+from radar_tpu_torch.convert import config_from_jax, result_to_numpy  # noqa: E402
 from radar_tpu_torch.models.range_detector import RangeDetector  # noqa: E402
 from radar_tpu_torch.models.rd_pipeline import (  # noqa: E402
     RDPipeline,
@@ -59,7 +59,7 @@ def test_pipeline_matches_jax_with_base_stack():
     jbase = jp.prepare_base(jnp.asarray(shorts[:3]))
     want = jax.tree.map(np.asarray, jp.detect(jnp.asarray(shorts[3:]), jbase))
 
-    pipe = RDPipeline(cfg, max_detections=16, device="cpu")
+    pipe = RDPipeline(config_from_jax(cfg), max_detections=16, device="cpu")
     base = pipe.prepare_base(shorts[:3])
     assert base.shape == jbase.shape and base.dtype == torch.complex64
     np.testing.assert_allclose(base.numpy(), np.asarray(jbase), rtol=1e-6,
@@ -73,7 +73,7 @@ def test_pipeline_matches_jax_with_base_stack():
     got = result_to_numpy(out)
     # the neighbour samples that condition the sub-bin estimates
     got["nbr"] = detections_from_shorts(torch.from_numpy(shorts[3:]), base,
-                                        16, cfg)[2].numpy()
+                                        16, pipe.cfg)[2].numpy()
     compare(got, want._asdict(), cfg, max_flips=2)
     assert got["valid"].any()
 
@@ -90,7 +90,7 @@ def test_range_detector_matches_jax():
     jd = JaxRangeDetector(cfg)
     want = jd.detect(jnp.asarray(shorts[1:]),
                      jd.prepare_base(jnp.asarray(shorts[0])))
-    det = RangeDetector(cfg, device="cpu")
+    det = RangeDetector(config_from_jax(cfg), device="cpu")
     got = det.detect(shorts[1:], det.prepare_base(shorts[0]))
     for f in ("peak_bin", "rescaled_bin", "distance_m"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),
@@ -175,13 +175,13 @@ def test_records_copy_matches_jax_records():
 
 @pytest.mark.parametrize("cfg_kw,kw", [
     ({}, dict(rd_impl="fft")),
-    ({}, dict(rd_impl="mega-maps")),
+    ({}, dict(rd_impl="planar")),
     ({"cfar_kind": "os"}, {}),
-    ({}, dict(cfar_impl="pallas")),
+    ({}, dict(cfar_impl="pallas-interpret")),
     ({"clutter_mode": "mti2"}, {}),
     ({}, dict(keystone=True)),
-    ({}, dict(max_detections=200)),
+    ({"cfar_kind": "goca"}, dict(rd_impl="mega")),
 ])
 def test_unported_options_raise(cfg_kw, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        RDPipeline(RadarConfig(**cfg_kw), device="cpu", **kw)
+        RDPipeline(config_from_jax(RadarConfig(**cfg_kw)), device="cpu", **kw)
