@@ -8,9 +8,12 @@ Drives the port's paths on ``cuda:0`` at the default TI geometry with
 max_detections=16).detect`` (kernel 1, the detect kernel); ``detect``
 with ``rd_impl='mega-maps'`` (kernel 2, the maps kernel, then kernel 3,
 top-K); ``detect_integrated`` (kernel 2, then kernel 4, the CFAR
-kernel, on the summed maps, then kernel 3); and ``python -m
-radar_tpu_torch.cli detect --full [--integrate 4]``.  Phases, each
-printing one line:
+kernel, on the summed maps, then kernel 3); OS-CFAR, ``RDPipeline(
+RadarConfig(cfar_kind='os'), 16).detect`` and ``detect_integrated``
+(kernel 2, then kernel 6, the OS hits kernel, then kernel 3), with
+kernel 5, the OS threshold kernel, behind ``cfar_detect``; GO/SO inside
+kernel 1; and ``python -m radar_tpu_torch.cli detect --full
+[--integrate 4 | --cfar-kind os]``.  Phases, each printing one line:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
@@ -30,7 +33,15 @@ printing one line:
    golden;
 9. the CLI with ``--integrate 4 --clutter mean``: 16 group records;
 10. timing of kernels 2-4 and of the two paths, their bounds, and a
-    profiler breakdown of ``detect_integrated``.
+    profiler breakdown of ``detect_integrated``;
+11. OS-CFAR: kernels 5 and 6 bit for bit against their plain versions
+    on the B=512 maps, the 128 NCI sums, odd maps, a decimated ring,
+    range wrap and the exact tie; the OS ``detect`` (its launches of
+    kernels 5 and 6), ``detect_integrated`` and the CLI with
+    ``--cfar-kind os`` against the plain path and the golden; timing,
+    bounds and a profiler breakdown of the OS ``detect``;
+12. GO/SO inside kernel 1: 'mega' against 'mega-maps' bit for bit, its
+    time beside CA's, and kernel 1's CA checksum again.
 
 Any failed check raises, so the script exits non-zero before its last
 line; without CUDA it exits 1 at once.  The line before the last is the
@@ -257,15 +268,22 @@ def golden_power(capture, cfg, n: int, walk: bool = False) -> np.ndarray:
 
 def golden_match(power, n_pulses: int, res, cfg) -> float:
     """Detection sets of ``res`` equal to the golden's on the float64
-    maps ``power`` (golden CA-CFAR at ``n_pulses``, edge guard, stable
-    top-K); power within 1e-3 relative.  Returns the max relative power
-    error."""
+    maps ``power`` (golden CA- or OS-CFAR per ``cfg.cfar_kind``, at
+    ``n_pulses``, edge guard, stable top-K); power within 1e-3 relative.
+    Returns the max relative power error."""
     from radar_tpu_torch import golden
 
     n = res["valid"].shape[0]
     top_idx = res["doppler_bin"] * cfg.range_fft_size + res["range_bin"]
-    hits, _ = golden.ca_cfar_2d(power, cfg.cfar_guard, cfg.cfar_train,
-                                cfg.cfar_pfa, cfg.cfar_range_mode, n_pulses)
+    if cfg.cfar_kind == "os":
+        hits, _ = golden.os_cfar_2d(power, cfg.cfar_guard, cfg.cfar_train,
+                                    cfg.cfar_pfa, cfg.cfar_os_k_frac,
+                                    cfg.cfar_range_mode, cfg.cfar_os_stride,
+                                    n_pulses)
+    else:
+        hits, _ = golden.ca_cfar_2d(power, cfg.cfar_guard, cfg.cfar_train,
+                                    cfg.cfar_pfa, cfg.cfar_range_mode,
+                                    n_pulses)
     r_size = cfg.range_fft_size
     hits &= np.arange(r_size) < r_size - cfg.range_edge_guard_effective
     flat = np.where(hits, power, -np.inf).reshape(n, -1)
@@ -356,6 +374,15 @@ def cfar_flops(cfg, n_cells: int, kind: str = "ca") -> float:
     wr = gr + tr
     rng = (2 * wr + 1 + 2 * tr) if kind == "ca" else 2 * (wr + tr) + 1
     return float(n_cells) * (2 * td + 2 * gd + 1 + rng + 1)
+
+
+def os_ops(cfg, n_cells: int) -> float:
+    """One compare and one add per (cell, training-ring cell): the least
+    that any exact selection of the k-th smallest ring cell, or count
+    against it, does."""
+    from radar_tpu_torch.ops.cfar import os_ring_params
+
+    return 2.0 * n_cells * os_ring_params(cfg)[1]
 
 
 def front_end_bytes(cfg, b: int, base: bool) -> float:
@@ -730,6 +757,294 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     ]
 
 
+def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
+    """Phase 11: OS-CFAR.  Kernels 5 (threshold) and 6 (hits) against
+    their plain versions, bit for bit; the OS ``detect``, its NCI and
+    its CLI against the plain path and the golden; timing and bounds.
+    Returns the kernels-line entries of kernels 5 and 6: kernel 6
+    counted on the OS ``detect`` at B=512, kernel 5 on ``cfar_detect``
+    without ``hits_only`` (the call that returns the threshold map)."""
+    import dataclasses
+
+    from radar_tpu_torch import cli
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.io.synthetic import synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline, neighbour_samples
+    from radar_tpu_torch.ops.cfar import (
+        cfar_detect,
+        os_cfar_2d,
+        os_cfar_hits,
+        os_ring,
+        os_ring_params,
+    )
+    from radar_tpu_torch.ops.cuda import megakernel, oscfar
+    from radar_tpu_torch.ops.cuda import topk as topk_k
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        power_from_shorts_cuda,
+        power_from_shorts_reference,
+    )
+    from radar_tpu_torch.ops.cuda.oscfar import os_cfar_2d_cuda, os_cfar_hits_cuda
+
+    dev = frames.device
+    n_int = 4
+    groups = BATCH // n_int
+    d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+    n_cells = d_size * r_size
+    cfg_os = dataclasses.replace(cfg, cfar_kind="os")
+    cfg_mean = dataclasses.replace(cfg_os, clutter_mode="mean")
+    cfg_int = dataclasses.replace(
+        cfg_mean, cfar_n_pulses=n_int * cfg.cfar_pulses_effective)
+
+    def reset():
+        megakernel.maps_launches = topk_k.launches = 0
+        oscfar.threshold_launches = oscfar.hits_launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"mega_maps": megakernel.maps_launches, "topk": topk_k.launches,
+                "os_threshold": oscfar.threshold_launches,
+                "os_hits": oscfar.hits_launches}
+
+    def nbr_of(power, res):
+        d = torch.from_numpy(res["doppler_bin"]).to(dev, torch.int64)
+        r = torch.from_numpy(res["range_bin"]).to(dev, torch.int64)
+        return neighbour_samples(power, d * r_size + r, d, r).cpu().numpy()
+
+    # -- 11a. kernels 5 and 6 against their plain versions -------------------
+    def check_os(name, p, c) -> int:
+        """Kernel 5 bit for bit against plain os_cfar_2d; kernel 6 bit
+        for bit against plain os_cfar_hits and against p > kernel 5's
+        threshold.  Returns the hit count."""
+        th_k = os_cfar_2d_cuda(p, c)[1]
+        th_p = os_cfar_2d(p, c)[1]
+        assert torch.equal(th_k, th_p), (
+            f"kernel 5 {name}: {int((th_k != th_p).sum())} thresholds differ "
+            "from the plain version")
+        hits_p = os_cfar_hits(p, c)
+        assert torch.equal(hits_p, p > th_p), f"plain OS hits {name}"
+        hk = os_cfar_hits_cuda(p, c)
+        assert torch.equal(hk, hits_p), (
+            f"kernel 6 {name}: {int((hk != hits_p).sum())} hit decisions "
+            "differ from the plain version")
+        return int(hits_p.sum())
+
+    power = power_from_shorts_cuda(frames, base, cfg, consts)
+    p_sum = power_from_shorts_cuda(frames, base, cfg_mean, consts).reshape(
+        groups, n_int, d_size, r_size).sum(dim=1)
+    n512 = check_os(f"{BATCH} maps", power, cfg_os)
+    n128 = check_os(f"{groups} NCI sums", p_sum, cfg_int)
+    variants = []
+    for kw in (dict(cfar_os_stride=3), dict(cfar_range_mode="wrap"),
+               dict(cfar_os_k_frac=0.9),
+               dict(cfar_guard=(1, 1), cfar_train=(2, 3))):
+        variants.append(check_os(str(kw), power[:64],
+                                 dataclasses.replace(cfg_os, **kw)))
+    rng = np.random.default_rng(2)
+    for shape, mode in (((6, 36, 20), "reflect"), ((6, 24, 40), "wrap"),
+                        ((3, 4, 12), "reflect")):
+        pw = torch.from_numpy(rng.exponential(size=shape).astype(
+            np.float32)).to(dev)
+        variants.append(check_os(str(shape), pw, dataclasses.replace(
+            cfg_os, cfar_range_mode=mode)))
+    # the exact tie: power equal to its threshold is no hit, one ulp
+    # above is one (the cell is not in its own ring)
+    p1 = power[:1].clone()
+    t = os_cfar_2d_cuda(p1, cfg_os)[1][0, 40, 60]
+    for value, want in ((t, False),
+                        (torch.nextafter(t, torch.full_like(t, np.inf)),
+                         True)):
+        p1[0, 40, 60] = value
+        hk = os_cfar_hits_cuda(p1, cfg_os)
+        assert bool(hk[0, 40, 60]) is want, f"exact tie: hit {not want}"
+        assert torch.equal(hk, p1 > os_cfar_2d_cuda(p1, cfg_os)[1])
+    reset()
+    _, th_path = cfar_detect(power, cfg_os, "pallas")
+    thr_counts = counts()
+    assert thr_counts["os_threshold"] > 0 and thr_counts["os_hits"] == 0, \
+        thr_counts
+    say(f"kernels 5 and 6 vs plain: bit-identical thresholds and hits on "
+        f"{BATCH} maps ({n512} hits), {groups} NCI "
+        f"sums (Erlang-{cfg_int.cfar_pulses_effective} alpha, {n128} hits), "
+        "stride 3, range wrap, k_frac 0.9, guard (1,1) train (2,3), 36x20, "
+        f"24x40 wrap, 4x12 ({sum(variants)} hits); exact tie no hit, one ulp "
+        f"above a hit; cfar_detect without hits_only launches {thr_counts}")
+
+    # -- 11b. the OS paths against the plain path and the golden ---------
+    pipe = RDPipeline(cfg_os, K_DET, device=dev)
+    reset()
+    got = result_to_numpy(pipe.detect(frames, base))
+    det_counts = counts()
+    assert (det_counts["os_hits"] > 0 and det_counts["os_threshold"] == 0
+            and det_counts["mega_maps"] > 0 and det_counts["topk"] > 0), \
+        det_counts
+    plain = RDPipeline(cfg_os, K_DET, device=dev, rd_impl="fused",
+                       cfar_impl="xla", topk_impl="xla")
+    want = result_to_numpy(plain.detect(frames, base))
+    got["nbr"] = nbr_of(power, got)
+    want["nbr"] = nbr_of(power_from_shorts_reference(frames, base, cfg), want)
+    flips, _ = compare(got, want, cfg_os, max_flips=2, f32_floor=True)
+    worst = golden_match(golden_power(capture[:5], cfg_os, 1),
+                         cfg_os.cfar_pulses_effective,
+                         {key: v[:4] for key, v in got.items()}, cfg_os)
+    nci = RDPipeline(cfg_mean, K_DET, device=dev)
+    plain_nci = RDPipeline(cfg_mean, K_DET, device=dev, rd_impl="fused",
+                           cfar_impl="xla", topk_impl="xla")
+    reset()
+    got_n = result_to_numpy(nci.detect_integrated(frames, base, n_int))
+    nci_counts = counts()
+    assert nci_counts["os_hits"] > 0 and nci_counts["os_threshold"] == 0, \
+        nci_counts
+    want_n = result_to_numpy(plain_nci.detect_integrated(frames, base, n_int))
+    got_n["nbr"] = nbr_of(nci.integrated_power(frames, base, n_int), got_n)
+    want_n["nbr"] = nbr_of(plain_nci.integrated_power(frames, base, n_int),
+                           want_n)
+    flips_n, _ = compare(got_n, want_n, cfg_mean, max_flips=2, f32_floor=True)
+    worst_n = golden_match(golden_power(capture[:4 * n_int + 1], cfg_mean,
+                                        n_int),
+                           cfg_int.cfar_pulses_effective,
+                           {key: v[:4] for key, v in got_n.items()}, cfg_mean)
+    say(f"OS detect B={BATCH} K={K_DET} vs the plain path: {flips} flips, "
+        f"valid {int(got['valid'].sum())}, launches {det_counts}; golden (4 "
+        f"frames) equal sets, power {worst:.1e}; OS detect_integrated n="
+        f"{n_int} mean: {flips_n} flips, valid {int(got_n['valid'].sum())}, "
+        f"golden (4 groups) power {worst_n:.1e}, launches {nci_counts}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_path = os.path.join(tmp, "cap.bin")
+        out_path = os.path.join(tmp, "os.jsonl")
+        write_capture(cap_path, synthesize_capture(targets, 65, cfg,
+                                                   noise_std=5.0, seed=1),
+                      cfg)
+        reset()
+        rc = cli.main(["detect", cap_path, "--full", "--cfar-kind", "os",
+                       "--device", "cuda", "--out", out_path])
+        assert rc == 0, f"cli detect --cfar-kind os returned {rc}"
+        cli_counts = counts()
+        with open(out_path) as f:
+            records = [json.loads(ln) for ln in f if ln.strip()]
+    assert len(records) == 64, f"{len(records)} records, expected 64"
+    assert cli_counts["os_hits"] > 0, cli_counts
+    frame_s = cfg.num_chirps * cfg.chirp_interval_s
+    for rec in records:
+        for r0, v, _, _ in TARGETS:
+            want_r = r0 + v * rec["frame"] * frame_s
+            assert any(abs(d["range_m_interp"] - want_r) < 1.0
+                       and abs(d["velocity_mps_interp"] - v) < 1.0
+                       for d in rec["detections"]), (
+                f"frame {rec['frame']}: target at {want_r:.2f} m, {v} m/s "
+                f"not in {rec['detections']}")
+    say(f"cli detect --full --cfar-kind os: {len(records)} records, both "
+        f"targets in every record, launches {cli_counts}")
+
+    # -- 11c. timing ---------------------------------------------------------
+    k = os_ring_params(cfg_os)[2]
+    t5, t6, tlib = {}, {}, {}
+    for n, maps_n, c in ((groups, p_sum, cfg_int), (BATCH, power, cfg_os)):
+        t5[n] = alternate({
+            "kernel": lambda x: os_cfar_2d_cuda(x, c),
+            "plain": lambda x: os_cfar_2d(x, c)}, maps_n, device_only=True)
+        t6[n] = alternate({
+            "kernel": lambda x: os_cfar_hits_cuda(x, c),
+            "plain": lambda x: os_cfar_hits(x, c)}, maps_n, device_only=True)
+        ring = os_ring(maps_n, c)
+        tlib[n] = alternate({"kthvalue": lambda x: torch.kthvalue(
+            x, k, dim=-1)}, ring, device_only=True)["kthvalue"]
+        del ring
+    e2e = alternate({
+        "OS detect": lambda x: pipe.detect(x, base),
+        "plain OS detect": lambda x: plain.detect(x, base),
+        "OS detect_integrated": lambda x: nci.detect_integrated(x, base,
+                                                                n_int)},
+        frames)
+
+    def fmt(t):
+        return ", ".join(f"{name} {v:.4f} ms" for name, v in t.items())
+
+    say(f"timing on {gpu} (device only, median of 10): kernel 5 " + "; ".join(
+        f"{n} maps {fmt(t5[n])}" for n in t5) + "; kernel 6 " + "; ".join(
+        f"{n} maps {fmt(t6[n])}" for n in t6) + "; torch.kthvalue on the "
+        "gathered ring (selection only) " + ", ".join(
+        f"{n} maps {v:.4f} ms" for n, v in tlib.items()))
+    say(f"timing on {gpu} B={BATCH} (host-inclusive, median of 10): "
+        + ", ".join(f"{name} {v:.4f} ms ({BATCH / v * 1e3:.0f} frames/s)"
+                    for name, v in e2e.items()))
+    say(profile_line(lambda: pipe.detect(frames, base), f"OS detect B={BATCH}"))
+    b5, b6 = {}, {}
+    for n in (groups, BATCH):
+        ops = os_ops(cfg_os, n * n_cells)
+        b5[n] = bound(ops, 8.0 * n * n_cells)     # f32 in, f32 out
+        b6[n] = bound(ops, 5.0 * n * n_cells)     # f32 in, bool out
+    say("bounds (ms, H100 SXM peaks): " + "; ".join(
+        f"{n} maps kernel 5 {b5[n][0]:.5f} ({b5[n][1]}), kernel 6 "
+        f"{b6[n][0]:.5f} ({b6[n][1]})" for n in b5))
+    common = {"route": "cuda", "source": "radar_tpu_torch/csrc/oscfar.cu"}
+    return [
+        dict(common, name="os_threshold",
+             replaces="radar_tpu/ops/pallas/oscfar_kernel.py:62",
+             launches=thr_counts["os_threshold"],
+             max_abs_err=float((th_path - os_cfar_2d(power, cfg_os)[1])
+                               .abs().max()),
+             ms=t5[BATCH]["kernel"], plain_ms=t5[BATCH]["plain"],
+             bound_ms=b5[BATCH][0], bound_by=b5[BATCH][1],
+             library_ms=tlib[BATCH]),
+        dict(common, name="os_hits",
+             replaces="radar_tpu/ops/pallas/oscfar_kernel.py:286",
+             launches=det_counts["os_hits"],
+             max_abs_err=float((os_cfar_hits_cuda(power, cfg_os)
+                                != os_cfar_hits(power, cfg_os)).sum()),
+             ms=t6[BATCH]["kernel"], plain_ms=t6[BATCH]["plain"],
+             bound_ms=b6[BATCH][0], bound_by=b6[BATCH][1], library_ms=None),
+    ]
+
+
+CA_DIGEST = "3d51103ebd98f569"   # kernel 1's outputs, B=512, seed 0, K=16
+
+
+def go_so_phase(cfg, frames, base, consts, gpu, digest) -> None:
+    """Phase 12: GO/SO inside kernel 1 under the default rd_impl, against
+    'mega-maps' bit for bit, timed beside CA; kernel 1's CA checksum."""
+    import dataclasses
+
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.ops.cuda.megakernel import detections_from_shorts_cuda
+
+    dev = frames.device
+    bit_fields = ("valid", "num_hits", "doppler_bin", "range_bin", "power",
+                  "range_m_interp", "velocity_mps_interp")
+    parts, cfgs = [], {"ca": cfg}
+    for kind in ("goca", "soca"):
+        ck = cfgs[kind] = dataclasses.replace(cfg, cfar_kind=kind)
+        megakernel.launches = 0
+        a = result_to_numpy(RDPipeline(ck, K_DET, device=dev).detect(frames,
+                                                                   base))
+        torch.cuda.synchronize()
+        launched = megakernel.launches
+        assert launched > 0, f"{kind}: kernel 1 not launched"
+        b = result_to_numpy(RDPipeline(ck, K_DET, device=dev,
+                                       rd_impl="mega-maps").detect(frames,
+                                                                   base))
+        for f in bit_fields:
+            np.testing.assert_array_equal(
+                b[f], a[f], err_msg=f"{kind} 'mega' vs 'mega-maps': {f}")
+        a["nbr"] = detections_from_shorts_cuda(frames, base, K_DET, ck,
+                                               consts)[2].cpu().numpy()
+        compare(b, a, ck, max_flips=0, f32_floor=True)
+        parts.append(f"{kind} valid {int(a['valid'].sum())}, launches "
+                     f"{launched}")
+    t1 = alternate({kind: (lambda x, c=c: detections_from_shorts_cuda(
+        x, base, K_DET, c, consts)) for kind, c in cfgs.items()}, frames,
+        device_only=True)
+    say(f"GO/SO in kernel 1 B={BATCH} K={K_DET}: 'mega' vs 'mega-maps' "
+        f"bit-identical {', '.join(bit_fields)} ({'; '.join(parts)}); "
+        f"kernel 1 on {gpu} (device only, median of 10) "
+        + ", ".join(f"{name} {v:.4f} ms" for name, v in t1.items())
+        + f"; CA checksum {digest} "
+        + ("(unchanged)" if digest == CA_DIGEST else f"(was {CA_DIGEST})"))
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -902,6 +1217,8 @@ def main() -> int:
         "library_ms": None,
     }]
     kernels += maps_phases(cfg, capture, frames, base, consts, gpu, targets)
+    kernels += os_phases(cfg, capture, frames, base, consts, gpu, targets)
+    go_so_phase(cfg, frames, base, consts, gpu, digest)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -128,7 +128,7 @@ def _declare(lib) -> None:
     fn.argtypes = (
         [ptr] * 12          # raw, base_raw, a2, ft_re, ft_im, z, power,
                             # top_idx, top_val, nbr, num_hits, snaps
-        + [i32] * 15        # geometry and CFAR integers
+        + [i32] * 16        # geometry, CFAR kind and window integers
         + [ctypes.c_float,  # coef
            ptr]             # stream
     )
@@ -148,6 +148,11 @@ def _declare(lib) -> None:
     fn = lib.radar_topk
     fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
     fn.restype = i32
+    for name in ("radar_os_hits", "radar_os_threshold"):
+        fn = getattr(lib, name)
+        fn.argtypes = ([ptr] * 3   # power, hits / thresh, offsets
+                       + [i32] * 9 + [ctypes.c_float, ptr])
+        fn.restype = i32
     lib.radar_cuda_error_string.argtypes = [i32]
     lib.radar_cuda_error_string.restype = ctypes.c_char_p
 

@@ -4,7 +4,7 @@
   python -m radar_tpu_torch.cli detect cap.bin --full --device cuda \\
       [--max-detections 16] [--base-frames K] [--out dets.jsonl] \\
       [--integrate N [--walk]] [--rd-impl auto|mega|mega-maps|fused] \\
-      [--clutter auto|base|mean]
+      [--clutter auto|base|mean] [--cfar-kind ca|os|goca|soca]
 
 Writes the same ``DetectionRecord`` JSONL as ``radar_tpu.cli detect``:
 one record per frame, or with ``--integrate N`` one per group of N
@@ -55,7 +55,8 @@ def cmd_detect(args) -> int:
         print("error: --integrate requires --full (integration sums the "
               "RD pipeline's power maps)", file=sys.stderr)
         return 2
-    cfg = RadarConfig(clutter_mode=args.clutter or "auto")
+    cfg = RadarConfig(clutter_mode=args.clutter or "auto",
+                      cfar_kind=args.cfar_kind or "ca")
     device = resolve_device(args.device)
     capture = read_capture(args.path, cfg)
     n_base = args.base_frames or 1
@@ -139,6 +140,10 @@ def main(argv=None) -> int:
                    help="slow-time clutter removal: 'auto' (base frame "
                         "when available, else mean over chirps), 'base' or "
                         "'mean' (mti2/mti3 are not ported yet)")
+    d.add_argument("--cfar-kind", default=None,
+                   choices=["ca", "os", "goca", "soca"],
+                   help="cell-averaging (default), ordered-statistic, "
+                        "greatest-of or smallest-of CA-CFAR")
     d.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")

@@ -1,6 +1,6 @@
 // CFAR strip sums and the block argmax shared by the detect kernel
 // (megakernel.cu), the threshold kernel (cfar.cu) and the top-K kernel
-// (topk.cu).
+// (topk.cu); the OS-CFAR kernels (oscfar.cu) share the window index maps.
 //
 // Sharing them is what makes the two detection paths agree bit for bit:
 // the detect kernel and the maps path (power map, threshold map, top-K)

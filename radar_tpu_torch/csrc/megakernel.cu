@@ -12,7 +12,8 @@
 //   4. the TDM demux (chirp = kc * TX + tx),
 //   5. the fftshifted, windowed Doppler DFT,
 //   6. power summed over the TX*V virtual channels in a fixed order,
-//   7. the CA-CFAR threshold in the cancellation-free strip form,
+//   7. the CA, GO or SO CFAR threshold in the cancellation-free strip
+//      form (the kind argument; OS runs on the maps entry's power),
 //   8. the hit mask with the range-edge guard, and num_hits,
 //   9. top-K in lax.top_k order,
 //  10. five neighbour samples (range clamped, Doppler wrapped),
@@ -350,8 +351,8 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
     int32_t* __restrict__ top_idx, float* __restrict__ top_val,
     float* __restrict__ nbr, int32_t* __restrict__ num_hits,
     float* __restrict__ snaps, int n_chirps, int n_rx, int n_tx, int r_size,
-    int d_size, int kc_size, int k_det, int range_wrap, int gd, int gr,
-    int wd, int wr, int r_valid, float coef) {
+    int d_size, int kc_size, int k_det, int kind, int range_wrap, int gd,
+    int gr, int wd, int wr, int r_valid, float coef) {
   extern __shared__ float smem[];
   __shared__ float red_v[kDetThreads / 32];
   __shared__ int red_i[kDetThreads / 32];
@@ -373,7 +374,9 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
                              kDetThreads);
   __syncthreads();
 
-  // Range strips (reflect or wrap), threshold, range-edge guard, mask.
+  // Range strips (reflect or wrap), the CA / GO / SO threshold of
+  // cfar_common.cuh (the maps entry's, so both agree bit for bit),
+  // range-edge guard, mask.
   // Non-hits hold the f32-min sentinel, so taken cells (-inf) sort below
   // every untaken one and exhausted slots come out in lax.top_k order.
   float mv[kDetCellsPerThread];
@@ -384,10 +387,10 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
     mv[j] = -CUDART_INF_F;
     if (i < n_cells) {
       const int d = i / r_size, r = i % r_size;
-      const float ring = radar_cfar::ca_ring(y1 + d * r_size, y2 + d * r_size,
-                                             r, r_size, range_wrap, gr, wr);
       const float pv = p[i];
-      const bool hit = pv > ring * coef && r < r_valid;
+      const bool hit = pv > radar_cfar::threshold(y1, y2, d, r, r_size, kind,
+                                                  range_wrap, gr, wr, coef) &&
+                       r < r_valid;
       mv[j] = hit ? pv : kF32Min;
       hits += hit;
     }
@@ -522,14 +525,15 @@ const char* radar_cuda_error_string(int err) {
 // noted): raw int16 (B, C*V, 2S); base_raw (C*V, 2S) or NULL for 'mean'
 // clutter; a2 (2S, 2R); ft_re/ft_im (Kc, D); scratch z (B*C*V, 2R) and
 // power (B, D, R); outputs top_idx int32 (B, K), top_val (B, K),
-// nbr (B, K, 5), num_hits int32 (B), snaps (B, K, TX*V, 2).
+// nbr (B, K, 5), num_hits int32 (B), snaps (B, K, TX*V, 2).  kind: 0 CA,
+// 1 GO, 2 SO; coef = alpha / n_train (CA) or the GO/SO multiplier.
 int radar_mega_detect(const int16_t* raw, const float* base_raw,
                       const float* a2, const float* ft_re, const float* ft_im,
                       float* z, float* power, int32_t* top_idx,
                       float* top_val, float* nbr, int32_t* num_hits,
                       float* snaps, int n_frames, int n_chirps, int n_rx,
                       int n_tx, int s2, int r_size, int d_size, int k_det,
-                      int clutter_mean, int range_wrap, int guard_d,
+                      int clutter_mean, int kind, int range_wrap, int guard_d,
                       int guard_r, int win_d, int win_r, int r_valid,
                       float coef, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -537,7 +541,8 @@ int radar_mega_detect(const int16_t* raw, const float* base_raw,
   if (n_frames <= 0) return cudaSuccess;
   if (k_det < 1 || k_det > kMaxK || k_det > n_cells ||
       n_cells > kDetThreads * kDetCellsPerThread || n_chirps % n_tx != 0 ||
-      s2 % 8 != 0 || r_size % 4 != 0 || d_size % 4 != 0)
+      s2 % 8 != 0 || r_size % 4 != 0 || d_size % 4 != 0 ||
+      kind < radar_cfar::kCA || kind > radar_cfar::kSO)
     return cudaErrorInvalidValue;
   const int kc_size = n_chirps / n_tx;
   cudaError_t err =
@@ -553,7 +558,7 @@ int radar_mega_detect(const int16_t* raw, const float* base_raw,
   if (err != cudaSuccess) return err;
   detect_kernel<<<n_frames, kDetThreads, smem, stream>>>(
       power, z, ft_re, ft_im, top_idx, top_val, nbr, num_hits, snaps, n_chirps,
-      n_rx, n_tx, r_size, d_size, kc_size, k_det, range_wrap, guard_d,
+      n_rx, n_tx, r_size, d_size, kc_size, k_det, kind, range_wrap, guard_d,
       guard_r, win_d, win_r, r_valid, coef);
   return cudaGetLastError();
 }

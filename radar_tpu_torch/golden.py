@@ -1,11 +1,11 @@
 """Float64 NumPy golden model: the port's copy of the parts of
 ``radar_tpu.golden`` that the port and ``chip_smoke.py`` use.
 
-Windows, the TDM virtual cube, the range-Doppler map and the CA and
-GO/SO CFAR detectors with their Erlang-matched alphas, copied as they
+Windows, the TDM virtual cube, the range-Doppler map and the CA, GO/SO
+and OS CFAR detectors with their Erlang-matched alphas, copied as they
 are; ``tests/test_torch_constants.py`` holds each copy's output equal to
-the original's.  The rest of the golden model (OS-CFAR, Capon, MUSIC,
-clusters, ego-motion) comes with the slices that need it.
+the original's.  The rest of the golden model (Capon, MUSIC, clusters,
+ego-motion) comes with the slices that need it.
 """
 
 from __future__ import annotations
@@ -342,4 +342,144 @@ def go_so_cfar_2d(
         s_lead, s_lag
     )
     threshold = t * noise
+    return power > threshold, threshold
+
+
+def os_cfar_alpha(
+    n_train: int, k: int, pfa: float, n_pulses: int = 1
+) -> float:
+    """OS-CFAR scale factor for exponential (square-law) noise.
+
+    Pfa(alpha) = k * C(N, k) * B(alpha + N - k + 1, k)  [Rohling 1983],
+    solved for alpha by bisection using log-gamma (no scipy dependency).
+
+    ``n_pulses = N_p > 1`` (non-coherently integrated maps): cells are
+    Erlang-N_p, whose integer shape keeps everything closed-form — the
+    order-statistic density uses the Erlang CDF
+    ``F(y) = 1 - e^-y sum_{i<N_p} y^i/i!`` and the exceedance
+    ``Q(N_p, a y)``, and
+
+      Pfa(a) = k C(n,k) INT_0^inf Q(N_p, a y) F^{k-1} (1-F)^{n-k} f(y) dy
+
+    is a smooth 1D integral evaluated by the trapezoid rule on a dense
+    grid (config-time constant; MC-validated).  Reduces to Rohling's
+    Beta form at N_p = 1, where the legacy code path is kept verbatim
+    for bit-compatibility.
+    """
+    import math
+
+    if n_pulses > 1:
+        return _os_alpha_integrated(n_train, k, pfa, n_pulses)
+
+    log_k_choose = (
+        math.log(k)
+        + math.lgamma(n_train + 1)
+        - math.lgamma(k + 1)
+        - math.lgamma(n_train - k + 1)
+    )
+
+    def log_pfa(alpha: float) -> float:
+        # log B(alpha + N - k + 1, k) = lgamma(a) + lgamma(k) - lgamma(a+k)
+        a = alpha + n_train - k + 1
+        return log_k_choose + math.lgamma(a) + math.lgamma(k) - math.lgamma(a + k)
+
+    target = math.log(pfa)
+    lo, hi = 1e-6, 1e6
+    for _ in range(200):
+        mid = 0.5 * (lo + hi)
+        if log_pfa(mid) > target:  # Pfa decreases as alpha grows
+            lo = mid
+        else:
+            hi = mid
+    return 0.5 * (lo + hi)
+
+
+def _os_alpha_integrated(
+    n_train: int, k: int, pfa: float, n_pulses: int
+) -> float:
+    """Erlang-matched OS alpha (see :func:`os_cfar_alpha`)."""
+    import math
+
+    n, n_p = n_train, n_pulses
+    # dense grid over the order statistic's support: Y_(k) concentrates
+    # around the F^{-1}(k/n) quantile of Gamma(n_p); the Gamma tail is
+    # e^-y, so [0, n_p + 40 + 8*sqrt(n_p)] covers it past double precision
+    y = np.linspace(1e-9, n_p + 40.0 + 8.0 * math.sqrt(n_p), 20001)
+    pows = np.stack([y**i / math.factorial(i) for i in range(n_p)])
+    ccdf = np.exp(-y) * pows.sum(axis=0)            # 1 - F(y), Erlang
+    cdf = 1.0 - ccdf
+    log_f = (n_p - 1) * np.log(y) - y - math.lgamma(n_p)  # Gamma(n_p) pdf
+    log_c = (math.log(k) + math.lgamma(n + 1) - math.lgamma(k + 1)
+             - math.lgamma(n - k + 1))
+    # order-statistic density of Y_(k), in log space for the extremes
+    with np.errstate(divide="ignore"):
+        log_dens = (log_c + (k - 1) * np.log(np.maximum(cdf, 1e-300))
+                    + (n - k) * np.log(np.maximum(ccdf, 1e-300)) + log_f)
+    dens = np.exp(log_dens)
+
+    def pfa_of(alpha: float) -> float:
+        ay = alpha * y
+        q = np.exp(-ay) * np.stack(
+            [ay**i / math.factorial(i) for i in range(n_p)]
+        ).sum(axis=0)                               # Q(n_p, alpha*y)
+        trapz = getattr(np, "trapezoid", np.trapz)
+        return float(trapz(q * dens, y))
+
+    lo, hi = 1e-6, 1e6
+    for _ in range(100):
+        mid = math.sqrt(lo * hi)
+        if pfa_of(mid) > pfa:
+            lo = mid
+        else:
+            hi = mid
+    return math.sqrt(lo * hi)
+
+
+def os_cfar_2d(
+    power: np.ndarray,
+    guard: tuple[int, int],
+    train: tuple[int, int],
+    pfa: float,
+    k_frac: float = 0.75,
+    range_mode: str = "reflect",
+    stride: int = 1,
+    n_pulses: int = 1,
+) -> tuple[np.ndarray, np.ndarray]:
+    """2D ordered-statistic CFAR: threshold = alpha_os * k-th smallest
+    training cell.  Robust to clutter edges and multiple targets inside
+    the training ring, where CA-CFAR's mean is biased (the classic CA
+    masking problem).  Same window geometry and edge conventions as
+    :func:`ca_cfar_2d` (Doppler wraps, range per ``range_mode``).
+    ``stride`` keeps every stride-th ring cell (deterministic order) and
+    recomputes alpha for the decimated count — the sort dominates the
+    cost, and the twins decimate identically.
+    """
+    gd, gr = guard
+    td, tr = train
+    wd, wr = gd + td, gr + tr
+    lead = [(0, 0)] * (power.ndim - 2)
+    padded = np.pad(power, lead + [(wd, wd), (0, 0)], mode="wrap")
+    padded = np.pad(padded, lead + [(0, 0), (wr, wr)], mode=range_mode)
+
+    d_sz, r_sz = power.shape[-2], power.shape[-1]
+    ring = []
+    m = 0
+    for dd in range(-wd, wd + 1):
+        for dr in range(-wr, wr + 1):
+            if abs(dd) <= gd and abs(dr) <= gr:
+                continue  # guard region (incl. the cell under test)
+            if m % stride == 0:
+                ring.append(
+                    padded[..., wd + dd : wd + dd + d_sz,
+                           wr + dr : wr + dr + r_sz]
+                )
+            m += 1
+    cells = np.stack(ring, axis=-1)
+    n_train = cells.shape[-1]
+    # half-away-from-zero (not Python's banker's round): matches the C++
+    # twin's llround so k is identical across implementations
+    k = max(1, min(n_train, int(np.floor(k_frac * n_train + 0.5))))
+    kth = np.sort(cells, axis=-1)[..., k - 1]
+    alpha = os_cfar_alpha(n_train, k, pfa, n_pulses)
+    threshold = alpha * kth
     return power > threshold, threshold

@@ -2,20 +2,22 @@
 ``radar_tpu.models.rd_pipeline``).
 
     decode -> clutter removal -> windowed range + Doppler DFT
-    -> RX-summed power -> 2D CA-CFAR -> top-K detections
+    -> RX-summed power -> 2D CFAR (CA, GO, SO or OS) -> top-K detections
     -> per-detection angle FFT -> (range, velocity, azimuth)
 
 Static shapes throughout: CFAR hits fold into a fixed top-K list masked
 by validity.  ``rd_impl`` 'auto'/'mega' runs everything up to the
 detection lists in the detect op of ``ops/cuda/megakernel.py`` (kernel
-1); after it only O(B*K) physics is left
+1, CA / GO / SO); after it only O(B*K) physics is left
 (:func:`assemble_result_from_kernel`).  'mega-maps' runs the maps op of
-the same module (kernel 2: power and CFAR threshold maps), then top-K
-(kernel 3) and :func:`assemble_result`; 'fused' runs the plain front end
-and then the CFAR (kernel 4) and top-K (kernel 3) kernels.  Each op
-launches its CUDA kernel for CUDA tensors and takes its plain version
-for CPU tensors; ``cfar_impl`` / ``topk_impl`` 'xla' pin the plain
-versions.
+the same module (kernel 2: power and CA / GO / SO threshold maps), then
+top-K (kernel 3) and :func:`assemble_result`; 'fused' runs the plain
+front end and then the CFAR (kernel 4 for CA) and top-K (kernel 3)
+kernels.  OS-CFAR, as in the JAX package, takes the maps path on every
+``rd_impl``: kernel 2's power maps, then the OS hits kernel (kernel 6;
+``ops.cfar.cfar_detect``).  Each op launches its CUDA kernel for CUDA
+tensors and takes its plain version for CPU tensors; ``cfar_impl`` /
+``topk_impl`` 'xla' pin the plain versions.
 """
 
 from __future__ import annotations
@@ -371,15 +373,17 @@ class RDPipeline(nn.Module):
         nci = pipe.detect_integrated(frames[1:], base, 4)  # per 4 frames
 
     Attributes:
-      rd_impl: 'auto'/'mega' (kernel 1, the detect op, for CA-CFAR with
-        ``cfar_impl`` 'auto' and K <= 128; otherwise the maps path, as in
-        the JAX package), 'mega-maps' (kernel 2, the maps op, then the
-        top-K and the tail) or 'fused' (the plain front end, then CFAR
-        and top-K).  Other JAX front ends are not ported yet.
-      cfar_impl: 'auto' (under 'mega'/'mega-maps' the threshold inside
-        the maps op; elsewhere the CFAR kernel for CUDA tensors, the
-        plain version for CPU tensors), 'xla' (the plain version) or
-        'pallas' (the CFAR kernel; raises for CPU tensors).
+      rd_impl: 'auto'/'mega' (kernel 1, the detect op, for CA, GO and
+        SO CFAR with ``cfar_impl`` 'auto' and K <= 128; otherwise the
+        maps path, as in the JAX package), 'mega-maps' (kernel 2, the
+        maps op, then the top-K and the tail) or 'fused' (the plain
+        front end, then CFAR and top-K).  Other JAX front ends are not
+        ported yet.
+      cfar_impl: 'auto' (under 'mega'/'mega-maps' the CA / GO / SO
+        threshold inside the maps op; elsewhere, and for OS, the CFAR
+        kernels for CUDA tensors, the plain version for CPU tensors),
+        'xla' (the plain version) or 'pallas' (the CFAR kernels; raises
+        for CPU tensors).
       topk_impl: 'auto' (the top-K kernel for CUDA tensors, the plain
         version for CPU tensors), 'xla' or 'pallas', likewise.
 
@@ -397,16 +401,13 @@ class RDPipeline(nn.Module):
                 f"rd_impl {rd_impl!r} is not ported yet (ROADMAP.md queue 1 "
                 "item 10: the verification front ends)"
             )
-        if cfg.cfar_kind == "os":
-            raise NotImplementedError(
-                "cfar_kind 'os' is not ported yet (ROADMAP.md queue 2 items "
-                "5-6: the OS-CFAR kernels)"
-            )
         for name, impl in (("cfar_impl", cfar_impl), ("topk_impl", topk_impl)):
             if impl not in _IMPLS:
                 raise NotImplementedError(
                     f"{name} {impl!r} has no counterpart in the port (it "
-                    f"takes {', '.join(_IMPLS)}; ROADMAP.md queue 1 item 8)"
+                    f"takes {', '.join(_IMPLS)}; 'xla', the plain version, "
+                    "stands for Pallas interpret mode: ROADMAP.md queue 1 "
+                    "item 8)"
                 )
         if cfg.clutter_mode in ("mti2", "mti3"):
             raise NotImplementedError(
@@ -422,12 +423,6 @@ class RDPipeline(nn.Module):
         self.cfar_impl = cfar_impl
         self.rd_impl = rd_impl
         self.topk_impl = topk_impl
-        if self._detect_kernel() and cfg.cfar_kind != "ca":
-            raise NotImplementedError(
-                f"cfar_kind {cfg.cfar_kind!r} inside the detect kernel is "
-                "not ported yet (ROADMAP.md queue 1 item 8: GO/SO in kernel "
-                "1); rd_impl='mega-maps' takes it"
-            )
         device = resolve_device(device)
         for name, t in mega_constants(cfg).items():
             self.register_buffer(name, t.to(device), persistent=False)
@@ -441,8 +436,10 @@ class RDPipeline(nn.Module):
 
     def _detect_kernel(self) -> bool:
         """Whether :meth:`detect` runs the detect op (kernel 1): the
-        JAX package's condition, less GO/SO (which raise)."""
-        return (self.rd_impl in ("auto", "mega") and self.cfar_impl == "auto"
+        JAX package's condition."""
+        return (self.rd_impl in ("auto", "mega")
+                and self.cfg.cfar_kind in ("ca", "goca", "soca")
+                and self.cfar_impl == "auto"
                 and self.max_detections <= K_MAX)
 
     @staticmethod
@@ -453,9 +450,11 @@ class RDPipeline(nn.Module):
         return impl
 
     def _cfar(self, power: torch.Tensor, cfg: RadarConfig | None = None):
+        """The hit map of ``power``: the pipelines discard the threshold,
+        so OS takes its hits kernel (``cfar_detect(hits_only=True)``)."""
         cfg = self.cfg if cfg is None else cfg
-        return cfar_detect(power, cfg,
-                           self._resolve(self.cfar_impl, power))[0]
+        return cfar_detect(power, cfg, self._resolve(self.cfar_impl, power),
+                           hits_only=True)[0]
 
     def _tail(self, power, hits, snaps_fn) -> RDResult:
         return assemble_result(power, snaps_fn, hits, self.max_detections,
@@ -561,7 +560,8 @@ class RDPipeline(nn.Module):
             return power, hits, lambda top_idx: torch.complex(
                 gather_snapshots(dr, top_idx), gather_snapshots(di, top_idx))
         consts = dict(self.named_buffers())
-        if want_hits and self.cfar_impl == "auto":
+        if (want_hits and self.cfar_impl == "auto"
+                and cfg.cfar_kind in ("ca", "goca", "soca")):
             power, thresh = power_cfar_from_shorts(shorts, base, cfg, consts)
             hits = power > thresh
         else:

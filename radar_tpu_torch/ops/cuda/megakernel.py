@@ -5,12 +5,13 @@ Port of ``radar_tpu/ops/pallas/megakernel.py``:
 
 * the detect op (``_mega_detect_kernel``, entry
   ``detections_from_shorts_pallas``): range DFT -> clutter removal ->
-  TDM demux -> Doppler DFT -> power -> CA-CFAR -> top-K -> neighbour
-  samples -> AoA snapshots;
+  TDM demux -> Doppler DFT -> power -> CA / GOCA / SOCA CFAR -> top-K ->
+  neighbour samples -> AoA snapshots;
 * the maps op (``_mega_kernel``, entries ``power_from_shorts_pallas``
   and ``power_cfar_from_shorts_pallas``): the same front end up to the
   power map, plus, in its with-CFAR form, the CA / GOCA / SOCA
-  threshold map;
+  threshold map (OS-CFAR, as in the JAX package, runs on the power maps
+  through ``ops/cuda/oscfar.py``);
 * ``snapshots_from_shorts``, the maps path's AoA snapshots recomputed
   from the raw frames at the detected cells (plain PyTorch, as the JAX
   package leaves it to XLA).
@@ -34,7 +35,7 @@ import numpy as np
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
-from radar_tpu_torch.ops.cfar import ca_cfar_2d, go_so_cfar_2d
+from radar_tpu_torch.ops.cfar import cfar_detect
 from radar_tpu_torch.ops.cuda._launch import (
     check,
     check_aligned,
@@ -115,8 +116,9 @@ def detections_from_shorts_reference(
     cfg: RadarConfig = DEFAULT_CONFIG,
 ):
     """The plain PyTorch version of the kernel, on any device: the same
-    six outputs from the maps (fused range + Doppler planes, strip-form
-    CA-CFAR, stable-sort top-K, gathers)."""
+    six outputs from the maps (fused range + Doppler planes, the
+    strip-form CA / GO / SO CFAR of ``cfg.cfar_kind``, stable-sort top-K,
+    gathers)."""
     from radar_tpu_torch.models.rd_pipeline import (
         gather_snapshots,
         neighbour_samples,
@@ -127,7 +129,7 @@ def detections_from_shorts_reference(
     dr, di = doppler_from_range_planes(*fused_range_planes(x, base_cube, cfg),
                                        cfg)
     power = (dr * dr + di * di).sum(dim=-3)            # (B, D, R)
-    hits, _ = ca_cfar_2d(power, cfg)
+    hits = power > _threshold_reference(power, cfg)
     r_size = cfg.range_fft_size
     r_idx = torch.arange(r_size, device=power.device)
     hits = hits & (r_idx < r_size - cfg.range_edge_guard_effective)
@@ -187,11 +189,7 @@ def detections_from_shorts_cuda(
     for a tensor that is not on a CUDA device, for a geometry the kernel
     does not take, when the build fails and when a launch fails."""
     global launches
-    if cfg.cfar_kind != "ca":
-        raise NotImplementedError(
-            f"cfar_kind {cfg.cfar_kind!r} is not in the kernel (ROADMAP.md "
-            "queue 1 item 8)"
-        )
+    kind = _map_kind(cfg)
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     d_size, r_size, tx = cfg.doppler_fft_size, cfg.range_fft_size, cfg.num_tx
     if not 1 <= k <= min(K_MAX, d_size * r_size):
@@ -204,7 +202,7 @@ def detections_from_shorts_cuda(
     dev = shorts.device
     lead = shorts.shape[:-1]
     b = x.shape[0]
-    _, range_wrap, gd, gr, wd, wr, coef = threshold_args(cfg, "ca")
+    kind_id, range_wrap, gd, gr, wd, wr, coef = threshold_args(cfg, kind)
 
     f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty((b * c * v, 2 * r_size), **f32)
@@ -220,7 +218,7 @@ def detections_from_shorts_cuda(
            ptr(consts["ft_im"]), ptr(z), ptr(power), ptr(top_idx),
            ptr(top_val), ptr(nbr), ptr(num_hits), ptr(snaps),
            b, c, v, tx, s2, r_size, d_size, k, int(mode == "mean"),
-           range_wrap, gd, gr, wd, wr,
+           kind_id, range_wrap, gd, gr, wd, wr,
            r_size - cfg.range_edge_guard_effective, coef)
     launches += 1
     return (top_idx.reshape(lead + (k,)), top_val.reshape(lead + (k,)),
@@ -266,18 +264,25 @@ def power_cfar_from_shorts_reference(shorts, base_cube,
     """The plain version of the maps op's with-CFAR form, on any
     device: the power map and the strip-form CA / GO / SO threshold."""
     power = power_from_shorts_reference(shorts, base_cube, cfg)
-    if cfg.cfar_kind == "ca":
-        return power, ca_cfar_2d(power, cfg)[1]
-    return power, go_so_cfar_2d(power, cfg, _map_kind(cfg)[:2])[1]
+    return power, _threshold_reference(power, cfg)
 
 
 def _map_kind(cfg: RadarConfig) -> str:
+    """``cfg.cfar_kind`` where the mega ops compute its threshold
+    (ca / goca / soca); raises for 'os', as the JAX kernels do: OS-CFAR
+    runs on the maps op's power maps (``ops/cuda/oscfar.py``)."""
     if cfg.cfar_kind not in ("ca", "goca", "soca"):
-        raise NotImplementedError(
-            f"the maps op's CFAR takes ca/goca/soca, not {cfg.cfar_kind!r} "
-            "(ROADMAP.md queue 2 items 5-6: OS-CFAR)"
+        raise ValueError(
+            f"the mega ops' CFAR takes ca/goca/soca, not {cfg.cfar_kind!r} "
+            "(OS runs on the power maps: RDPipeline takes the maps path)"
         )
     return cfg.cfar_kind
+
+
+def _threshold_reference(power: torch.Tensor, cfg: RadarConfig):
+    """The plain CA / GO / SO threshold map of ``cfg.cfar_kind``."""
+    _map_kind(cfg)
+    return cfar_detect(power, cfg, "xla")[1]
 
 
 def power_from_shorts_cuda(shorts, base_cube,

@@ -1,0 +1,143 @@
+"""OS-CFAR from power maps: kernels 5 (the threshold) and 6 (the hits).
+
+Port of ``radar_tpu/ops/pallas/oscfar_kernel.py``:
+
+* :func:`os_cfar_2d_cuda` launches the OS threshold kernel (replaces
+  ``_os_kernel``, entry ``os_cfar_2d_pallas``): threshold = f32(alpha)
+  * (k-th smallest training-ring cell), bit-identical to sorting the
+  ring.  It counts its launches in :data:`threshold_launches`; its plain
+  version is :func:`radar_tpu_torch.ops.cfar.os_cfar_2d`.
+* :func:`os_cfar_hits_cuda` launches the OS hits kernel (replaces
+  ``_os_hits_box_kernel`` and ``_os_hits_kernel``, entry
+  ``os_cfar_hits_pallas``): hit <=> count(RN(alpha * v) < p) >= k,
+  bit-identical to ``power > threshold``.  One kernel, driven by the
+  list of ring offsets, serves both TPU bodies; ``impl`` keeps the JAX
+  semantics ('box' refuses a decimated ring).  It counts its launches in
+  :data:`hits_launches`; its plain version is
+  :func:`radar_tpu_torch.ops.cfar.os_cfar_hits`.
+* :func:`os_hits_supported` states the two kernels' gate: a tile of
+  Doppler rows with its halo in a block's shared memory.
+
+Both kernels live in ``csrc/oscfar.cu`` (design and bounds are noted
+there).  ``ops.cfar.cfar_detect`` picks between kernels and plain
+versions; there is no fallback from a kernel to its plain version.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.ops.cfar import os_ring_params
+from radar_tpu_torch.ops.cuda._launch import check, launch, ptr, require_cuda
+
+TILE_ROWS = 16        # Doppler rows a block, where the halo fits
+SMEM_BYTES = 232448   # shared memory a block may use on sm_90 (227 KB)
+
+threshold_launches = 0   # kernel launches by os_cfar_2d_cuda
+hits_launches = 0        # kernel launches by os_cfar_hits_cuda
+
+
+def tile_rows(d_size: int, r_size: int, cfg: RadarConfig) -> int:
+    """Doppler rows of a block's tile: :data:`TILE_ROWS`, or fewer where
+    the rows and their 2 wd halo rows (each R + 2 wr cells of f32), with
+    the ring's offset list, would pass :data:`SMEM_BYTES`; 0 where not
+    even one row fits."""
+    gd, gr = cfg.cfar_guard
+    td, tr = cfg.cfar_train
+    wd, wr = gd + td, gr + tr
+    fit = ((SMEM_BYTES - 4 * os_ring_params(cfg)[1])
+           // (4 * (r_size + 2 * wr)) - 2 * wd)
+    return max(0, min(TILE_ROWS, d_size, fit))
+
+
+def os_hits_supported(d_size: int, r_size: int, cfg: RadarConfig) -> bool:
+    """True where the OS kernels take a (d_size, r_size) map: the
+    non-raising form of their shared-memory gate (not the TPU's VMEM
+    planner).  ``cfar_detect(hits_only=True)`` asks it before choosing
+    the hits kernel over the threshold kernel."""
+    return tile_rows(d_size, r_size, cfg) > 0
+
+
+def _check_impl(cfg: RadarConfig, impl: str) -> None:
+    """``os_cfar_hits_pallas``'s forms: 'box' is exact only for the
+    undecimated ring, 'offsets' for any, 'auto' picks.  Here one kernel
+    serves all three."""
+    if impl not in ("auto", "box", "offsets"):
+        raise ValueError(f"unknown OS hits impl {impl!r}")
+    if impl == "box" and cfg.cfar_os_stride != 1:
+        raise ValueError("the box-count OS hits kernel is exact only at "
+                         "cfar_os_stride == 1")
+
+
+@functools.lru_cache(maxsize=16)
+def _offset_table(offsets, wd: int, wr: int, r_size: int,
+                  device: torch.device) -> torch.Tensor:
+    """The ring offsets as int32 cells from a window's top-left corner in
+    the kernels' shared tile (row pitch R + 2 wr)."""
+    w = r_size + 2 * wr
+    return torch.tensor([(wd + dd) * w + wr + dr for dd, dr in offsets],
+                        dtype=torch.int32, device=device)
+
+
+def _run(entry: str, power: torch.Tensor, out_dtype, cfg: RadarConfig,
+         what: str, plain: str) -> torch.Tensor:
+    """Checks, then one launch of ``entry`` over every map of ``power``;
+    returns its (..., D, R) output."""
+    require_cuda(power, what, plain)
+    offsets, n_train, k, alpha = os_ring_params(cfg)
+    gd, gr = cfg.cfar_guard
+    td, tr = cfg.cfar_train
+    wd, wr = gd + td, gr + tr
+    d_size, r_size = power.shape[-2], power.shape[-1]
+    rows = tile_rows(d_size, r_size, cfg)
+    if rows == 0:
+        raise NotImplementedError(
+            f"a {d_size}x{r_size} map with a +-{wd} x +-{wr} CFAR window "
+            f"does not fit the OS kernels' {SMEM_BYTES}-byte shared-memory "
+            "tile (os_hits_supported is False); decimate the ring "
+            "(cfg.cfar_os_stride) or use cfar_impl='xla'"
+        )
+    x = power.reshape(-1, d_size, r_size)
+    check("power", x, torch.float32, (x.shape[0], d_size, r_size),
+          power.device)
+    table = _offset_table(offsets, wd, wr, r_size, power.device)
+    out = torch.empty(x.shape, dtype=out_dtype, device=power.device)
+    launch(entry, power.device, ptr(x), ptr(out), ptr(table), x.shape[0],
+           d_size, r_size, rows, n_train, int(cfg.cfar_range_mode == "wrap"),
+           wd, wr, k, float(np.float32(alpha)))
+    return out.reshape(power.shape)
+
+
+def os_cfar_2d_cuda(
+    power: torch.Tensor,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """OS-CFAR of f32 power maps (..., D, R) through the OS threshold
+    kernel.  Returns (hits bool, threshold f32).  Raises for a tensor
+    that is not on a CUDA device, for a map whose tile does not fit
+    shared memory, when the build fails and when the launch fails."""
+    global threshold_launches
+    thresh = _run("radar_os_threshold", power, torch.float32, cfg,
+                  "OS threshold", "radar_tpu_torch.ops.cfar.os_cfar_2d")
+    threshold_launches += 1
+    return power > thresh, thresh
+
+
+def os_cfar_hits_cuda(power: torch.Tensor,
+                      cfg: RadarConfig = DEFAULT_CONFIG,
+                      impl: str = "auto") -> torch.Tensor:
+    """OS-CFAR hit map (bool, shape of ``power``) of f32 power maps
+    through the OS hits kernel, bit-identical to ``power >
+    os_cfar_2d_cuda(power, cfg)[1]``.  Raises for an unknown ``impl``,
+    for 'box' at ``cfar_os_stride != 1``, and as :func:`os_cfar_2d_cuda`
+    does."""
+    global hits_launches
+    _check_impl(cfg, impl)
+    hits = _run("radar_os_hits", power, torch.bool, cfg, "OS hits",
+                "radar_tpu_torch.ops.cfar.os_cfar_hits")
+    hits_launches += 1
+    return hits

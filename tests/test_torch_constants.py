@@ -298,3 +298,37 @@ def test_go_so_band_matrices(range_mode, d_size, r_size):
     for w, g in zip(want, got):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
+
+
+OS_KW = [
+    dict(), dict(cfar_os_stride=3), dict(cfar_range_mode="wrap"),
+    dict(cfar_os_k_frac=0.9), dict(cfar_guard=(1, 1), cfar_train=(2, 3)),
+]
+
+
+@pytest.mark.parametrize("n_pulses", [1, 4, 16])
+@pytest.mark.parametrize("overrides", OS_KW, ids=str)
+def test_os_ring_params(overrides, n_pulses):
+    """Offsets in the same order, the same rank, the bit-equal alpha
+    (``os_cfar_alpha``: Rohling's closed form at 1 pulse, the Erlang-N
+    trapezoid bisection ``_os_alpha_integrated`` above)."""
+    cfg = RadarConfig(cfar_kind="os", cfar_n_pulses=n_pulses, **overrides)
+    offsets, n_train, k, alpha = cfar.os_ring_params(config_from_jax(cfg))
+    want = jax_cfar.os_ring_params(cfg)
+    assert (list(offsets), n_train, k) == (want[0], want[1], want[2])
+    assert alpha == want[3]
+    assert (golden.os_cfar_alpha(n_train, k, cfg.cfar_pfa, n_pulses)
+            == jax_golden.os_cfar_alpha(n_train, k, cfg.cfar_pfa, n_pulses))
+
+
+@pytest.mark.parametrize("range_mode", ["reflect", "wrap"])
+@pytest.mark.parametrize("stride,n_pulses", [(1, 1), (3, 4)])
+def test_golden_os_cfar(range_mode, stride, n_pulses):
+    rng = np.random.default_rng(9)
+    power = rng.exponential(size=(2, 24, 36))
+    power[0, 5, 7] = 300.0
+    power[1, 20, 34] = 80.0
+    args = ((2, 2), (3, 5), 1e-3, 0.75, range_mode, stride, n_pulses)
+    for g, w in zip(golden.os_cfar_2d(power, *args),
+                    jax_golden.os_cfar_2d(power, *args)):
+        np.testing.assert_array_equal(g, w)

@@ -18,7 +18,8 @@ from radar_tpu_torch import _build, cli  # noqa: E402
 from radar_tpu_torch.config import RadarConfig  # noqa: E402
 from radar_tpu_torch.models.range_detector import RangeDetector  # noqa: E402
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
-from radar_tpu_torch.ops.cuda import cfar, megakernel, topk  # noqa: E402
+from radar_tpu_torch.ops.cfar import cfar_detect  # noqa: E402
+from radar_tpu_torch.ops.cuda import cfar, megakernel, oscfar, topk  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "radar_tpu_torch").rglob("*.py")) + [
@@ -83,7 +84,7 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
 
 def _counts():
     return (megakernel.launches, megakernel.maps_launches, cfar.launches,
-            topk.launches)
+            topk.launches, oscfar.threshold_launches, oscfar.hits_launches)
 
 
 def test_cuda_wrapper_refuses_non_cuda_tensors():
@@ -124,6 +125,44 @@ def test_new_wrappers_refuse_non_cuda_tensors(device):
             call()
     assert _counts() == before
 
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_os_wrappers_refuse_non_cuda_tensors(device, monkeypatch):
+    """Kernels 5 and 6 raise for tensors that are not on a CUDA device,
+    directly or through cfar_detect('pallas'), build nothing and count
+    no launch."""
+    def no_build():
+        raise AssertionError("a refused call must not build the kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    cfg = RadarConfig(**SMALL, cfar_kind="os")
+    power = torch.zeros((2, 64, 64), device=device)
+    before = _counts()
+    for call in (lambda: oscfar.os_cfar_2d_cuda(power, cfg),
+                 lambda: oscfar.os_cfar_hits_cuda(power, cfg),
+                 lambda: oscfar.os_cfar_hits_cuda(power, cfg, "offsets"),
+                 lambda: cfar_detect(power, cfg, "pallas"),
+                 lambda: cfar_detect(power, cfg, "pallas", hits_only=True)):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert _counts() == before
+
+
+def test_cpu_os_paths_never_build(monkeypatch):
+    """OS detect and NCI on CPU tensors take the plain versions."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    cfg = RadarConfig(**SMALL, cfar_kind="os")
+    shorts = torch.zeros((4, cfg.shorts_per_frame), dtype=torch.int16)
+    before = _counts()
+    for rd_impl in ("auto", "fused"):
+        pipe = RDPipeline(cfg, 8, device="cpu", rd_impl=rd_impl)
+        assert pipe.detect(shorts).valid.shape == (4, 8)
+        assert pipe.detect_integrated(shorts, None, 2).valid.shape == (2, 8)
+    assert _counts() == before
 
 @pytest.mark.parametrize("kw", [
     dict(cfar_impl="pallas"), dict(topk_impl="pallas"),

@@ -62,6 +62,8 @@ CASES = {
     "mean-tx2-k16": (dict(num_tx=2), False, 16),
     "base-tx1-k48": (dict(dft_precision="highest"), True, 48),
     "reduced-base-k16": (REDUCED, True, 16),
+    "goca-base-tx1-k16": (dict(cfar_kind="goca"), True, 16),
+    "soca-mean-tx2-k16": (dict(cfar_kind="soca", num_tx=2), False, 16),
 }
 
 
