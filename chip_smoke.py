@@ -12,8 +12,13 @@ kernel, on the summed maps, then kernel 3); OS-CFAR, ``RDPipeline(
 RadarConfig(cfar_kind='os'), 16).detect`` and ``detect_integrated``
 (kernel 2, then kernel 6, the OS hits kernel, then kernel 3), with
 kernel 5, the OS threshold kernel, behind ``cfar_detect``; GO/SO inside
-kernel 1; and ``python -m radar_tpu_torch.cli detect --full
-[--integrate 4 | --cfar-kind os]``.  Phases, each printing one line:
+kernel 1; ``RangeDetector(detect_impl='pallas')`` (kernel 7, the masked
+argmax) and ``python -m radar_tpu_torch.cli verify``; ``RDPipeline(
+rd_impl='fused-pallas')`` (kernel 8, the fused range DFT, then kernels
+4 and 3); MTI clutter through kernel 1; the 'planar', 'fft' and 'mxu'
+front ends; ``python -m radar_tpu_torch.cli detect --full [--integrate
+4 | --cfar-kind os]`` and ``... selftest``.  Phases, each printing one
+line or more:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
@@ -41,7 +46,21 @@ kernel 1; and ``python -m radar_tpu_torch.cli detect --full
     ``--cfar-kind os`` against the plain path and the golden; timing,
     bounds and a profiler breakdown of the OS ``detect``;
 12. GO/SO inside kernel 1: 'mega' against 'mega-maps' bit for bit, its
-    time beside CA's, and kernel 1's CA checksum again.
+    time beside CA's, and kernel 1's CA checksum again;
+13. kernel 7 bit for bit against its plain version (512 spectra, a
+    maximum planted outside the window, exact ties, an unbatched
+    spectrum, lead dims, NaN, a non-contiguous view, no rows),
+    ``RangeDetector`` 'pallas' against 'auto' with its launches, ``cli
+    verify`` (64 ok, 0 failed), timing and a profiler breakdown;
+14. kernel 8 against its plain version (base, mean, mti2, a reduced
+    geometry), 'fused-pallas' ``detect`` against 'fused' and the golden,
+    its ``detect_integrated`` against the plain path, launches, timing
+    beside one cuBLAS call of the same GEMM, a profiler breakdown;
+15. MTI (mti2, mti3) through kernel 1 against the plain path and
+    'mega-maps', the static target notched and the mover kept; 'planar',
+    'fft' and 'mxu' against 'fused'; frames/s of bench.py's variant rows
+    and its mti2 row;
+16. ``cli selftest`` on the card: 15 checks, 0 failed.
 
 Any failed check raises, so the script exits non-zero before its last
 line; without CUDA it exits 1 at once.  The line before the last is the
@@ -309,6 +328,17 @@ def golden_check(capture, res, cfg) -> float:
                         cfg.cfar_pulses_effective, res, cfg)
 
 
+def nbr_of(power: torch.Tensor, res: dict) -> np.ndarray:
+    """The neighbour samples of ``res``'s cells on the maps ``power``
+    (..., D, R), the ``nbr`` that :func:`compare` conditions on."""
+    from radar_tpu_torch.models.rd_pipeline import neighbour_samples
+
+    d = torch.from_numpy(res["doppler_bin"]).to(power.device, torch.int64)
+    r = torch.from_numpy(res["range_bin"]).to(power.device, torch.int64)
+    return neighbour_samples(power, d * power.shape[-1] + r, d,
+                             r).cpu().numpy()
+
+
 def maps_check(name, got, want) -> float:
     """Power maps (..., D, R) held as ``compare`` holds power: rtol 2e-4
     plus the f32 floor 16 eps sqrt(peak / p) of each map's strongest
@@ -462,7 +492,7 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     from radar_tpu_torch.convert import result_to_numpy
     from radar_tpu_torch.io.capture import write_capture
     from radar_tpu_torch.io.synthetic import synthesize_capture
-    from radar_tpu_torch.models.rd_pipeline import RDPipeline, neighbour_samples
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
     from radar_tpu_torch.ops.cfar import ca_cfar_2d, go_so_cfar_2d
     from radar_tpu_torch.ops.cuda import cfar as cfar_k
     from radar_tpu_torch.ops.cuda import megakernel
@@ -495,11 +525,6 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         torch.cuda.synchronize()
         return {"mega_maps": megakernel.maps_launches,
                 "ca_cfar": cfar_k.launches, "topk": topk_k.launches}
-
-    def nbr_of(power, res):
-        d = torch.from_numpy(res["doppler_bin"]).to(dev, torch.int64)
-        r = torch.from_numpy(res["range_bin"]).to(dev, torch.int64)
-        return neighbour_samples(power, d * r_size + r, d, r).cpu().numpy()
 
     # -- 6. kernels 2, 3, 4 against their plain versions -------------------
     power_k = power_from_shorts_cuda(frames, base, cfg, consts)
@@ -770,7 +795,7 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     from radar_tpu_torch.convert import result_to_numpy
     from radar_tpu_torch.io.capture import write_capture
     from radar_tpu_torch.io.synthetic import synthesize_capture
-    from radar_tpu_torch.models.rd_pipeline import RDPipeline, neighbour_samples
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
     from radar_tpu_torch.ops.cfar import (
         cfar_detect,
         os_cfar_2d,
@@ -805,11 +830,6 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         return {"mega_maps": megakernel.maps_launches, "topk": topk_k.launches,
                 "os_threshold": oscfar.threshold_launches,
                 "os_hits": oscfar.hits_launches}
-
-    def nbr_of(power, res):
-        d = torch.from_numpy(res["doppler_bin"]).to(dev, torch.int64)
-        r = torch.from_numpy(res["range_bin"]).to(dev, torch.int64)
-        return neighbour_samples(power, d * r_size + r, d, r).cpu().numpy()
 
     # -- 11a. kernels 5 and 6 against their plain versions -------------------
     def check_os(name, p, c) -> int:
@@ -1045,6 +1065,367 @@ def go_so_phase(cfg, frames, base, consts, gpu, digest) -> None:
         + ("(unchanged)" if digest == CA_DIGEST else f"(was {CA_DIGEST})"))
 
 
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shapes and equal bits, NaN where the other is NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = a.isnan()
+    return (torch.equal(nan, b.isnan())
+            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
+
+
+def range_phase(cfg, capture, dev, gpu, targets) -> dict:
+    """Phase 13: kernel 7, the masked argmax, bit for bit against its
+    plain version on the 512 spectra of the seed-0 capture and on the
+    trouble spots (a maximum planted outside the window, exact ties, an
+    unbatched spectrum, lead dims, NaN, a non-contiguous view, no rows);
+    ``RangeDetector(detect_impl='pallas').detect`` against 'auto' and its
+    launches; ``cli verify --detect-impl pallas`` on a 65-frame capture;
+    timing.  Returns kernel 7's kernels-line entry."""
+    import contextlib
+    import io
+
+    from radar_tpu_torch import cli
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.io.synthetic import synthesize_capture
+    from radar_tpu_torch.models.range_detector import RangeDetector
+    from radar_tpu_torch.ops.cuda import magargmax
+    from radar_tpu_torch.ops.cuda.magargmax import masked_argmax_cuda
+    from radar_tpu_torch.ops.detect import scan_window_argmax
+
+    det = RangeDetector(cfg, device=dev, detect_impl="pallas")
+    auto = RangeDetector(cfg, device=dev)
+    base = det.prepare_base(capture[0])
+    frames = torch.from_numpy(capture[1:]).to(dev)
+    spec = det.spectrum(frames, base)
+
+    def same(name, s):
+        ik, mk = masked_argmax_cuda(s, cfg)
+        ip, mp = scan_window_argmax(s, cfg)
+        assert ik.shape == s.shape[:-1], f"kernel 7 {name}: shape {ik.shape}"
+        assert bits_equal(ik, ip) and bits_equal(mk, mp), (
+            f"kernel 7 {name}: {int((ik != ip).sum())} bins differ, "
+            f"magnitudes {mk.flatten()[:4].tolist()} vs "
+            f"{mp.flatten()[:4].tolist()}")
+        return ik
+
+    same(f"{BATCH} spectra", spec)
+    peak = float(spec[:4].abs().max())
+    s = spec[:4].clone()
+    s[:, cfg.scan_bins + 7] = 10 * peak
+    assert (same("planted outside the window", s) < cfg.scan_bins).all()
+    s = spec[:2].clone()
+    s[0, 100] = s[0, 900] = 4 * peak
+    s[1, 2000] = complex(2.4 * peak, 3.2 * peak)
+    s[1, 30] = complex(3.2 * peak, -2.4 * peak)
+    assert same("exact ties", s).tolist() == [100, 30]
+    assert same("unbatched", spec[5]).shape == ()
+    assert same("lead dims (2, 3)", spec[:6].reshape(2, 3, -1)).shape == (2, 3)
+    s = spec[:2].clone()
+    s[0, 700] = s[0, 50] = float("nan")
+    assert same("NaN (first NaN wins)", s)[0] == 50
+    wide = torch.zeros((4, 2 * cfg.fft_size), dtype=torch.complex64,
+                       device=dev)
+    wide[:, ::2] = spec[:4]
+    same("non-contiguous", wide[:, ::2])
+    before = magargmax.launches
+    same("no rows", spec[:0])
+    assert magargmax.launches == before, "kernel 7 launched on no rows"
+
+    magargmax.launches = 0
+    got = det.detect(frames, base)
+    torch.cuda.synchronize()
+    launched = magargmax.launches
+    assert launched > 0, "RangeDetector('pallas') did not launch kernel 7"
+    want = auto.detect(frames, base)
+    for f in got._fields:
+        assert bits_equal(getattr(got, f), getattr(want, f)), (
+            f"RangeDetector 'pallas' vs 'auto': {f}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_path = os.path.join(tmp, "cap.bin")
+        write_capture(cap_path, synthesize_capture(targets, 65, cfg,
+                                                   noise_std=5.0, seed=1),
+                      cfg)
+        magargmax.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["verify", cap_path, "--device", "cuda",
+                           "--detect-impl", "pallas"])
+        verify_launches = magargmax.launches
+    verdict = buf.getvalue().strip().splitlines()[-1]
+    assert rc == 0 and "64 ok, 0 failed" in verdict, buf.getvalue()[-2000:]
+    assert verify_launches > 0, "cli verify did not launch kernel 7"
+    say(f"kernel 7 vs plain: bit-identical bins and magnitudes on {BATCH} "
+        "spectra, a maximum planted outside the window, exact ties (also "
+        "split re/im), an unbatched spectrum, lead dims (2, 3), NaN (the "
+        "first NaN wins), a non-contiguous view, no rows (no launch); "
+        f"RangeDetector 'pallas' vs 'auto' bit-identical on all four "
+        f"fields, launches {launched}; cli verify --detect-impl pallas: "
+        f"{verdict!r}, launches {verify_launches}")
+
+    t7 = alternate({"kernel": lambda x: masked_argmax_cuda(x, cfg),
+                    "plain": lambda x: scan_window_argmax(x, cfg)}, spec,
+                   device_only=True)
+    e2e = alternate({"RangeDetector pallas": lambda x: det.detect(x, base),
+                     "RangeDetector auto": lambda x: auto.detect(x, base)},
+                    frames)
+    w = min(cfg.scan_bins, cfg.fft_size)
+    b7 = bound(3.0 * BATCH * w, BATCH * w * 8.0 + BATCH * 8.0)
+    say(f"timing on {gpu}: kernel 7 B={BATCH} (device only, median of 10) "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t7.items())
+        + f"; bound {b7[0]:.5f} ms ({b7[1]}); host-inclusive "
+        + ", ".join(f"{k} {v:.4f} ms ({BATCH / v * 1e3:.0f} frames/s)"
+                    for k, v in e2e.items()))
+    say(profile_line(lambda: det.detect(frames, base),
+                     f"RangeDetector 'pallas' B={BATCH}"))
+    return dict(name="masked_argmax", route="cuda",
+                source="radar_tpu_torch/csrc/magargmax.cu",
+                replaces="radar_tpu/ops/pallas/magargmax.py:33",
+                launches=launched,
+                max_abs_err=float((got.peak_magnitude
+                                   - want.peak_magnitude).abs().max()),
+                ms=t7["kernel"], plain_ms=t7["plain"], bound_ms=b7[0],
+                bound_by=b7[1], library_ms=None)
+
+
+def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
+    """Phase 14: kernel 8, the fused range DFT, against its plain version
+    (base, mean and mti2 clutter, a 64 x 64 x 2 RX x 2 TX geometry) at
+    the JAX selftest's gate; ``RDPipeline(rd_impl='fused-pallas')``
+    ``detect`` against 'fused' and 4 frames against the golden, its
+    ``detect_integrated`` against the plain path, and their launches;
+    timing beside one cuBLAS call of the same GEMM.  Returns kernel 8's
+    kernels-line entry."""
+    import dataclasses
+
+    from radar_tpu_torch.config import RadarConfig
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.synthetic import synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda import cfar as cfar_k
+    from radar_tpu_torch.ops.cuda import fused_dft
+    from radar_tpu_torch.ops.cuda import topk as topk_k
+    from radar_tpu_torch.ops.cuda.fused_dft import fused_range_planes_cuda
+    from radar_tpu_torch.ops.fuseddft import fused_range_planes
+
+    dev = frames.device
+    a2 = consts["a2"]
+    cfg_mean = dataclasses.replace(cfg, clutter_mode="mean")
+    cfg_mti = dataclasses.replace(cfg, clutter_mode="mti2")
+
+    def planes_check(name, c, x, b, a2_) -> float:
+        """rtol 1e-4, atol 1e-4 max|plane| (the JAX selftest's gate)."""
+        got = fused_range_planes_cuda(x, b, c, a2_)
+        want = fused_range_planes(x, b, c)
+        scale = float(want[0].abs().max())
+        err = 0.0
+        for g, w in zip(got, want):
+            assert g.shape == w.shape, f"kernel 8 {name}: shape {g.shape}"
+            bad = (g - w).abs() > 1e-4 * w.abs() + 1e-4 * scale
+            assert not bad.any(), (
+                f"kernel 8 {name}: {int(bad.sum())} cells beyond the gate")
+            err = max(err, float((g - w).abs().max()))
+        return err
+
+    errs = {"base": planes_check("base", cfg, frames, base, a2),
+            "mean": planes_check("mean", cfg_mean, frames, None, a2),
+            "mti2": planes_check("mti2", cfg_mti, frames, None, a2)}
+    cfg_r = RadarConfig(num_samples=64, num_chirps=64, num_rx=2, num_tx=2)
+    cap_r = synthesize_capture(targets, 33, cfg_r, noise_std=5.0, seed=3)
+    pr = RDPipeline(cfg_r, K_DET, device=dev)
+    errs["64x64x2 TX=2"] = planes_check(
+        "reduced", cfg_r, torch.from_numpy(cap_r[1:]).to(dev),
+        pr.prepare_base(cap_r[0]), pr.a2)
+    say(f"kernel 8 vs plain range planes B={BATCH} (gate rtol 1e-4, atol "
+        "1e-4 max|plane|): " + ", ".join(f"{k} max |err| {v:.4g}"
+                                          for k, v in errs.items()))
+
+    def reset():
+        fused_dft.launches = cfar_k.launches = topk_k.launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return {"fused_range": fused_dft.launches, "ca_cfar": cfar_k.launches,
+                "topk": topk_k.launches}
+
+    fp = RDPipeline(cfg, K_DET, device=dev, rd_impl="fused-pallas")
+    fu = RDPipeline(cfg, K_DET, device=dev, rd_impl="fused")
+    reset()
+    got = result_to_numpy(fp.detect(frames, base))
+    det_counts = counts()
+    assert all(v > 0 for v in det_counts.values()), det_counts
+    want = result_to_numpy(fu.detect(frames, base))
+    got["nbr"] = nbr_of(fp._maps(frames, base, want_hits=False)[0], got)
+    want["nbr"] = nbr_of(fu._maps(frames, base, want_hits=False)[0], want)
+    flips, _ = compare(got, want, cfg, max_flips=2, f32_floor=True)
+    worst = golden_check(capture, {k: v[:4] for k, v in got.items()}, cfg)
+    fpm = RDPipeline(cfg_mean, K_DET, device=dev, rd_impl="fused-pallas")
+    plm = RDPipeline(cfg_mean, K_DET, device=dev, rd_impl="fused",
+                     cfar_impl="xla", topk_impl="xla")
+    reset()
+    got_n = result_to_numpy(fpm.detect_integrated(frames, base, 4))
+    nci_counts = counts()
+    assert all(v > 0 for v in nci_counts.values()), nci_counts
+    want_n = result_to_numpy(plm.detect_integrated(frames, base, 4))
+    got_n["nbr"] = nbr_of(fpm.integrated_power(frames, base, 4), got_n)
+    want_n["nbr"] = nbr_of(plm.integrated_power(frames, base, 4), want_n)
+    flips_n, _ = compare(got_n, want_n, cfg_mean, max_flips=2, f32_floor=True)
+    say(f"'fused-pallas' detect B={BATCH} K={K_DET} vs 'fused': {flips} "
+        f"flips, valid {int(got['valid'].sum())}, launches {det_counts}; "
+        f"golden (4 frames) equal sets, power {worst:.1e}; detect_integrated "
+        f"n=4 mean vs the plain path: {flips_n} flips, launches {nci_counts}")
+
+    x32 = frames.reshape(-1, 2 * cfg.num_samples).to(torch.float32)
+    t8 = alternate({
+        "kernel": lambda x: fused_range_planes_cuda(x, base, cfg, a2),
+        "kernel mean": lambda x: fused_range_planes_cuda(x, None, cfg_mean,
+                                                         a2),
+        "plain": lambda x: fused_range_planes(x, base, cfg)}, frames,
+        device_only=True)
+    t_lib = alternate({"cuBLAS": lambda x: torch.matmul(x, a2)}, x32,
+                      device_only=True)["cuBLAS"]
+    rows = BATCH * cfg.num_chirps * cfg.num_rx
+    r, s2 = cfg.range_fft_size, 2 * cfg.num_samples
+    b8 = bound(rows * (4.0 * cfg.num_samples + 5.0 * r * math.log2(r)),
+               BATCH * cfg.shorts_per_frame * 2.0
+               + cfg.num_chirps * cfg.num_rx * s2 * 4.0 + s2 * 2 * r * 4.0
+               + rows * 2 * r * 4.0)
+    gemm_flops = 2.0 * rows * s2 * 2 * r
+    say(f"timing on {gpu}: kernel 8 B={BATCH} (device only, median of 10) "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t8.items())
+        + f"; one torch.matmul (cuBLAS, TF32 off) of the f32 ({rows}, {s2}) "
+        f"operand by a2, int16 conversion and base subtraction left out: "
+        f"{t_lib:.4f} ms; the GEMM is {gemm_flops / 1e9:.1f} GFLOP "
+        f"(kernel {gemm_flops / t8['kernel'] / 1e9:.1f} TFLOP/s, cuBLAS "
+        f"{gemm_flops / t_lib / 1e9:.1f}); bound {b8[0]:.5f} ms ({b8[1]})")
+    say(profile_line(lambda: fp.detect(frames, base),
+                     f"'fused-pallas' detect B={BATCH}"))
+    return dict(name="fused_range", route="cuda",
+                source="radar_tpu_torch/csrc/megakernel.cu",
+                replaces="radar_tpu/ops/pallas/fused_dft_kernel.py:100",
+                launches=det_counts["fused_range"], max_abs_err=errs["base"],
+                ms=t8["kernel"], plain_ms=t8["plain"], bound_ms=b8[0],
+                bound_by=b8[1], library_ms=t_lib)
+
+
+def mti_frontends_phase(cfg, frames, base, gpu) -> None:
+    """Phase 15: MTI through kernel 1 with the folded constant (mti2 and
+    mti3: against the plain path, 'mega-maps' bit for bit, and the
+    physics of the JAX selftest's MTI check: the static target notched,
+    the mover kept); 'planar', 'fft' and 'mxu' against 'fused'; and the
+    host-inclusive frames/s of bench.py's variant rows and its mti2
+    row."""
+    import dataclasses
+
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        detections_from_shorts_cuda,
+        detections_from_shorts_reference,
+    )
+
+    dev = frames.device
+    bit_fields = ("valid", "num_hits", "doppler_bin", "range_bin", "power",
+                  "range_m_interp", "velocity_mps_interp")
+    static, mover = (6.0, 0.0, 5.0, 6000.0), (9.0, -4.0, -30.0, 1200.0)
+    cap_p = synthesize_capture([SceneTarget(*static), SceneTarget(*mover)],
+                               9, cfg, noise_std=2.0, seed=21)
+    frame_s = cfg.num_chirps * cfg.chirp_interval_s
+    parts = []
+    for order in ("mti2", "mti3"):
+        c = dataclasses.replace(cfg, clutter_mode=order)
+        pipe = RDPipeline(c, K_DET, device=dev, use_base_frame=False)
+        megakernel.launches = 0
+        res = result_to_numpy(pipe.detect(frames, base))   # base unused
+        torch.cuda.synchronize()
+        launched = megakernel.launches
+        assert launched > 0, f"{order}: kernel 1 not launched"
+        kern = run_detect(detections_from_shorts_cuda, frames, None, K_DET, c)
+        for name in res:
+            np.testing.assert_array_equal(res[name], kern[name],
+                                          err_msg=f"{order} detect: {name}")
+        plain = run_detect(detections_from_shorts_reference, frames, None,
+                           K_DET, c)
+        flips, _ = compare(kern, plain, c, max_flips=2, f32_floor=True)
+        maps = result_to_numpy(RDPipeline(c, K_DET, device=dev,
+                                          use_base_frame=False,
+                                          rd_impl="mega-maps").detect(frames))
+        for f in bit_fields:
+            np.testing.assert_array_equal(
+                maps[f], res[f], err_msg=f"{order} 'mega' vs 'mega-maps': {f}")
+        phys = result_to_numpy(pipe.detect(cap_p[1:]))
+        for f in range(phys["valid"].shape[0]):
+            v = phys["valid"][f]
+            dets = list(zip(phys["range_m"][f][v], phys["velocity_mps"][f][v]))
+            want_r = mover[0] + mover[1] * (f + 1) * frame_s
+            assert any(abs(r - want_r) < 1.0 and abs(vel - mover[1]) < 1.0
+                       for r, vel in dets), f"{order} frame {f}: mover lost"
+            assert not any(abs(r - static[0]) < 0.5 and abs(vel) < 0.5
+                           for r, vel in dets), f"{order} frame {f}: static kept"
+        parts.append(f"{order}: vs plain {flips} flips, valid "
+                     f"{int(res['valid'].sum())}, launches {launched}")
+    say(f"MTI in kernel 1 (folded constant) B={BATCH} K={K_DET}: "
+        + "; ".join(parts) + "; 'mega' vs 'mega-maps' bit-identical "
+        f"{', '.join(bit_fields)}; the 6000-amplitude static target notched "
+        "and the mover kept in all 8 frames of each")
+
+    fu = RDPipeline(cfg, K_DET, device=dev, rd_impl="fused")
+    ref = result_to_numpy(fu.detect(frames, base))
+    ref["nbr"] = nbr_of(fu._maps(frames, base, want_hits=False)[0], ref)
+    parts = []
+    for impl in ("planar", "fft", "mxu"):
+        p = RDPipeline(cfg, K_DET, device=dev, rd_impl=impl)
+        got = result_to_numpy(p.detect(frames, base))
+        got["nbr"] = nbr_of(p._maps(frames, base, want_hits=False)[0], got)
+        compare({k: v[:8] for k, v in got.items()},
+                {k: v[:8] for k, v in ref.items()}, cfg, max_flips=0,
+                f32_floor=True)
+        flips, err = compare(got, ref, cfg, max_flips=2, f32_floor=True)
+        parts.append(f"{impl} {flips} flips (max |power err| {err:.4g})")
+    say(f"front ends vs 'fused' B={BATCH}: detections exact and power "
+        "within rtol 2e-4 (+ f32 floor) on frames 0-7, over the batch "
+        + ", ".join(parts))
+
+    variants = [("mega", "xla"), ("fused", "xla"), ("fused", "pallas"),
+                ("fused-pallas", "xla"), ("planar", "xla"), ("mxu", "pallas"),
+                ("fft", "pallas")]
+    fns = {"headline (auto)": RDPipeline(cfg, 16, device=dev).detect}
+    for rd, cfi in variants:
+        fns[f"rd={rd} cfar={cfi}"] = RDPipeline(cfg, 16, device=dev,
+                                                rd_impl=rd,
+                                                cfar_impl=cfi).detect
+    mti = RDPipeline(dataclasses.replace(cfg, clutter_mode="mti2"), 16,
+                     device=dev, use_base_frame=False)
+    fns["mti2 (no base)"] = lambda x, b: mti.detect(x)
+    e2e = alternate({k: (lambda x, fn=fn: fn(x, base)) for k, fn in
+                     fns.items()}, frames)
+    say(f"bench.py rows on {gpu} B={BATCH} (host-inclusive, median of 10): "
+        + ", ".join(f"{k} {v:.4f} ms ({BATCH / v * 1e3:.0f} frames/s)"
+                    for k, v in e2e.items()))
+
+
+def selftest_phase() -> None:
+    """Phase 16: ``python -m radar_tpu_torch.cli selftest`` on the card:
+    the 15 checks, each kernel against its twin."""
+    import contextlib
+    import io
+
+    from radar_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["selftest", "--device", "cuda"])
+    lines = buf.getvalue().strip().splitlines()
+    assert rc == 0 and "15 checks, 0 failed" in lines[-1], "\n".join(lines)
+    say(f"selftest on the card: {lines[-1]} (" + "; ".join(
+        ln[5:] for ln in lines if ln.startswith("ok   ")) + ")")
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -1219,6 +1600,11 @@ def main() -> int:
     kernels += maps_phases(cfg, capture, frames, base, consts, gpu, targets)
     kernels += os_phases(cfg, capture, frames, base, consts, gpu, targets)
     go_so_phase(cfg, frames, base, consts, gpu, digest)
+    kernels.append(range_phase(cfg, capture, dev, gpu, targets))
+    kernels.append(fused_phase(cfg, capture, frames, base, consts, gpu,
+                               targets))
+    mti_frontends_phase(cfg, frames, base, gpu)
+    selftest_phase()
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -153,6 +153,14 @@ def _declare(lib) -> None:
         fn.argtypes = ([ptr] * 3   # power, hits / thresh, offsets
                        + [i32] * 9 + [ctypes.c_float, ptr])
         fn.restype = i32
+    fn = lib.radar_masked_argmax
+    fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]   # x, idx, mag; rows, n, w
+    fn.restype = i32
+    fn = lib.radar_fused_range
+    fn.argtypes = ([ptr] * 4      # raw, base_raw, a2, z
+                   + [i32] * 6    # frames, chirps, rx, 2S, R, clutter_mean
+                   + [ptr])
+    fn.restype = i32
     lib.radar_cuda_error_string.argtypes = [i32]
     lib.radar_cuda_error_string.restype = ctypes.c_char_p
 

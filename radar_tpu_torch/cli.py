@@ -1,16 +1,23 @@
-"""radar_tpu_torch command-line interface (the ``detect`` subcommand of
-``radar_tpu.cli``, on the PyTorch port):
+"""radar_tpu_torch command-line interface (the ``detect``, ``verify`` and
+``selftest`` subcommands of ``radar_tpu.cli``, on the PyTorch port):
 
   python -m radar_tpu_torch.cli detect cap.bin --full --device cuda \\
       [--max-detections 16] [--base-frames K] [--out dets.jsonl] \\
-      [--integrate N [--walk]] [--rd-impl auto|mega|mega-maps|fused] \\
-      [--clutter auto|base|mean] [--cfar-kind ca|os|goca|soca]
+      [--integrate N [--walk]] \\
+      [--rd-impl auto|mega|mega-maps|fused|fused-pallas|planar|mxu|fft] \\
+      [--clutter auto|base|mean|mti2|mti3] [--cfar-kind ca|os|goca|soca]
+  python -m radar_tpu_torch.cli verify cap.bin --device cuda \\
+      [--detect-impl auto|xla|pallas]
+  python -m radar_tpu_torch.cli selftest --device cuda [--only SUBSTR]
 
-Writes the same ``DetectionRecord`` JSONL as ``radar_tpu.cli detect``:
-one record per frame, or with ``--integrate N`` one per group of N
-frames (the group's last frame index, that frame's range-parity fields,
-the detections of the summed map).  The device is explicit (default
-``cuda``); ``--device cpu`` runs the plain PyTorch path.
+``detect`` writes the same ``DetectionRecord`` JSONL as ``radar_tpu.cli
+detect``: one record per frame, or with ``--integrate N`` one per group
+of N frames (the group's last frame index, that frame's range-parity
+fields, the detections of the summed map).  ``verify`` holds the
+reference-parity range pipeline against the float64 golden frame by
+frame; ``selftest`` runs the 15 kernel checks of ``selftest.py``.  The
+device is explicit (default ``cuda``); ``--device cpu`` runs the plain
+PyTorch path.
 """
 
 from __future__ import annotations
@@ -45,11 +52,6 @@ def _detections(rd: dict, j: int) -> list[dict]:
 
 
 def cmd_detect(args) -> int:
-    if args.clutter in ("mti2", "mti3"):
-        print(f"error: --clutter {args.clutter} is not ported yet "
-              "(ROADMAP.md queue 1 item 7: clutter and array variants)",
-              file=sys.stderr)
-        return 2
     n_int = args.integrate or 1
     if n_int > 1 and not args.full:
         print("error: --integrate requires --full (integration sums the "
@@ -111,6 +113,48 @@ def cmd_detect(args) -> int:
     return 0
 
 
+def cmd_verify(args) -> int:
+    """The range pipeline against the float64 golden, frame by frame: the
+    bin exact, distance and magnitude within 1e-3 relative."""
+    from radar_tpu_torch import golden
+
+    cfg = RadarConfig()
+    device = resolve_device(args.device)
+    capture = read_capture(args.path, cfg)
+    det = RangeDetector(cfg, device=device, detect_impl=args.detect_impl)
+    got = result_to_numpy(det.detect_capture(capture))
+    want = golden.detect_capture(capture, cfg)
+
+    failures = 0
+    for i, w in enumerate(want):
+        bin_ok = int(got["peak_bin"][i]) == w.peak_bin
+        dis_ok = abs(float(got["distance_m"][i]) - w.distance_m) <= max(
+            1e-3 * w.distance_m, 1e-9
+        )
+        mag_ok = (
+            abs(float(got["peak_magnitude"][i]) - w.peak_magnitude)
+            <= 1e-3 * max(w.peak_magnitude, 1e-30)
+        )
+        if not (bin_ok and dis_ok and mag_ok):
+            failures += 1
+            print(
+                f"FRAME {i+1} MISMATCH: port bin {int(got['peak_bin'][i])} "
+                f"dis {float(got['distance_m'][i]):.6f} mag "
+                f"{float(got['peak_magnitude'][i]):.3f} vs golden "
+                f"{w.peak_bin}/{w.distance_m:.6f}/{w.peak_magnitude:.3f}"
+            )
+    n = len(want)
+    print(f"verified {n} frames: {n - failures} ok, {failures} failed")
+    return 1 if failures else 0
+
+
+def cmd_selftest(args) -> int:
+    """The kernel checks of ``selftest.py`` on ``--device``."""
+    from radar_tpu_torch.selftest import run_selftests
+
+    return 1 if run_selftests(args.only, resolve_device(args.device)) else 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="radar_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -131,15 +175,17 @@ def main(argv=None) -> int:
                    help="with --integrate: Doppler-conditioned range-walk "
                         "alignment before the sum")
     d.add_argument("--rd-impl", default="auto",
-                   choices=["auto", "mega", "mega-maps", "fused"],
+                   choices=["auto", "mega", "mega-maps", "fused",
+                            "fused-pallas", "planar", "mxu", "fft"],
                    help="range-Doppler implementation (auto/mega: the "
                         "detect kernel; mega-maps: the maps kernel + top-K "
-                        "kernel + tail; fused: plain front end)")
+                        "kernel + tail; fused-pallas: the fused range-DFT "
+                        "kernel; fused, planar, mxu, fft: plain front ends)")
     d.add_argument("--clutter", default=None,
                    choices=["auto", "base", "mean", "mti2", "mti3"],
                    help="slow-time clutter removal: 'auto' (base frame "
-                        "when available, else mean over chirps), 'base' or "
-                        "'mean' (mti2/mti3 are not ported yet)")
+                        "when available, else mean over chirps), 'base', "
+                        "'mean', or the 2/3-pulse MTI canceller")
     d.add_argument("--cfar-kind", default=None,
                    choices=["ca", "os", "goca", "soca"],
                    help="cell-averaging (default), ordered-statistic, "
@@ -148,6 +194,29 @@ def main(argv=None) -> int:
                    help="torch device (default cuda; cpu runs the plain "
                         "PyTorch path)")
     d.set_defaults(fn=cmd_detect)
+
+    v = sub.add_parser("verify", help="range pipeline vs float64 golden, "
+                                      "frame by frame")
+    v.add_argument("path")
+    v.add_argument("--detect-impl", default="auto",
+                   choices=["auto", "xla", "pallas"],
+                   help="argmax stage: auto/xla the plain argmax, pallas "
+                        "the masked-argmax kernel")
+    v.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs the plain "
+                        "PyTorch path)")
+    v.set_defaults(fn=cmd_verify)
+
+    st = sub.add_parser("selftest", help="every kernel against its twin "
+                                         "(the plain version or the golden)")
+    st.add_argument("--device", default="cuda",
+                    help="torch device (default cuda, so it fails without "
+                         "a card; cpu checks the plain paths)")
+    st.add_argument("--only", action="append", default=None,
+                    metavar="SUBSTR",
+                    help="run only checks whose name contains SUBSTR "
+                         "(repeatable)")
+    st.set_defaults(fn=cmd_selftest)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -49,6 +49,16 @@
 // the threshold and top-K kernels, so the two entries' detections agree
 // bit for bit.
 //
+// The fused range entry radar_fused_range replaces the TPU kernel
+// radar_tpu/ops/pallas/fused_dft_kernel.py (the inline kernel of
+// fused_rd_planes_pallas): int16 frames minus the raw-space base, then
+// the two range-DFT dots, written as the range planes.  Its work is
+// stage (a) as it is, so it reuses range_gemm_kernel (and, for 'mean'
+// clutter, chirp_mean_kernel) rather than a second GEMM; the Doppler
+// stage stays outside, as in JAX.  Its bound is the bytes: 105 MB of
+// int16 in and 268 MB of planes out per 512-frame batch, about 0.11 ms
+// at 3.35 TB/s, against 1.3 GFLOP of FFT-equivalent range work.
+//
 // The kernels allocate nothing; the caller passes every buffer.  Each
 // entry point returns the first CUDA error of its launches.
 
@@ -478,15 +488,13 @@ __global__ void __launch_bounds__(kDetThreads) detect_kernel(
   }
 }
 
-// Stages (a) and (b) of the maps entry and of the detect entry: raw
-// frames -> power maps (B, D, R) through the range planes z.
-cudaError_t front_end(const int16_t* raw, const float* base_raw,
-                      const float* a2, const float* ft_re,
-                      const float* ft_im, float* z, float* power,
-                      int n_frames, int n_chirps, int n_rx, int n_tx, int s2,
-                      int r_size, int d_size, int clutter_mean,
-                      cudaStream_t stream) {
-  const int kc_size = n_chirps / n_tx;
+// Stage (a): raw frames -> the clutter-removed range planes z (B*C*V,
+// 2R), with the chirp-mean pass for 'mean' clutter.  The front end of
+// both mega entries, and the whole of the fused range entry.
+cudaError_t range_stage(const int16_t* raw, const float* base_raw,
+                        const float* a2, float* z, int n_frames,
+                        int n_chirps, int n_rx, int s2, int r_size,
+                        int clutter_mean, cudaStream_t stream) {
   const int rows_per_frame = n_chirps * n_rx;
   const long long m_total = (long long)n_frames * rows_per_frame;
 
@@ -496,15 +504,27 @@ cudaError_t front_end(const int16_t* raw, const float* base_raw,
       raw, clutter_mean ? nullptr : base_raw, a2, z, m_total, s2, 2 * r_size,
       rows_per_frame);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if (err != cudaSuccess || !clutter_mean) return err;
 
-  if (clutter_mean) {
-    const long long n_columns = (long long)n_frames * n_rx * 2 * r_size;
-    chirp_mean_kernel<<<(unsigned)((n_columns + 255) / 256), 256, 0,
-                        stream>>>(z, n_chirps, n_rx, 2 * r_size, n_columns);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  const long long n_columns = (long long)n_frames * n_rx * 2 * r_size;
+  chirp_mean_kernel<<<(unsigned)((n_columns + 255) / 256), 256, 0,
+                      stream>>>(z, n_chirps, n_rx, 2 * r_size, n_columns);
+  return cudaGetLastError();
+}
+
+// Stages (a) and (b) of the maps entry and of the detect entry: raw
+// frames -> power maps (B, D, R) through the range planes z.
+cudaError_t front_end(const int16_t* raw, const float* base_raw,
+                      const float* a2, const float* ft_re,
+                      const float* ft_im, float* z, float* power,
+                      int n_frames, int n_chirps, int n_rx, int n_tx, int s2,
+                      int r_size, int d_size, int clutter_mean,
+                      cudaStream_t stream) {
+  const int kc_size = n_chirps / n_tx;
+  const cudaError_t err = range_stage(raw, base_raw, a2, z, n_frames,
+                                      n_chirps, n_rx, s2, r_size,
+                                      clutter_mean, stream);
+  if (err != cudaSuccess) return err;
 
   dim3 grid_b(n_frames, (r_size + kDpBR - 1) / kDpBR,
               (d_size + kDpBD - 1) / kDpBD);
@@ -523,7 +543,9 @@ const char* radar_cuda_error_string(int err) {
 
 // Runs stages (a) to (c) on ``stream``.  Shapes (row-major, f32 unless
 // noted): raw int16 (B, C*V, 2S); base_raw (C*V, 2S) or NULL for 'mean'
-// clutter; a2 (2S, 2R); ft_re/ft_im (Kc, D); scratch z (B*C*V, 2R) and
+// clutter and the MTI modes (their canceller comes folded into ft_re /
+// ft_im, with clutter_mean 0); a2 (2S, 2R); ft_re/ft_im (Kc, D); scratch
+// z (B*C*V, 2R) and
 // power (B, D, R); outputs top_idx int32 (B, K), top_val (B, K),
 // nbr (B, K, 5), num_hits int32 (B), snaps (B, K, TX*V, 2).  kind: 0 CA,
 // 1 GO, 2 SO; coef = alpha / n_train (CA) or the GO/SO multiplier.
@@ -587,6 +609,23 @@ int radar_mega_maps(const int16_t* raw, const float* base_raw,
   return radar_cfar_threshold(power, thresh, n_frames, d_size, r_size, kind,
                               range_wrap, guard_d, guard_r, win_d, win_r,
                               coef, stream);
+}
+
+// The fused range entry: stage (a) alone on ``stream``, raw int16 (B,
+// C*V, 2S) -> z (B*C*V, 2R) f32, each row [zr | zi].  base_raw (C*V, 2S)
+// for 'base' clutter, or NULL: 'mean' (clutter_mean = 1) subtracts the
+// chirp mean in place; the MTI modes run with neither, and the caller
+// filters the planes.
+int radar_fused_range(const int16_t* raw, const float* base_raw,
+                      const float* a2, float* z, int n_frames, int n_chirps,
+                      int n_rx, int s2, int r_size, int clutter_mean,
+                      void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n_frames <= 0) return cudaSuccess;
+  if (n_chirps < 1 || n_rx < 1 || s2 % 8 != 0 || r_size % 4 != 0)
+    return cudaErrorInvalidValue;
+  return range_stage(raw, base_raw, a2, z, n_frames, n_chirps, n_rx, s2,
+                     r_size, clutter_mean, stream);
 }
 
 }  // extern "C"

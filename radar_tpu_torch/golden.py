@@ -1,18 +1,153 @@
 """Float64 NumPy golden model: the port's copy of the parts of
 ``radar_tpu.golden`` that the port and ``chip_smoke.py`` use.
 
-Windows, the TDM virtual cube, the range-Doppler map and the CA, GO/SO
-and OS CFAR detectors with their Erlang-matched alphas, copied as they
-are; ``tests/test_torch_constants.py`` holds each copy's output equal to
-the original's.  The rest of the golden model (Capon, MUSIC, clusters,
-ego-motion) comes with the slices that need it.
+The reference-parity range pipeline (its butterfly FFT, base frame,
+FindAbsMax and per-frame detection, the truth of ``cli verify``),
+windows, the TDM virtual cube, the MTI filter, the range-Doppler map and
+the CA, GO/SO and OS CFAR detectors with their Erlang-matched alphas,
+copied as they are; ``tests/test_torch_constants.py`` holds each
+copy's output equal to the original's.  The rest of the golden model
+(Capon, MUSIC, clusters, ego-motion) comes with the slices that need
+it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import numpy as np
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.io.capture import decode_shorts
+
+
+# --------------------------------------------------------------------------
+# Reference-parity FFT (bit-for-bit twin of cudaBenchMarking.cpp:61-105)
+# --------------------------------------------------------------------------
+
+def reverse_bits(num: int, bits: int) -> int:
+    rev = 0
+    for i in range(bits):
+        if num & (1 << i):
+            rev |= 1 << (bits - 1 - i)
+    return rev
+
+
+def bit_reversal_permutation(n: int) -> np.ndarray:
+    bits = int(math.log2(n))
+    return np.array([reverse_bits(i, bits) for i in range(n)], dtype=np.int64)
+
+
+def butterfly_fft(x: np.ndarray) -> np.ndarray:
+    """Iterative radix-2 DIT FFT with the reference's twiddle recurrence.
+
+    Vectorized over butterflies within a stage but numerically identical to
+    the scalar loop at cudaBenchMarking.cpp:89-104 (same accumulation of the
+    recurrent twiddle ``omega *= e^{-2pi i/step}``).
+    """
+    x = np.asarray(x, dtype=np.complex128).copy()
+    n = x.shape[-1]
+    if n & (n - 1):
+        raise ValueError("size must be a power of two")
+    x = x[..., bit_reversal_permutation(n)]
+    step = 2
+    while step <= n:
+        half = step // 2
+        theta = -2.0 * np.pi / step
+        twiddle = complex(math.cos(theta), math.sin(theta))
+        # reproduce the recurrence omega_{j+1} = omega_j * twiddle
+        omega = np.empty(half, dtype=np.complex128)
+        w = 1.0 + 0.0j
+        for j in range(half):
+            omega[j] = w
+            w *= twiddle
+        v = x.reshape(x.shape[:-1] + (n // step, step))
+        lo = v[..., :half]
+        hi = v[..., half:]
+        wn = omega * hi
+        v[..., half:] = lo - wn
+        v[..., :half] = lo + wn
+        step <<= 1
+    return x
+
+
+# --------------------------------------------------------------------------
+# Reference-parity single-target range pipeline
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RangeDetection:
+    """Per-frame result of the parity pipeline."""
+
+    peak_bin: int        # argmax over the scan window of the extended FFT
+    rescaled_bin: int    # peak_bin * rx_samples // fft_size (int division)
+    distance_m: float    # reference formula (acceleration.cu:523)
+    peak_magnitude: float
+
+
+def base_frame_rx0(
+    frame0_shorts: np.ndarray, cfg: RadarConfig = DEFAULT_CONFIG
+) -> np.ndarray:
+    """Frame 0's RX0 slice (chirps*samples complex), the clutter reference
+    (cudaBenchMarking.cpp:242-250)."""
+    cube = decode_shorts(frame0_shorts, cfg)
+    return cube[0].reshape(cfg.rx_samples)
+
+
+def fft_input(
+    frame_shorts: np.ndarray,
+    base_rx0: np.ndarray,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> np.ndarray:
+    """Decode -> rx0 -> subtract base -> zero-pad to fft_size
+    (cudaBenchMarking.cpp:273-285)."""
+    cube = decode_shorts(frame_shorts, cfg)
+    rx0 = cube[0].reshape(cfg.rx_samples)
+    out = np.zeros(cfg.fft_size, dtype=np.complex128)
+    out[: cfg.rx_samples] = rx0 - base_rx0
+    return out
+
+
+def find_abs_max(x: np.ndarray, size: int) -> int:
+    """First index of the max magnitude over [0, size).
+
+    Mirrors FindAbsMax's strict ``>`` comparison (cudaBenchMarking.cpp:199)
+    — ties resolve to the lowest index.
+    """
+    return int(np.argmax(np.abs(x[:size])))
+
+
+def detect_frame(
+    frame_shorts: np.ndarray,
+    base_rx0: np.ndarray,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    use_reference_fft: bool = False,
+) -> RangeDetection:
+    """Run the full parity pipeline on one frame of int16 data."""
+    spec_in = fft_input(frame_shorts, base_rx0, cfg)
+    spec = butterfly_fft(spec_in) if use_reference_fft else np.fft.fft(spec_in)
+    peak = find_abs_max(spec, cfg.scan_bins)
+    rescaled = cfg.rescale_peak_bin(peak)
+    return RangeDetection(
+        peak_bin=peak,
+        rescaled_bin=rescaled,
+        distance_m=cfg.bin_to_distance(rescaled),
+        peak_magnitude=float(np.abs(spec[peak])),
+    )
+
+
+def detect_capture(
+    frames_shorts: np.ndarray,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    use_reference_fft: bool = False,
+) -> list[RangeDetection]:
+    """Frame-0-as-base streaming loop over a whole capture
+    (cudaBenchMarking.cpp:261-310).  Returns detections for frames 1..N-1."""
+    base = base_frame_rx0(frames_shorts[0], cfg)
+    return [
+        detect_frame(f, base, cfg, use_reference_fft) for f in frames_shorts[1:]
+    ]
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -483,3 +618,28 @@ def os_cfar_2d(
     alpha = os_cfar_alpha(n_train, k, pfa, n_pulses)
     threshold = alpha * kth
     return power > threshold, threshold
+
+
+def mti_filter(
+    x: np.ndarray, order: int = 2, axis: int = -2, stride: int = 1
+) -> np.ndarray:
+    """Circular pulse-canceller MTI along slow time (float64 golden).
+
+    ``order=2``: ``y[c] = x[c] - x[c-stride]``; ``order=3``:
+    ``y[c] = x[c] - 2 x[c-stride] + x[c-2*stride]``, circular over the
+    CPI.  ``stride`` pairs same-TX chirps on a TDM-interleaved chirp
+    axis (``num_tx``) and is 1 on a demuxed per-TX axis — the same
+    linear map either way, so the device paths may apply it wherever the
+    pipeline is linear (raw cube, range planes, the Doppler constant)
+    and still match this time-domain definition to fp tolerance.
+
+    Defines the semantics of ``RadarConfig.clutter_mode='mti2'/'mti3'``;
+    torch twin: ``ops.preproc.mti_clutter_removal``.
+    """
+    if order not in (2, 3):
+        raise ValueError(f"MTI order must be 2 or 3, got {order}")
+    x = np.asarray(x, dtype=np.complex128)
+    prev = np.roll(x, stride, axis=axis)
+    if order == 2:
+        return x - prev
+    return x - 2.0 * prev + np.roll(x, 2 * stride, axis=axis)

@@ -11,13 +11,20 @@ detection lists in the detect op of ``ops/cuda/megakernel.py`` (kernel
 1, CA / GO / SO); after it only O(B*K) physics is left
 (:func:`assemble_result_from_kernel`).  'mega-maps' runs the maps op of
 the same module (kernel 2: power and CA / GO / SO threshold maps), then
-top-K (kernel 3) and :func:`assemble_result`; 'fused' runs the plain
-front end and then the CFAR (kernel 4 for CA) and top-K (kernel 3)
-kernels.  OS-CFAR, as in the JAX package, takes the maps path on every
-``rd_impl``: kernel 2's power maps, then the OS hits kernel (kernel 6;
-``ops.cfar.cfar_detect``).  Each op launches its CUDA kernel for CUDA
-tensors and takes its plain version for CPU tensors; ``cfar_impl`` /
-``topk_impl`` 'xla' pin the plain versions.
+top-K (kernel 3) and :func:`assemble_result`.  The verification front
+ends produce the RD planes, then the CFAR (kernel 4 for CA) and top-K
+(kernel 3) kernels run on their power: 'fused-pallas' (kernel 8, the
+range DFT of ``ops/cuda/fused_dft.py``, then the Doppler DFT), and in
+plain torch 'fused', 'planar' (split planes from the decode on), 'mxu'
+(the complex cube through DFT products) and 'fft' (``torch.fft``).
+OS-CFAR, as in the JAX package, takes the maps path on every ``rd_impl``
+that has one: kernel 2's power maps, then the OS hits kernel (kernel 6;
+``ops.cfar.cfar_detect``).  Clutter follows ``cfg.effective_clutter``;
+the MTI cancellers of 'mti2' / 'mti3' arrive folded into the Doppler
+constant of kernels 1 and 2 (``megakernel.mega_constants``).  Each op
+launches its CUDA kernel for CUDA tensors and takes its plain version
+for CPU tensors; ``cfar_impl`` / ``topk_impl`` 'xla' pin the plain
+versions, 'pallas' and ``rd_impl`` 'fused-pallas' the kernels.
 """
 
 from __future__ import annotations
@@ -41,10 +48,29 @@ from radar_tpu_torch.ops.cuda.megakernel import (
     power_from_shorts,
     snapshots_from_shorts,
 )
+from radar_tpu_torch.ops.cuda.fused_dft import fused_range_planes_cuda
 from radar_tpu_torch.ops.cuda.topk import top_k_sorted, topk_cuda
-from radar_tpu_torch.ops.decode import decode_to_cube
-from radar_tpu_torch.ops.fuseddft import fused_rd_planes
+from radar_tpu_torch.ops.decode import decode_to_cube, decode_to_planes
+from radar_tpu_torch.ops.dftmat import range_doppler_mxu, range_doppler_planes
+from radar_tpu_torch.ops.fuseddft import (
+    doppler_from_range_planes,
+    fused_rd_planes,
+)
+from radar_tpu_torch.ops.preproc import mean_clutter_removal, mti_clutter_removal
+from radar_tpu_torch.ops.rangefft import range_doppler
 from radar_tpu_torch.utils.device import resolve_device
+
+
+def _declutter(x, base, cfg: RadarConfig):
+    """``cfg.effective_clutter`` dispatch on a decoded cube-like tensor
+    with the chirp axis at -2 (a real plane or the complex cube);
+    ``base`` is the matching base tensor or None."""
+    mode = cfg.effective_clutter(base is not None)
+    if mode == "base":
+        return x - base
+    if mode == "mean":
+        return mean_clutter_removal(x)
+    return mti_clutter_removal(x, int(mode[-1]), axis=-2, stride=cfg.num_tx)
 
 
 class RDResult(NamedTuple):
@@ -105,6 +131,15 @@ def cell_physics(d_bin: torch.Tensor, r_bin: torch.Tensor, cfg: RadarConfig):
     )
     velocity = dopp_hz * (cfg.wavelength_m / 2.0)
     return range_m, velocity
+
+
+def virtualize_cube(cube: torch.Tensor, cfg: RadarConfig) -> torch.Tensor:
+    """TDM-MIMO de-multiplex (twin of golden.virtual_cube):
+    (..., rx, chirps, samples) -> (..., tx*rx, chirps_per_tx, samples)."""
+    if cfg.num_tx == 1:
+        return cube
+    return torch.cat([cube[..., :, tx::cfg.num_tx, :]
+                      for tx in range(cfg.num_tx)], dim=-3)
 
 
 def apply_rx_cal(
@@ -355,11 +390,19 @@ def pack_detections(out: RDResult) -> torch.Tensor:
     )
 
 
+def integrate_power(rd: torch.Tensor) -> torch.Tensor:
+    """Non-coherent integration over the RX axis: complex (..., rx, D, R)
+    -> f32 (..., D, R)."""
+    return (rd.real * rd.real + rd.imag * rd.imag).sum(dim=-3)
+
+
 # --------------------------------------------------------------------------
 # the pipeline
 # --------------------------------------------------------------------------
 
 _IMPLS = ("auto", "xla", "pallas")
+_RD_IMPLS = ("auto", "mega", "mega-maps", "fused", "fused-pallas", "planar",
+             "mxu", "fft")
 
 
 class RDPipeline(nn.Module):
@@ -376,9 +419,12 @@ class RDPipeline(nn.Module):
       rd_impl: 'auto'/'mega' (kernel 1, the detect op, for CA, GO and
         SO CFAR with ``cfar_impl`` 'auto' and K <= 128; otherwise the
         maps path, as in the JAX package), 'mega-maps' (kernel 2, the
-        maps op, then the top-K and the tail) or 'fused' (the plain
-        front end, then CFAR and top-K).  Other JAX front ends are not
-        ported yet.
+        maps op, then the top-K and the tail), or a verification front
+        end whose RD planes feed the CFAR and top-K: 'fused-pallas'
+        (kernel 8; raises for CPU tensors), 'fused', 'planar', 'mxu' and
+        'fft' (plain torch).
+      use_base_frame: False ignores the base cube every method is given
+        (clutter then follows ``cfg.effective_clutter`` without one).
       cfar_impl: 'auto' (under 'mega'/'mega-maps' the CA / GO / SO
         threshold inside the maps op; elsewhere, and for OS, the CFAR
         kernels for CUDA tensors, the plain version for CPU tensors),
@@ -393,33 +439,26 @@ class RDPipeline(nn.Module):
 
     def __init__(self, cfg: RadarConfig = DEFAULT_CONFIG,
                  max_detections: int = 16, *, device,
-                 cfar_impl: str = "auto", rd_impl: str = "auto",
-                 topk_impl: str = "auto", keystone: bool = False):
+                 use_base_frame: bool = True, cfar_impl: str = "auto",
+                 rd_impl: str = "auto", topk_impl: str = "auto",
+                 keystone: bool = False):
         super().__init__()
-        if rd_impl not in ("auto", "mega", "mega-maps", "fused"):
-            raise NotImplementedError(
-                f"rd_impl {rd_impl!r} is not ported yet (ROADMAP.md queue 1 "
-                "item 10: the verification front ends)"
-            )
-        for name, impl in (("cfar_impl", cfar_impl), ("topk_impl", topk_impl)):
-            if impl not in _IMPLS:
+        for name, impl, impls in (("rd_impl", rd_impl, _RD_IMPLS),
+                                  ("cfar_impl", cfar_impl, _IMPLS),
+                                  ("topk_impl", topk_impl, _IMPLS)):
+            if impl not in impls:
                 raise NotImplementedError(
                     f"{name} {impl!r} has no counterpart in the port (it "
-                    f"takes {', '.join(_IMPLS)}; 'xla', the plain version, "
-                    "stands for Pallas interpret mode: ROADMAP.md queue 1 "
-                    "item 8)"
+                    f"takes {', '.join(impls)}; the plain versions stand "
+                    "for Pallas interpret mode: ROADMAP.md queue 1 item 8)"
                 )
-        if cfg.clutter_mode in ("mti2", "mti3"):
-            raise NotImplementedError(
-                f"clutter_mode {cfg.clutter_mode!r} is not ported yet "
-                "(ROADMAP.md queue 1 item 7: clutter and array variants)"
-            )
         if keystone:
             raise NotImplementedError(
                 "keystone is not ported yet (ROADMAP.md queue 1 item 10)"
             )
         self.cfg = cfg
         self.max_detections = int(max_detections)
+        self.use_base_frame = bool(use_base_frame)
         self.cfar_impl = cfar_impl
         self.rd_impl = rd_impl
         self.topk_impl = topk_impl
@@ -433,6 +472,13 @@ class RDPipeline(nn.Module):
 
     def _as_tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    def _base(self, base_cube):
+        """The base cube on the device, or None where there is none or
+        ``use_base_frame`` is False."""
+        if base_cube is None or not self.use_base_frame:
+            return None
+        return self._as_tensor(base_cube)
 
     def _detect_kernel(self) -> bool:
         """Whether :meth:`detect` runs the detect op (kernel 1): the
@@ -473,6 +519,19 @@ class RDPipeline(nn.Module):
             cube = cube.mean(dim=0)
         return cube.contiguous()
 
+    # -- stages --------------------------------------------------------------
+    @torch.no_grad()
+    def rd_cube(self, shorts, base_cube=None) -> torch.Tensor:
+        """(..., TX*V, D, R) complex64 range-Doppler maps of the
+        complex-cube front end: decode, clutter removal, TDM demux, then
+        DFT products ('mxu') or ``torch.fft`` (every other rd_impl)."""
+        cube = decode_to_cube(self._as_tensor(shorts), self.cfg)
+        cube = virtualize_cube(_declutter(cube, self._base(base_cube),
+                                          self.cfg), self.cfg)
+        if self.rd_impl == "mxu":
+            return range_doppler_mxu(cube, self.cfg)
+        return range_doppler(cube, self.cfg)
+
     # -- full pipeline ------------------------------------------------------
     @torch.no_grad()
     def detect(self, shorts, base_cube=None) -> RDResult:
@@ -481,7 +540,7 @@ class RDPipeline(nn.Module):
         Clutter follows ``cfg.effective_clutter``: with ``clutter_mode``
         'auto', the base when one is given, else the mean over chirps."""
         shorts = self._as_tensor(shorts)
-        base = None if base_cube is None else self._as_tensor(base_cube)
+        base = self._base(base_cube)
         if self._detect_kernel():
             out = detections_from_shorts(shorts, base, self.max_detections,
                                          self.cfg,
@@ -503,7 +562,7 @@ class RDPipeline(nn.Module):
         if n < 1:
             raise ValueError(f"n_integrate must be >= 1, got {n}")
         shorts = self._as_tensor(shorts)
-        base = None if base_cube is None else self._as_tensor(base_cube)
+        base = self._base(base_cube)
         b = shorts.shape[0]
         if b % n:
             raise ValueError(
@@ -533,28 +592,46 @@ class RDPipeline(nn.Module):
         base noise, which integrates coherently."""
         n = int(n_integrate)
         shorts = self._as_tensor(shorts)
-        base = None if base_cube is None else self._as_tensor(base_cube)
+        base = self._base(base_cube)
         p_int = self.integrated_power(shorts, base, n, range_walk)
         cfg_int = dataclasses.replace(
             self.cfg, cfar_n_pulses=n * self.cfg.cfar_pulses_effective)
         hits = self._cfar(p_int, cfg_int)
         last = shorts.reshape((-1, n) + shorts.shape[1:])[:, -1]
-        if self.rd_impl == "fused":
-            snaps_fn = self._maps(last, base, want_hits=False)[2]
-        else:
+        if self.rd_impl in ("auto", "mega", "mega-maps"):
             def snaps_fn(top_idx):
                 return snapshots_from_shorts(last, base, top_idx, self.cfg)
+        else:
+            snaps_fn = self._maps(last, base, want_hits=False)[2]
         return self._tail(p_int, hits, snaps_fn)
 
     def _maps(self, shorts, base, want_hits: bool = True):
         """The front end up to its (power, hits) maps: the maps op for
-        'auto'/'mega'/'mega-maps', the plain planes for 'fused'.  Returns
-        ``(power, hits, snaps_fn)``, ``snaps_fn(top_idx)`` giving the
-        (..., K, TX*V) complex snapshots; ``want_hits=False`` skips the
-        CFAR (``hits`` None)."""
+        'auto'/'mega'/'mega-maps', the RD planes (or cube) of the
+        verification front ends otherwise.  Returns ``(power, hits,
+        snaps_fn)``, ``snaps_fn(top_idx)`` giving the (..., K, TX*V)
+        complex snapshots; ``want_hits=False`` skips the CFAR (``hits``
+        None).  ``base`` is already resolved (:meth:`_base`)."""
         cfg = self.cfg
-        if self.rd_impl == "fused":
-            dr, di = fused_rd_planes(shorts, base, cfg)
+        impl = self.rd_impl
+        if impl in ("fft", "mxu"):
+            rd = self.rd_cube(shorts, base)
+            power = integrate_power(rd)
+            hits = self._cfar(power) if want_hits else None
+            return power, hits, lambda top_idx: gather_snapshots(rd, top_idx)
+        if impl in ("fused", "fused-pallas", "planar"):
+            if impl == "fused":
+                dr, di = fused_rd_planes(shorts, base, cfg)
+            elif impl == "fused-pallas":
+                dr, di = doppler_from_range_planes(
+                    *fused_range_planes_cuda(shorts, base, cfg, self.a2), cfg)
+            else:
+                # clutter removal is linear: per plane == complex form
+                re, im = decode_to_planes(shorts, cfg)
+                re = _declutter(re, None if base is None else base.real, cfg)
+                im = _declutter(im, None if base is None else base.imag, cfg)
+                dr, di = range_doppler_planes(virtualize_cube(re, cfg),
+                                              virtualize_cube(im, cfg), cfg)
             power = (dr * dr + di * di).sum(dim=-3)
             hits = self._cfar(power) if want_hits else None
             return power, hits, lambda top_idx: torch.complex(

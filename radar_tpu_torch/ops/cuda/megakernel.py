@@ -49,11 +49,11 @@ from radar_tpu_torch.ops.dftmat import _dft_factors, dft_matrix
 from radar_tpu_torch.ops.fuseddft import (
     _interleaved_range_factors,
     base_raw_interleave,
-    clutter_mode,
     doppler_from_range_planes,
     fused_range_planes,
     interleaved_range_matrices,
 )
+from radar_tpu_torch.ops.preproc import mti_clutter_removal
 from radar_tpu_torch.ops.window import resolve_window
 
 K_MAX = 128         # the TPU kernel's selection width (_K_LANE); kept as the gate
@@ -62,24 +62,47 @@ launches = 0        # kernel launches by detections_from_shorts_cuda
 maps_launches = 0   # kernel launches by power_(cfar_)from_shorts_cuda
 
 
+def _mti_matrix(kc: int, order: int) -> np.ndarray:
+    """(kc, kc) float64 circulant canceller M with ``y = M @ x`` the
+    circular two/three-pulse MTI over a demuxed per-TX chirp axis
+    (golden.mti_filter at stride 1): M = I - R (order 2) or I - 2R + R^2
+    (order 3), R the one-step delay.  NumPy copy of
+    ``radar_tpu.ops.pallas.megakernel._mti_matrix``."""
+    eye = np.eye(kc)
+    r1 = np.roll(eye, -1, axis=1)   # r1[c, c-1] = 1
+    if order == 2:
+        return eye - r1
+    return eye - 2.0 * r1 + np.roll(eye, -2, axis=1)
+
+
 def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]:
     """Host-built constants of the detect op, as CPU f32 tensors:
 
     * ``a2`` (2S, 2R): the windowed range DFT over the raw interleave,
       ``[A_re^T | A_im^T]`` so one product gives ``[zr | zi]``;
     * ``ft_re``, ``ft_im`` (Kc, D): the windowed, fftshifted Doppler DFT,
-      transposed so the kernel stages its rows with 16-byte loads.
+      transposed so the kernel stages its rows with 16-byte loads.  For
+      ``clutter_mode`` 'mti2' / 'mti3' the canceller is folded into it,
+      ``F diag(w) M``, in complex128 before the f32 cast (as the JAX
+      ``_plan`` does): the kernels then run with no base and no chirp
+      mean, and the snapshots, Doppler-domain values of the same
+      transform, come out filtered too.
     """
     window = resolve_window(True, cfg)
     a_re, a_im = _interleaved_range_factors(cfg.num_samples,
                                             cfg.range_fft_size, window)
-    f_dop = _dft_factors(cfg.chirps_per_tx, cfg.doppler_fft_size, window,
-                         True)
+    f_dop = np.asarray(_dft_factors(cfg.chirps_per_tx, cfg.doppler_fft_size,
+                                    window, True), np.complex128)
+    if cfg.clutter_mode in ("mti2", "mti3"):
+        f_dop = f_dop @ _mti_matrix(cfg.chirps_per_tx,
+                                    int(cfg.clutter_mode[-1]))
     return {
         "a2": torch.from_numpy(
             np.ascontiguousarray(np.concatenate([a_re.T, a_im.T], axis=1))),
-        "ft_re": torch.from_numpy(np.ascontiguousarray(f_dop.real.T)),
-        "ft_im": torch.from_numpy(np.ascontiguousarray(f_dop.imag.T)),
+        "ft_re": torch.from_numpy(
+            np.ascontiguousarray(f_dop.real.T.astype(np.float32))),
+        "ft_im": torch.from_numpy(
+            np.ascontiguousarray(f_dop.imag.T.astype(np.float32))),
     }
 
 
@@ -148,7 +171,8 @@ def detections_from_shorts_reference(
 def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
     """Checks shared by the two mega kernels' wrappers; returns (frames
     (B, shorts_per_frame), base in the raw interleave or None, consts,
-    clutter mode)."""
+    clutter mode).  ``consts`` must be ``mega_constants(cfg)``'s (under
+    MTI the folded Doppler constant; RDPipeline's buffers are)."""
     require_cuda(shorts, what, f"{what}_reference")
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
@@ -159,7 +183,7 @@ def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
             f"doppler_fft_size ({d_size}) must be multiples of 4"
         )
     check_map_size(d_size, r_size)
-    mode = clutter_mode(base_cube, cfg)
+    mode = cfg.effective_clutter(base_cube is not None)
     dev = shorts.device
     x = shorts.reshape(-1, cfg.shorts_per_frame)
     check("shorts", x, torch.int16, (x.shape[0], cfg.shorts_per_frame), dev)
@@ -336,8 +360,9 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
 
     where rng is the clutter-removed range plane at the detected range
     bin: K gathered range-DFT rows contracted with the raw frames, then
-    'base' or 'mean' clutter removal, the TDM demux and K gathered
-    Doppler-DFT rows.  The base is subtracted in raw space, as on every
+    clutter removal ('base', 'mean', or the MTI canceller along the
+    chirps, which commutes with gathering at a range bin), the TDM demux
+    and K gathered Doppler-DFT rows.  The base is subtracted in raw space, as on every
     range path of the port.
 
     Args:
@@ -348,7 +373,7 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
       complex64 (..., K, TX*V), in the order of gathering from
       ``fused_rd_planes``, before MIMO compensation.
     """
-    mode = clutter_mode(base_cube, cfg)
+    mode = cfg.effective_clutter(base_cube is not None)
     window = resolve_window(window, cfg)
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     kc, tx, r_size = cfg.chirps_per_tx, cfg.num_tx, cfg.range_fft_size
@@ -370,6 +395,10 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
     if mode == "mean":
         g_re = g_re - g_re.mean(dim=2, keepdim=True)
         g_im = g_im - g_im.mean(dim=2, keepdim=True)
+    elif mode != "base":
+        order = int(mode[-1])
+        g_re = mti_clutter_removal(g_re, order, axis=2, stride=tx)
+        g_im = mti_clutter_removal(g_im, order, axis=2, stride=tx)
     # TDM demux (chirp = kc*TX + tx), then the detection's Doppler row
     g_re = g_re.reshape(b, k, kc, tx * v)
     g_im = g_im.reshape(b, k, kc, tx * v)

@@ -18,6 +18,7 @@ import torch
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.golden import window_fn
 from radar_tpu_torch.ops.dftmat import dft_matrix
+from radar_tpu_torch.ops.preproc import declutter_planes
 from radar_tpu_torch.ops.window import resolve_window
 
 
@@ -82,18 +83,6 @@ def base_raw_interleave(base_cube: torch.Tensor) -> torch.Tensor:
     return bs
 
 
-def clutter_mode(base_cube, cfg: RadarConfig) -> str:
-    """``cfg.effective_clutter`` for this call: 'base' or 'mean'; the MTI
-    modes raise (not ported yet)."""
-    mode = cfg.effective_clutter(base_cube is not None)
-    if mode not in ("base", "mean"):
-        raise NotImplementedError(
-            f"clutter_mode {mode!r} is not ported yet "
-            "(ROADMAP.md queue 1 item 7: clutter and array variants)"
-        )
-    return mode
-
-
 def fused_range_planes(
     shorts: torch.Tensor,
     base_cube: torch.Tensor | None,
@@ -103,10 +92,12 @@ def fused_range_planes(
     """Raw int16 frames -> clutter-removed range planes (..., C, V, R).
 
     Clutter: ``cfg.effective_clutter`` — 'base' subtracts the base in raw
-    space, 'mean' subtracts the mean over ALL C chirps (before the TDM
-    demux).  The MTI modes are not ported yet (ROADMAP queue 1 item 7).
+    space; 'mean' subtracts the mean over ALL C chirps and 'mti2' /
+    'mti3' run the pulse canceller over same-TX chirps, both on the range
+    planes (linear along the chirp axis, so equal to filtering the raw
+    cube).  The plain version of kernel 8 (``ops/cuda/fused_dft.py``).
     """
-    mode = clutter_mode(base_cube, cfg)
+    mode = cfg.effective_clutter(base_cube is not None)
     window = resolve_window(window, cfg)
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     raw = shorts.reshape(shorts.shape[:-1] + (c, v, s2)).to(torch.float32)
@@ -117,10 +108,9 @@ def fused_range_planes(
     )
     rng_re = raw @ a_re.T
     rng_im = raw @ a_im.T
-    if mode == "mean":
-        rng_re = rng_re - rng_re.mean(dim=-3, keepdim=True)
-        rng_im = rng_im - rng_im.mean(dim=-3, keepdim=True)
-    return rng_re, rng_im
+    if mode == "base":
+        return rng_re, rng_im
+    return declutter_planes(rng_re, rng_im, mode, cfg.num_tx)
 
 
 def doppler_from_range_planes(

@@ -332,3 +332,66 @@ def test_golden_os_cfar(range_mode, stride, n_pulses):
     for g, w in zip(golden.os_cfar_2d(power, *args),
                     jax_golden.os_cfar_2d(power, *args)):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("use_reference_fft", [False, True])
+def test_golden_range_parity(use_reference_fft):
+    """The copied reference-parity golden: the butterfly FFT, base frame,
+    padded FFT input, FindAbsMax and per-frame detections equal the
+    originals (the golden of ``cli verify``)."""
+    cfg = RadarConfig()
+    shorts = jax_synthetic.synthesize_capture(
+        [jax_synthetic.SceneTarget(4.0, 1.0, 10.0, amplitude=2000.0)], 3,
+        cfg, noise_std=3.0, seed=61)
+    mine = config_from_jax(cfg)
+    np.testing.assert_array_equal(golden.base_frame_rx0(shorts[0], mine),
+                                  jax_golden.base_frame_rx0(shorts[0], cfg))
+    base = jax_golden.base_frame_rx0(shorts[0], cfg)
+    np.testing.assert_array_equal(golden.fft_input(shorts[1], base, mine),
+                                  jax_golden.fft_input(shorts[1], base, cfg))
+    x = np.random.default_rng(62).normal(size=(2, 256)) + 0j
+    np.testing.assert_array_equal(golden.butterfly_fft(x),
+                                  jax_golden.butterfly_fft(x))
+    assert golden.find_abs_max(x[0], 100) == jax_golden.find_abs_max(x[0], 100)
+    got = golden.detect_capture(shorts, mine, use_reference_fft)
+    want = jax_golden.detect_capture(shorts, cfg, use_reference_fft)
+    assert [dataclasses.asdict(g) for g in got] == [
+        dataclasses.asdict(w) for w in want]
+
+
+@pytest.mark.parametrize("order,stride", [(2, 1), (3, 1), (2, 3), (3, 2)])
+def test_golden_mti_filter(order, stride):
+    x = np.random.default_rng(63).normal(size=(2, 4, 12, 5))
+    np.testing.assert_array_equal(
+        golden.mti_filter(x, order, axis=-2, stride=stride),
+        jax_golden.mti_filter(x, order, axis=-2, stride=stride))
+
+
+@pytest.mark.parametrize("kc,order", [(128, 2), (128, 3), (32, 2), (5, 3)])
+def test_mti_matrix(kc, order):
+    from radar_tpu.ops.pallas import megakernel as jax_mega
+    from radar_tpu_torch.ops.cuda import megakernel
+
+    np.testing.assert_array_equal(megakernel._mti_matrix(kc, order),
+                                  jax_mega._mti_matrix(kc, order))
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(clutter_mode="mti2"), dict(clutter_mode="mti3", num_tx=2),
+    dict(clutter_mode="mti2", num_chirps=96, num_tx=3,
+         window_kind="blackman"),
+    dict(), dict(clutter_mode="mean", num_tx=2),
+])
+def test_mega_constants_fold_matches_jax_plan(overrides):
+    """The Doppler constant of kernels 1 and 2, MTI canceller folded in
+    complex128 before the f32 cast, bit-equal to the JAX ``_plan``'s."""
+    from radar_tpu.ops.pallas import megakernel as jax_mega
+    from radar_tpu_torch.ops.cuda import megakernel
+
+    cfg = RadarConfig(**overrides)
+    shorts = jnp.zeros((1, cfg.shorts_per_frame), jnp.int16)
+    clutter = cfg.effective_clutter(False)
+    *_, fr, fi, _ = jax_mega._plan(shorts, None, cfg, True, clutter)
+    got = megakernel.mega_constants(config_from_jax(cfg))
+    np.testing.assert_array_equal(got["ft_re"].numpy(), np.asarray(fr).T)
+    np.testing.assert_array_equal(got["ft_im"].numpy(), np.asarray(fi).T)

@@ -19,7 +19,14 @@ from radar_tpu_torch.config import RadarConfig  # noqa: E402
 from radar_tpu_torch.models.range_detector import RangeDetector  # noqa: E402
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops.cfar import cfar_detect  # noqa: E402
-from radar_tpu_torch.ops.cuda import cfar, megakernel, oscfar, topk  # noqa: E402
+from radar_tpu_torch.ops.cuda import (  # noqa: E402
+    cfar,
+    fused_dft,
+    magargmax,
+    megakernel,
+    oscfar,
+    topk,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "radar_tpu_torch").rglob("*.py")) + [
@@ -84,7 +91,8 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
 
 def _counts():
     return (megakernel.launches, megakernel.maps_launches, cfar.launches,
-            topk.launches, oscfar.threshold_launches, oscfar.hits_launches)
+            topk.launches, oscfar.threshold_launches, oscfar.hits_launches,
+            magargmax.launches, fused_dft.launches)
 
 
 def test_cuda_wrapper_refuses_non_cuda_tensors():
@@ -187,6 +195,59 @@ def test_pallas_impls_raise_on_cpu_tensors(kw, monkeypatch):
             pipe.detect_integrated(shorts, None, 2)
         else:
             pipe.detect(shorts)
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_kernel7_and_kernel8_refuse_non_cuda_tensors(device, monkeypatch):
+    """Kernels 7 (masked argmax) and 8 (fused range DFT) raise for tensors
+    that are not on a CUDA device, directly or through their
+    dispatchers (which send anything but CPU tensors to the kernel),
+    build nothing and count no launch."""
+    def no_build():
+        raise AssertionError("a refused call must not build the kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    cfg = RadarConfig(**SMALL, clutter_mode="mti2")
+    spec = torch.zeros((2, cfg.fft_size), dtype=torch.complex64,
+                       device=device)
+    shorts = torch.zeros((2, cfg.shorts_per_frame), dtype=torch.int16,
+                         device=device)
+    before = _counts()
+    calls = [lambda: magargmax.masked_argmax_cuda(spec, cfg),
+             lambda: fused_dft.fused_range_planes_cuda(shorts, None, cfg)]
+    if device != "cpu":
+        calls += [lambda: magargmax.masked_argmax(spec, cfg),
+                  lambda: fused_dft.range_planes(shorts, None, cfg)]
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call()
+    assert _counts() == before
+
+
+def test_cpu_range_and_front_end_paths_never_build(monkeypatch):
+    """The dispatchers of kernels 7 and 8, the MTI detect op and every
+    plain front end take the plain versions on CPU tensors."""
+    def no_build():
+        raise AssertionError("the CPU path must not build the kernels")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    cfg = RadarConfig(**SMALL, clutter_mode="mti3")
+    shorts = torch.zeros((4, cfg.shorts_per_frame), dtype=torch.int16)
+    before = _counts()
+    idx, mag = magargmax.masked_argmax(
+        torch.ones((3, cfg.fft_size), dtype=torch.complex64), cfg)
+    assert idx.tolist() == [0, 0, 0] and mag.tolist() == [1.0, 1.0, 1.0]
+    re, im = fused_dft.range_planes(shorts, None, cfg)
+    assert re.shape == im.shape == (4, 64, 2, 64)
+    for rd_impl in ("auto", "mega-maps", "fused", "planar", "mxu", "fft"):
+        pipe = RDPipeline(cfg, 8, device="cpu", rd_impl=rd_impl)
+        assert pipe.detect(shorts).valid.shape == (4, 8)
+        assert pipe.detect_integrated(shorts, None, 2).valid.shape == (2, 8)
+    det = RangeDetector(RadarConfig(), device="cpu")
+    frames = torch.zeros((3, RadarConfig().shorts_per_frame),
+                         dtype=torch.int16)
+    assert det.detect_capture(frames).peak_bin.shape == (2,)
     assert _counts() == before
 
 

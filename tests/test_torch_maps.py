@@ -311,7 +311,8 @@ def test_cli_integrate_matches_jax_cli(tmp_path, capsys, walk):
 
 @pytest.mark.parametrize("argv,msg", [
     (["--integrate", "4"], "requires --full"),
-    (["--full", "--integrate", "4", "--clutter", "mti2"], "not ported"),
+    (["--full", "--integrate", "4", "--base-frames", "4"],
+     "leaves no frames"),
     (["--full", "--integrate", "8"], "needs at least 8"),
 ])
 def test_cli_integrate_usage_errors(tmp_path, capsys, argv, msg):

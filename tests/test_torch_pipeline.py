@@ -174,10 +174,10 @@ def test_records_copy_matches_jax_records():
 
 
 @pytest.mark.parametrize("cfg_kw,kw", [
-    ({}, dict(rd_impl="fft")),
-    ({}, dict(rd_impl="planar")),
+    ({}, dict(rd_impl="mega-interpret")),
+    ({}, dict(rd_impl="fused-pallas-interpret")),
     ({}, dict(cfar_impl="pallas-interpret")),
-    ({"clutter_mode": "mti2"}, {}),
+    ({"clutter_mode": "mti2"}, dict(topk_impl="pallas-interpret")),
     ({}, dict(keystone=True)),
 ])
 def test_unported_options_raise(cfg_kw, kw):
