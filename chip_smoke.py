@@ -60,7 +60,17 @@ line or more:
     'mega-maps', the static target notched and the mover kept; 'planar',
     'fft' and 'mxu' against 'fused'; frames/s of bench.py's variant rows
     and its mti2 row;
-16. ``cli selftest`` on the card: 15 checks, 0 failed.
+16. ``cli selftest`` on the card: 15 checks, 0 failed, and the
+    speed-mode check's flips;
+17. the dft_precision tiers ('highest': the SIMT f32 stages; 'high' and
+    'default': the split-TF32 tensor-core stages at 3 and 1 passes) of
+    kernels 1, 2 and 8 against the f32 plain versions (and the emulated
+    tier) at B=512, 'mega' against 'mega-maps' bit for bit, the golden
+    on 4 frames, kernel 1's CA checksum at each tier ('highest' must be
+    the SIMT kernels' ``CA_DIGEST``), device-only times in turns beside
+    cuBLAS, the stages' profile rows and the host-inclusive ``detect``.
+
+The main path runs at ``RadarConfig()``'s tier, 'high'.
 
 Any failed check raises, so the script exits non-zero before its last
 line; without CUDA it exits 1 at once.  The line before the last is the
@@ -136,8 +146,8 @@ def _offset_tol(nbr, lo, hi, eps):
 
 
 def compare(a: dict, b: dict, cfg, max_flips: int, valid_only: bool = False,
-            power_rtol: float = 2e-4,
-            f32_floor: bool = False) -> tuple[int, float]:
+            power_rtol: float = 2e-4, f32_floor: bool = False,
+            unit: float = F32_EPS) -> tuple[int, float]:
     """Hold two detection results (dicts of NumPy arrays keyed by the
     RDResult field names, plus the neighbour samples ``nbr`` in at least
     one; ``b`` is the reference) to the JAX package's cross-implementation
@@ -162,7 +172,8 @@ def compare(a: dict, b: dict, cfg, max_flips: int, valid_only: bool = False,
     there two f32 implementations that sum in different orders disagree
     (measured on an NVIDIA H100 80GB HBM3 at 700 W: the plain version
     1.0e-3 from the float64 golden on cells 76 dB down, the CUDA kernel
-    1.6e-4).  Angle bins are
+    1.6e-4).  ``unit`` is the floor's unit roundoff: eps of f32 unless a
+    tensor-core tier's own (:data:`TIER_UNIT`).  Angle bins are
     then held through the azimuth only: on such cells two angle-FFT bins
     can tie to within the floor, and the interpolated azimuth is
     continuous across the tie.
@@ -204,7 +215,7 @@ def compare(a: dict, b: dict, cfg, max_flips: int, valid_only: bool = False,
     if f32_floor:
         nbr = np.maximum(b["nbr"][cl], 1e-30)
         peak = nbr[..., 0].max(-1)[:, None, None]
-        rel_nbr = 16 * F32_EPS * np.sqrt(peak / nbr)
+        rel_nbr = 16 * unit * np.sqrt(peak / nbr)
         est = sel & va[cl]
     rel = rel_nbr[..., 0]
     close("power", a["power"][cl], b["power"][cl], power_rtol + rel, 1e-2)
@@ -339,16 +350,101 @@ def nbr_of(power: torch.Tensor, res: dict) -> np.ndarray:
                              r).cpu().numpy()
 
 
-def maps_check(name, got, want) -> float:
+def maps_check(name, got, want, unit: float = F32_EPS) -> float:
     """Power maps (..., D, R) held as ``compare`` holds power: rtol 2e-4
-    plus the f32 floor 16 eps sqrt(peak / p) of each map's strongest
-    cell, atol 1e-2.  Returns max |got - want|."""
+    plus the floor 16 unit sqrt(peak / p) of each map's strongest cell
+    (``unit`` eps of f32 unless a tier's own), atol 1e-2.  Returns max
+    |got - want|."""
     got, want = got.double(), want.double()
     peak = want.flatten(-2).amax(-1)[..., None, None]
-    rtol = 2e-4 + 16 * F32_EPS * torch.sqrt(peak / want.clamp_min(1e-30))
+    rtol = 2e-4 + 16 * unit * torch.sqrt(peak / want.clamp_min(1e-30))
     bad = (got - want).abs() > rtol * want.abs() + 1e-2
     assert not bad.any(), f"{name}: {int(bad.sum())} cells beyond tolerance"
     return float((got - want).abs().max())
+
+
+# -- the tensor-core tiers, emulated (ops/tf32.py) ---------------------------
+
+# The unit roundoff of each dft_precision tier's products, the floor's
+# ``unit`` where a tier is held against the f32 plain version: f32's eps
+# for 'highest'; for 'high', hi + lo carries each operand to 2^-22 and
+# the dropped lo*lo term is at most 2^-22 of the product, so 2^-21; for
+# 'default', one rna rounding of each operand, 2^-11 each, so 2^-11 of
+# the product to first order (the two roundings are independent).
+TIER_UNIT = {"highest": F32_EPS, "high": 2.0 ** -21, "default": 2.0 ** -11}
+
+
+def tier_unit(cfg) -> float:
+    """The floor's unit where a kernel run at ``cfg``'s tier is held
+    against the f32 plain version (:data:`TIER_UNIT`)."""
+    return TIER_UNIT[cfg.dft_precision]
+
+
+def tier_planes(shorts, base_cube, cfg, consts, passes: int):
+    """The range stage of kernels 1, 2 and 8 at ``passes`` (1 or 3),
+    emulated with ``tf32.split_matmul``: (B*C*V, 2R) rows ``[zr | zi]``
+    of (raw - base) . a2, then the chirp mean for 'mean' clutter; the
+    MTI modes' planes unfiltered, as the kernels leave them.  Exact
+    products; only the order of the sums differs from the card."""
+    from radar_tpu_torch.ops.fuseddft import base_raw_interleave
+    from radar_tpu_torch.ops.tf32 import split_matmul
+
+    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
+    mode = cfg.effective_clutter(base_cube is not None)
+    x = shorts.reshape(-1, c * v, s2).to(torch.float32)
+    if mode == "base":
+        x = x - base_raw_interleave(base_cube).reshape(c * v, s2)
+    z = split_matmul(x, consts["a2"], passes)
+    if mode == "mean":
+        z = z.reshape(len(z), c, v, -1)
+        z = (z - z.sum(dim=1, keepdim=True) / c).reshape(len(z), c * v, -1)
+    return z.reshape(-1, z.shape[-1])
+
+
+def tier_power(z, cfg, consts, passes: int):
+    """The Doppler stage of kernels 1 and 2 at ``passes``, emulated: the
+    packed constant (``doppler_lhs`` of ``ft_re`` / ``ft_im``) times the
+    stacked planes [Zr; Zi] of each frame and channel, |X|^2 summed over
+    the channels.  Returns the power (B, D, R) and, for the snapshots,
+    the f32 RD planes (dr, di) (B, TX*V, D, R) of the f32 constants, as
+    the detect stage reads them."""
+    from radar_tpu_torch.ops.cuda.megakernel import doppler_lhs
+    from radar_tpu_torch.ops.tf32 import split_matmul
+
+    kc, tx, v = cfg.chirps_per_tx, cfg.num_tx, cfg.num_rx
+    d, r = cfg.doppler_fft_size, cfg.range_fft_size
+    fr, fi = consts["ft_re"], consts["ft_im"]
+    lhs = torch.from_numpy(doppler_lhs(fr.cpu().numpy(),
+                                       fi.cpu().numpy())).to(z.device)
+    kc8 = lhs.shape[1] // 2
+    planes = z.reshape(-1, kc, tx, v, 2 * r).permute(0, 2, 3, 1, 4)
+    zr, zi = planes[..., :r], planes[..., r:]          # (B, TX, V, Kc, R)
+    stacked = zr.new_zeros(zr.shape[:-2] + (2 * kc8, r))
+    stacked[..., :kc, :] = zr
+    stacked[..., kc8:kc8 + kc, :] = zi
+    x = split_matmul(lhs, stacked, passes)             # (B, TX, V, M, R)
+    bins = torch.arange(d, device=z.device)
+    rows = bins // 8 * 16 + bins % 8
+    power = (x[..., rows, :] ** 2 + x[..., rows + 8, :] ** 2).sum(dim=(1, 2))
+    eq = "kd,btvkr->btvdr"
+    dr = torch.einsum(eq, fr, zr) - torch.einsum(eq, fi, zi)
+    di = torch.einsum(eq, fr, zi) + torch.einsum(eq, fi, zr)
+    shape = (len(dr), tx * v, d, r)
+    return power, dr.reshape(shape), di.reshape(shape)
+
+
+def tier_detections(shorts, base_cube, k, cfg, consts, passes: int,
+                    planes=None):
+    """Kernel 1's six outputs with its two DFT stages emulated at
+    ``passes`` (:func:`tier_planes`, :func:`tier_power`) and the rest as
+    its plain version: the tier's own plain version.  ``planes`` (rows
+    ``[zr | zi]``) replaces the emulated range stage when given."""
+    from radar_tpu_torch.ops.cuda.megakernel import detections_from_maps
+
+    z = (tier_planes(shorts, base_cube, cfg, consts, passes)
+         if planes is None else planes)
+    power, dr, di = tier_power(z, cfg, consts, passes)
+    return detections_from_maps(power, dr, di, k, cfg)
 
 
 def threshold_check(name, power, got, want) -> tuple[float, int]:
@@ -437,6 +533,41 @@ def alternate(fns: dict, *args, device_only: bool = False) -> dict:
             samples[name] += cuda_time_ms(fns[name], *args, iters=5, warmup=2,
                                           queue_ahead=device_only)
     return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def ptxas_summary(log: str) -> str:
+    """Each kernel's registers, barriers, shared memory and spills, from
+    the build's ``-Xptxas -v`` lines, by kernel name (template argument
+    in brackets)."""
+    import re
+
+    out, name, spill = [], "?", ""
+    for ln in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        if entry:
+            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", entry.group(1))
+            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                    if k else entry.group(1))
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return " | ".join(out)
+
+
+def host_enqueue_ms(fn, *args, iters: int = 10) -> float:
+    """Median host ms of ``fn(*args)`` until it returns, each call on a
+    drained stream and without the profiler: the time the host takes to
+    enqueue a call that has no synchronising op (the device's time is
+    measured apart)."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
 
 
 def profile_line(fn, label: str, calls: int = 3) -> str:
@@ -529,7 +660,8 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     # -- 6. kernels 2, 3, 4 against their plain versions -------------------
     power_k = power_from_shorts_cuda(frames, base, cfg, consts)
     power_p = power_from_shorts_reference(frames, base, cfg)
-    power_err = maps_check("kernel 2 power", power_k, power_p)
+    power_err = maps_check("kernel 2 power", power_k, power_p,
+                           unit=tier_unit(cfg))
     parts = []
     for kind in ("ca", "goca", "soca"):
         ck = dataclasses.replace(cfg, cfar_kind=kind)
@@ -627,7 +759,8 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
             cfg, k, device=dev, rd_impl="fused", cfar_impl="xla",
             topk_impl="xla").detect(frames, base))
         want["nbr"] = nbr_of(power_p, want)
-        flips[impl] = compare(got, want, cfg, max_flips=2, f32_floor=True)[0]
+        flips[impl] = compare(got, want, cfg, max_flips=2, f32_floor=True,
+                               unit=tier_unit(cfg))[0]
     say(f"'mega' vs 'mega-maps' B={BATCH} K={K_DET} and 48: bit-identical "
         f"{', '.join(bit_fields)}, azimuth within the gate; mega-maps "
         f"launches {maps_counts}; vs the plain maps path: K=200 through "
@@ -654,7 +787,8 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
                                                     walk), got)
             want["nbr"] = nbr_of(pp.integrated_power(frames, base, n_int,
                                                      walk), want)
-            flips, _ = compare(got, want, c, max_flips=2, f32_floor=True)
+            flips, _ = compare(got, want, c, max_flips=2, f32_floor=True,
+                               unit=tier_unit(c))
             worst = golden_match(
                 golden_power(capture[:4 * n_int + 1], c, n_int, walk),
                 n_int * c.cfar_pulses_effective,
@@ -903,7 +1037,8 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     want = result_to_numpy(plain.detect(frames, base))
     got["nbr"] = nbr_of(power, got)
     want["nbr"] = nbr_of(power_from_shorts_reference(frames, base, cfg), want)
-    flips, _ = compare(got, want, cfg_os, max_flips=2, f32_floor=True)
+    flips, _ = compare(got, want, cfg_os, max_flips=2, f32_floor=True,
+                       unit=tier_unit(cfg_os))
     worst = golden_match(golden_power(capture[:5], cfg_os, 1),
                          cfg_os.cfar_pulses_effective,
                          {key: v[:4] for key, v in got.items()}, cfg_os)
@@ -919,7 +1054,8 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     got_n["nbr"] = nbr_of(nci.integrated_power(frames, base, n_int), got_n)
     want_n["nbr"] = nbr_of(plain_nci.integrated_power(frames, base, n_int),
                            want_n)
-    flips_n, _ = compare(got_n, want_n, cfg_mean, max_flips=2, f32_floor=True)
+    flips_n, _ = compare(got_n, want_n, cfg_mean, max_flips=2, f32_floor=True,
+                        unit=tier_unit(cfg_mean))
     worst_n = golden_match(golden_power(capture[:4 * n_int + 1], cfg_mean,
                                         n_int),
                            cfg_int.cfar_pulses_effective,
@@ -1018,12 +1154,14 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     ]
 
 
-CA_DIGEST = "3d51103ebd98f569"   # kernel 1's outputs, B=512, seed 0, K=16
+CA_DIGEST = "3d51103ebd98f569"   # kernel 1's outputs, B=512, seed 0, K=16,
+                                 # dft_precision 'highest' (the SIMT stages)
 
 
 def go_so_phase(cfg, frames, base, consts, gpu, digest) -> None:
     """Phase 12: GO/SO inside kernel 1 under the default rd_impl, against
-    'mega-maps' bit for bit, timed beside CA; kernel 1's CA checksum."""
+    'mega-maps' bit for bit, timed beside CA; kernel 1's CA checksum at
+    the default tier, 'high' (``digest``, phase 2's)."""
     import dataclasses
 
     from radar_tpu_torch.convert import result_to_numpy
@@ -1061,8 +1199,8 @@ def go_so_phase(cfg, frames, base, consts, gpu, digest) -> None:
         f"bit-identical {', '.join(bit_fields)} ({'; '.join(parts)}); "
         f"kernel 1 on {gpu} (device only, median of 10) "
         + ", ".join(f"{name} {v:.4f} ms" for name, v in t1.items())
-        + f"; CA checksum {digest} "
-        + ("(unchanged)" if digest == CA_DIGEST else f"(was {CA_DIGEST})"))
+        + f"; CA checksum at 'high' {digest} "
+        + ("(unchanged)" if digest == HIGH_DIGEST else f"(was {HIGH_DIGEST})"))
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1216,9 +1354,9 @@ def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
     cfg_mean = dataclasses.replace(cfg, clutter_mode="mean")
     cfg_mti = dataclasses.replace(cfg, clutter_mode="mti2")
 
-    def planes_check(name, c, x, b, a2_) -> float:
+    def planes_check(name, c, x, b, consts_) -> float:
         """rtol 1e-4, atol 1e-4 max|plane| (the JAX selftest's gate)."""
-        got = fused_range_planes_cuda(x, b, c, a2_)
+        got = fused_range_planes_cuda(x, b, c, consts_)
         want = fused_range_planes(x, b, c)
         scale = float(want[0].abs().max())
         err = 0.0
@@ -1230,15 +1368,15 @@ def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
             err = max(err, float((g - w).abs().max()))
         return err
 
-    errs = {"base": planes_check("base", cfg, frames, base, a2),
-            "mean": planes_check("mean", cfg_mean, frames, None, a2),
-            "mti2": planes_check("mti2", cfg_mti, frames, None, a2)}
+    errs = {"base": planes_check("base", cfg, frames, base, consts),
+            "mean": planes_check("mean", cfg_mean, frames, None, consts),
+            "mti2": planes_check("mti2", cfg_mti, frames, None, consts)}
     cfg_r = RadarConfig(num_samples=64, num_chirps=64, num_rx=2, num_tx=2)
     cap_r = synthesize_capture(targets, 33, cfg_r, noise_std=5.0, seed=3)
     pr = RDPipeline(cfg_r, K_DET, device=dev)
     errs["64x64x2 TX=2"] = planes_check(
         "reduced", cfg_r, torch.from_numpy(cap_r[1:]).to(dev),
-        pr.prepare_base(cap_r[0]), pr.a2)
+        pr.prepare_base(cap_r[0]), dict(pr.named_buffers()))
     say(f"kernel 8 vs plain range planes B={BATCH} (gate rtol 1e-4, atol "
         "1e-4 max|plane|): " + ", ".join(f"{k} max |err| {v:.4g}"
                                           for k, v in errs.items()))
@@ -1260,7 +1398,8 @@ def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
     want = result_to_numpy(fu.detect(frames, base))
     got["nbr"] = nbr_of(fp._maps(frames, base, want_hits=False)[0], got)
     want["nbr"] = nbr_of(fu._maps(frames, base, want_hits=False)[0], want)
-    flips, _ = compare(got, want, cfg, max_flips=2, f32_floor=True)
+    flips, _ = compare(got, want, cfg, max_flips=2, f32_floor=True,
+                       unit=tier_unit(cfg))
     worst = golden_check(capture, {k: v[:4] for k, v in got.items()}, cfg)
     fpm = RDPipeline(cfg_mean, K_DET, device=dev, rd_impl="fused-pallas")
     plm = RDPipeline(cfg_mean, K_DET, device=dev, rd_impl="fused",
@@ -1272,7 +1411,8 @@ def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
     want_n = result_to_numpy(plm.detect_integrated(frames, base, 4))
     got_n["nbr"] = nbr_of(fpm.integrated_power(frames, base, 4), got_n)
     want_n["nbr"] = nbr_of(plm.integrated_power(frames, base, 4), want_n)
-    flips_n, _ = compare(got_n, want_n, cfg_mean, max_flips=2, f32_floor=True)
+    flips_n, _ = compare(got_n, want_n, cfg_mean, max_flips=2, f32_floor=True,
+                        unit=tier_unit(cfg_mean))
     say(f"'fused-pallas' detect B={BATCH} K={K_DET} vs 'fused': {flips} "
         f"flips, valid {int(got['valid'].sum())}, launches {det_counts}; "
         f"golden (4 frames) equal sets, power {worst:.1e}; detect_integrated "
@@ -1280,9 +1420,9 @@ def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
 
     x32 = frames.reshape(-1, 2 * cfg.num_samples).to(torch.float32)
     t8 = alternate({
-        "kernel": lambda x: fused_range_planes_cuda(x, base, cfg, a2),
+        "kernel": lambda x: fused_range_planes_cuda(x, base, cfg, consts),
         "kernel mean": lambda x: fused_range_planes_cuda(x, None, cfg_mean,
-                                                         a2),
+                                                         consts),
         "plain": lambda x: fused_range_planes(x, base, cfg)}, frames,
         device_only=True)
     t_lib = alternate({"cuBLAS": lambda x: torch.matmul(x, a2)}, x32,
@@ -1351,7 +1491,8 @@ def mti_frontends_phase(cfg, frames, base, gpu) -> None:
                                           err_msg=f"{order} detect: {name}")
         plain = run_detect(detections_from_shorts_reference, frames, None,
                            K_DET, c)
-        flips, _ = compare(kern, plain, c, max_flips=2, f32_floor=True)
+        flips, _ = compare(kern, plain, c, max_flips=2, f32_floor=True,
+                           unit=tier_unit(c))
         maps = result_to_numpy(RDPipeline(c, K_DET, device=dev,
                                           use_base_frame=False,
                                           rd_impl="mega-maps").detect(frames))
@@ -1411,7 +1552,8 @@ def mti_frontends_phase(cfg, frames, base, gpu) -> None:
 
 def selftest_phase() -> None:
     """Phase 16: ``python -m radar_tpu_torch.cli selftest`` on the card:
-    the 15 checks, each kernel against its twin."""
+    the 15 checks, each kernel against its twin, and the speed-mode
+    check's flips ('default' against 'high')."""
     import contextlib
     import io
 
@@ -1423,7 +1565,282 @@ def selftest_phase() -> None:
     lines = buf.getvalue().strip().splitlines()
     assert rc == 0 and "15 checks, 0 failed" in lines[-1], "\n".join(lines)
     say(f"selftest on the card: {lines[-1]} (" + "; ".join(
-        ln[5:] for ln in lines if ln.startswith("ok   ")) + ")")
+        ln[5:] for ln in lines if ln.startswith("ok   ")) + "); " + "; ".join(
+        ln for ln in lines if ln.startswith("speed-mode flips")))
+
+
+HIGH_DIGEST = "42c4276b4e5b21f1"  # kernel 1 at dft_precision 'high', as CA_DIGEST
+
+
+def kernel_us(fn, calls: int = 3) -> dict:
+    """``torch.profiler`` device us per launch of each kernel that
+    ``fn()`` runs, by kernel name: per launch, not per call, so that a
+    trace that lost some of the ``calls`` still reads right (kernel 1's
+    stages launch once a call)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            out[evt.key] = us / max(evt.count, 1)
+    return out
+
+
+def stage_us(rows: dict, stem: str) -> float:
+    """Device us of the kernels whose names contain ``stem``; raises when
+    the profile shows none (then it is not measured)."""
+    hits = [us for name, us in rows.items() if stem in name]
+    assert hits, f"no device time for {stem} in {sorted(rows)}"
+    return sum(hits)
+
+
+def set_flips(a: dict, b: dict) -> tuple[int, int]:
+    """(detection-set differences, |num_hits| differences) over a batch."""
+    sets = sum(len(set(zip(a["doppler_bin"][f][a["valid"][f]].tolist(),
+                           a["range_bin"][f][a["valid"][f]].tolist()))
+                   ^ set(zip(b["doppler_bin"][f][b["valid"][f]].tolist(),
+                             b["range_bin"][f][b["valid"][f]].tolist())))
+               for f in range(a["valid"].shape[0]))
+    hits = int(np.abs(a["num_hits"].astype(np.int64) - b["num_hits"]).sum())
+    return sets, hits
+
+
+def planes_gate(name, got, want, x, a2, unit) -> float:
+    """Range planes (rows (M, 2R)) against the f32 plain version: rtol
+    1e-4 and atol 1e-4 max|plane| (the JAX selftest's gate), plus the
+    first-order bound of products whose two operands are each rounded
+    to ``unit``, 2 unit sum_j |x_j| |a_jn|.  Returns max |got - want|."""
+    bound = (1e-4 * want.abs() + 1e-4 * float(want.abs().max())
+             + 2 * unit * (x.abs() @ a2.abs()))
+    bad = (got - want).abs() > bound
+    assert not bad.any(), f"{name}: {int(bad.sum())} cells beyond the gate"
+    return float((got - want).abs().max())
+
+
+def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
+    """Phase 17: the three dft_precision tiers of kernels 1, 2 and 8
+    ('highest': the SIMT f32 stages; 'high' and 'default': the
+    split-TF32 tensor-core stages at 3 and 1 passes) at B=512 against
+    the f32 plain versions ('default''s kernel 1 against its tier's own
+    plain version, :func:`tier_detections`, with its flips against the
+    f32 one counted), 'mega' against 'mega-maps' bit for bit, the
+    golden on 4 frames, kernel 1's CA checksums, device-only times taken
+    in turns, the stages' profiler times, kernel 8 beside cuBLAS, and
+    the host-inclusive ``detect``.  Returns the kernels-line entries of the
+    two tensor-core stages at 'high' and 'default'."""
+    import dataclasses
+
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.ops.cuda.fused_dft import fused_range_planes_cuda
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        detections_from_shorts_cuda,
+        detections_from_shorts_reference,
+        power_cfar_from_shorts_cuda,
+        power_from_shorts_cuda,
+        power_from_shorts_reference,
+    )
+    from radar_tpu_torch.ops.cfar import ca_cfar_2d
+    from radar_tpu_torch.ops.fuseddft import (
+        base_raw_interleave,
+        doppler_from_range_planes,
+        fused_range_planes,
+    )
+
+    dev = frames.device
+    tiers = ("highest", "high", "default")
+    cfgs = {t: dataclasses.replace(cfg, dft_precision=t) for t in tiers}
+    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
+    r_size, d_size = cfg.range_fft_size, cfg.doppler_fft_size
+    bit_fields = ("valid", "num_hits", "doppler_bin", "range_bin", "power",
+                  "range_m_interp", "velocity_mps_interp")
+    x = (frames.reshape(-1, c * v, s2).to(torch.float32)
+         - base_raw_interleave(base).reshape(c * v, s2)).reshape(-1, s2)
+    zp = torch.cat(fused_range_planes(frames, base, cfg), dim=-1).reshape(
+        -1, 2 * r_size)
+    power_p = power_from_shorts_reference(frames, base, cfg)
+    plain = run_detect(detections_from_shorts_reference, frames, base, K_DET,
+                       cfg)
+    report, launched, errs = {}, {}, {}
+    for tier, ct in cfgs.items():
+        unit, passes = TIER_UNIT[tier], megakernel.dft_passes(ct)
+        line = []
+        # kernel 8: the range stage alone
+        z = torch.cat(fused_range_planes_cuda(frames, base, ct, consts),
+                      dim=-1).reshape(-1, 2 * r_size)
+        errs[("k8", tier)] = planes_gate(f"kernel 8 {tier}", z, zp, x,
+                                         consts["a2"], unit)
+        line.append(f"kernel 8 planes max |err| {errs[('k8', tier)]:.4g}")
+        # kernel 2: both stages
+        pk = power_from_shorts_cuda(frames, base, ct, consts)
+        errs[("k2", tier)] = maps_check(f"kernel 2 {tier}", pk, power_p,
+                                        unit=unit)
+        pk2, th = power_cfar_from_shorts_cuda(frames, base, ct, consts)
+        assert torch.equal(pk2, pk), f"kernel 2 {tier}: power with CFAR"
+        rel, flipped = threshold_check(f"kernel 2 {tier} CA", pk, th,
+                                       ca_cfar_2d(pk, ct)[1])
+        line.append(f"kernel 2 power max |err| {errs[('k2', tier)]:.4g}, CA "
+                    f"threshold {rel:.2e} rel, {flipped} hits flipped")
+        if passes:
+            zt = tier_planes(frames, base, ct, consts, passes)
+            pt = tier_power(zt, ct, consts, passes)[0]
+            emu = maps_check(f"kernel 2 {tier} vs emulation", pk, pt,
+                             unit=unit)
+            line.append(f"vs the emulated tier: planes "
+                        f"{float((z - zt).abs().max()):.4g}, power {emu:.4g}")
+        # kernel 1 on the main path of the tier, and against plain
+        pipe = RDPipeline(ct, K_DET, device=dev)
+        megakernel.launches = 0
+        res = result_to_numpy(pipe.detect(frames, base))
+        torch.cuda.synchronize()
+        launched[tier] = megakernel.launches
+        assert launched[tier] > 0, f"{tier}: kernel 1 not launched"
+        res["nbr"] = detections_from_shorts_cuda(frames, base, K_DET, ct,
+                                                 consts)[2].cpu().numpy()
+        if passes == 1:
+            # One pass moves noise cells next to the CFAR threshold, so
+            # against the f32 plain version the flips are counted.  The
+            # gate holds the kernel against its tier's own plain version
+            # fed kernel 8's planes (the range stage, held above): one
+            # pass rounds each plane to TF32, and the last bit of a sum
+            # moves a rounding, so emulated planes would put 2^-11 steps
+            # into a few cells.  On the same planes both sides form the
+            # same exact products; only the sums differ, and the tensor
+            # cores' accumulation (not IEEE round-to-nearest) is held to
+            # the 3-pass unit, the one that held 'high' against f32.
+            sets, hits = set_flips(res, plain)
+            emu = run_detect(lambda f, b, k, c: tier_detections(
+                f, b, k, c, consts, passes, planes=z), frames, base, K_DET,
+                ct)
+            flips, err = compare(res, emu, ct, max_flips=2, f32_floor=True,
+                                 unit=TIER_UNIT["high"])
+            line.append(f"kernel 1 vs plain {sets} set flips, {hits} "
+                        f"num_hits differences over {BATCH} frames; vs "
+                        f"the emulated tier {flips} flips, max |power err| "
+                        f"{err:.4g}")
+        else:
+            flips, err = compare(res, plain, ct, max_flips=2, f32_floor=True,
+                                 unit=unit)
+            line.append(f"kernel 1 vs plain {flips} flips, max |power err| "
+                        f"{err:.4g}")
+        maps = result_to_numpy(RDPipeline(ct, K_DET, device=dev,
+                                          rd_impl="mega-maps")
+                               .detect(frames, base))
+        for f in bit_fields:
+            np.testing.assert_array_equal(
+                maps[f], res[f], err_msg=f"{tier} 'mega' vs 'mega-maps': {f}")
+        worst = golden_check(capture, {k: v[:4] for k, v in res.items()}, ct)
+        digest = outputs_digest(detections_from_shorts_cuda(frames, base,
+                                                            K_DET, ct))
+        if tier == "highest":
+            assert digest == CA_DIGEST, f"'highest' checksum {digest}"
+        want = {"highest": CA_DIGEST, "high": HIGH_DIGEST}.get(tier)
+        line.append(f"'mega' vs 'mega-maps' bit-identical; golden (4 frames) "
+                    f"equal sets, power {worst:.1e}; CA checksum {digest}"
+                    + ("" if want is None else " (unchanged)" if digest == want
+                       else f" (was {want})") + f"; launches {launched[tier]}")
+        report[tier] = "; ".join(line)
+    for tier in tiers:
+        say(f"tier {tier} B={BATCH}: {report[tier]}")
+
+    # -- timing: the three kernels at the three tiers, in turns ------------
+    fns = {}
+    for tier, ct in cfgs.items():
+        fns[f"kernel 1 {tier}"] = (lambda f, ct=ct: detections_from_shorts_cuda(
+            f, base, K_DET, ct, consts))
+        fns[f"kernel 2 {tier}"] = (lambda f, ct=ct: power_from_shorts_cuda(
+            f, base, ct, consts))
+        fns[f"kernel 8 {tier}"] = (lambda f, ct=ct: fused_range_planes_cuda(
+            f, base, ct, consts))
+    t = alternate(fns, frames, device_only=True)
+    x_lib = frames.reshape(-1, s2).to(torch.float32)
+    lib = alternate({"cuBLAS SGEMM": lambda m: torch.matmul(m, consts["a2"])},
+                    x_lib, device_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        lib.update(alternate({"torch.matmul TF32": lambda m: torch.matmul(
+            m, consts["a2"])}, x_lib, device_only=True))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    re_p, im_p = fused_range_planes(frames, base, cfg)
+
+    def plain_doppler(_):
+        dr, di = doppler_from_range_planes(re_p, im_p, cfg)
+        return (dr * dr + di * di).sum(dim=-3)
+
+    t_plain = alternate({"plain range": lambda f: fused_range_planes(
+        f, base, cfg), "plain Doppler": plain_doppler}, frames,
+        device_only=True)
+    say(f"timing on {gpu} B={BATCH} (device only, median of 10, in turns): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + "; kernel 8's GEMM as one call: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in lib.items())
+        + "; plain: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t_plain.items()))
+    detects = {tier: RDPipeline(ct, K_DET, device=dev).detect
+               for tier, ct in cfgs.items()}
+    e2e = alternate(detects, frames, base)
+    host = {tier: host_enqueue_ms(fn, frames, base)
+            for tier, fn in detects.items()}
+    say(f"detect B={BATCH} on {gpu} (host-inclusive, median of 10; the "
+        "host's enqueue alone, no profiler, median of 10): "
+        + ", ".join(f"{k} {v:.4f} ms ({BATCH / v * 1e3:.0f} frames/s; "
+                    f"enqueue {host[k]:.4f} ms)" for k, v in e2e.items()))
+    stages = {}
+    for tier, ct in cfgs.items():
+        rows = kernel_us(lambda ct=ct: detections_from_shorts_cuda(
+            frames, base, K_DET, ct, consts))
+        rng, dop = (("range_gemm_kernel", "doppler_power_kernel")
+                    if tier == "highest" else
+                    (f"range_tc_kernel<{megakernel.dft_passes(ct)}>",
+                     f"doppler_tc_kernel<{megakernel.dft_passes(ct)}>"))
+        stages[tier] = (stage_us(rows, rng), stage_us(rows, dop),
+                        stage_us(rows, "detect_kernel"))
+    say("stages of kernel 1 (profiler, device us per launch, one launch "
+        "a call): " + "; ".join(
+        f"{tier} range {a:.1f}, Doppler {b:.1f}, detect {d:.1f}"
+        for tier, (a, b, d) in stages.items()))
+
+    # -- the kernels-line entries of the two tensor-core stages ------------
+    rows = BATCH * c * v
+    b_range = bound(rows * (4.0 * cfg.num_samples
+                            + 5.0 * r_size * math.log2(r_size)),
+                    BATCH * cfg.shorts_per_frame * 2.0 + c * v * s2 * 4.0
+                    + s2 * 2 * r_size * 4.0 + rows * 2 * r_size * 4.0)
+    cols = BATCH * cfg.num_virtual_rx * r_size
+    lhs_bytes = (-(-d_size // 8) * 16) * 2 * (-(-cfg.chirps_per_tx // 8)
+                                              * 8) * 4.0   # packed, once
+    b_dop = bound(cols * (2.0 * cfg.chirps_per_tx
+                          + 5.0 * d_size * math.log2(d_size) + 4.0 * d_size),
+                  rows * 2 * r_size * 4.0 + lhs_bytes
+                  + BATCH * d_size * r_size * 4.0)
+    out = []
+    for tier in ("high", "default"):
+        lib_ms = lib["cuBLAS SGEMM" if tier == "high" else "torch.matmul TF32"]
+        out.append(dict(
+            name=f"range_tc[{tier}]", route="cuda",
+            source="radar_tpu_torch/csrc/megakernel.cu",
+            replaces="radar_tpu/ops/pallas/megakernel.py:234",
+            launches=launched[tier], max_abs_err=errs[("k8", tier)],
+            ms=t[f"kernel 8 {tier}"], plain_ms=t_plain["plain range"],
+            bound_ms=b_range[0], bound_by=b_range[1], library_ms=lib_ms))
+        out.append(dict(
+            name=f"doppler_tc[{tier}]", route="cuda",
+            source="radar_tpu_torch/csrc/megakernel.cu",
+            replaces="radar_tpu/ops/pallas/megakernel.py:279",
+            launches=launched[tier], max_abs_err=errs[("k2", tier)],
+            ms=stages[tier][1] / 1e3, plain_ms=t_plain["plain Doppler"],
+            bound_ms=b_dop[0], bound_by=b_dop[1], library_ms=None))
+    assert stages["high"][0] < stages["highest"][0], "range stage not faster"
+    assert stages["high"][1] < stages["highest"][1], "Doppler stage not faster"
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1463,10 +1880,9 @@ def main() -> int:
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; {nvcc}")
     t0 = time.perf_counter()
     _build.load()
-    ptxas = [ln.strip() for ln in _build.build_log().splitlines()
-             if "registers" in ln or "spill" in ln]
     say(f"build: sm_90a library in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds:.1f} s); ptxas: " + " | ".join(ptxas))
+        f"(nvcc {_build.build_seconds:.1f} s); ptxas: "
+        + ptxas_summary(_build.build_log()))
 
     # -- 2. kernel vs plain at full size -----------------------------------
     cfg = RadarConfig()
@@ -1490,17 +1906,20 @@ def main() -> int:
     for name in main_res:
         np.testing.assert_array_equal(main_res[name], kern[name],
                                       err_msg=f"detect() vs kernel: {name}")
-    flips, max_abs_err = compare(kern, plain, cfg, max_flips=2, f32_floor=True)
+    flips, max_abs_err = compare(kern, plain, cfg, max_flips=2, f32_floor=True,
+                                   unit=tier_unit(cfg))
     say(f"kernel vs plain B={BATCH} K={K_DET}: {flips} flips, max |power "
         f"err| {max_abs_err:.4g}, valid {int(kern['valid'].sum())}, "
         f"main-path launches {main_launches}")
     digest = outputs_digest(detections_from_shorts_cuda(frames, base, K_DET,
                                                         cfg))
-    say(f"kernel 1 outputs B={BATCH} seed 0 K={K_DET}: sha256 {digest}")
+    say(f"kernel 1 outputs B={BATCH} seed 0 K={K_DET} dft_precision "
+        f"{cfg.dft_precision!r}: sha256 {digest} ('highest': phase 17)")
     kern48 = run_detect(detections_from_shorts_cuda, frames, base, 48, cfg)
     plain48 = run_detect(detections_from_shorts_reference, frames, base, 48,
                          cfg)
-    flips48, _ = compare(kern48, plain48, cfg, max_flips=2, f32_floor=True)
+    flips48, _ = compare(kern48, plain48, cfg, max_flips=2, f32_floor=True,
+                         unit=tier_unit(cfg))
     say(f"kernel vs plain B={BATCH} K=48: {flips48} flips, exhausted slots "
         f"{int((~kern48['valid']).sum())}")
     cfg_r = RadarConfig(num_samples=64, num_chirps=64, num_rx=2, num_tx=2)
@@ -1509,7 +1928,7 @@ def main() -> int:
     kr = run_detect(detections_from_shorts_cuda, fr_r, None, K_DET, cfg_r)
     pr = run_detect(detections_from_shorts_reference, fr_r, None, K_DET,
                     cfg_r)
-    flips_r, _ = compare(kr, pr, cfg_r, max_flips=2, valid_only=True,
+    flips_r, _ = compare(kr, pr, cfg_r, max_flips=2, valid_only=True, unit=tier_unit(cfg_r),
                          f32_floor=True)
     say(f"kernel vs plain 64x64x2 TX=2 mean clutter B=32: {flips_r} flips")
 
@@ -1575,6 +1994,11 @@ def main() -> int:
             + ", ".join(f"{k} {v:.4f} ms/batch ({b / v * 1e3:.0f} frames/s)"
                         for k, v in med.items()))
 
+    enqueue = host_enqueue_ms(pipe.detect, frames, base)
+    say(f"host enqueue of the main path's detect B={BATCH} (with the base "
+        f"frame; before any profiler in this process; median of 10): "
+        f"{enqueue:.4f} ms, against kernel 1's "
+        f"{timings[BATCH]['kernel']:.4f} ms on the device")
     say(profile_line(lambda: pipe.detect(frames, base), f"detect B={BATCH}"))
 
     flops = (front_end_flops(cfg, BATCH)
@@ -1605,6 +2029,7 @@ def main() -> int:
                                targets))
     mti_frontends_phase(cfg, frames, base, gpu)
     selftest_phase()
+    kernels += tiers_phase(cfg, capture, frames, base, consts, gpu)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -126,18 +126,21 @@ def _declare(lib) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     fn = lib.radar_mega_detect
     fn.argtypes = (
-        [ptr] * 12          # raw, base_raw, a2, ft_re, ft_im, z, power,
-                            # top_idx, top_val, nbr, num_hits, snaps
-        + [i32] * 16        # geometry, CFAR kind and window integers
+        [ptr] * 14          # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
+                            # z, power, top_idx, top_val, nbr, num_hits,
+                            # snaps
+        + [i32] * 17        # geometry, clutter, passes, CFAR kind and
+                            # window integers
         + [ctypes.c_float,  # coef
            ptr]             # stream
     )
     fn.restype = i32
     fn = lib.radar_mega_maps
     fn.argtypes = (
-        [ptr] * 8           # raw, base_raw, a2, ft_re, ft_im, z, power,
-                            # thresh
-        + [i32] * 14        # geometry, clutter, CFAR kind and window
+        [ptr] * 10          # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
+                            # z, power, thresh
+        + [i32] * 15        # geometry, clutter, passes, CFAR kind and
+                            # window
         + [ctypes.c_float,  # coef
            ptr]             # stream
     )
@@ -157,8 +160,9 @@ def _declare(lib) -> None:
     fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]   # x, idx, mag; rows, n, w
     fn.restype = i32
     fn = lib.radar_fused_range
-    fn.argtypes = ([ptr] * 4      # raw, base_raw, a2, z
-                   + [i32] * 6    # frames, chirps, rx, 2S, R, clutter_mean
+    fn.argtypes = ([ptr] * 5      # raw, base_raw, a2, a2s, z
+                   + [i32] * 7    # frames, chirps, rx, 2S, R, clutter_mean,
+                                  # passes
                    + [ptr])
     fn.restype = i32
     lib.radar_cuda_error_string.argtypes = [i32]

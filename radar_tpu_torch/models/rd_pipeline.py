@@ -624,7 +624,9 @@ class RDPipeline(nn.Module):
                 dr, di = fused_rd_planes(shorts, base, cfg)
             elif impl == "fused-pallas":
                 dr, di = doppler_from_range_planes(
-                    *fused_range_planes_cuda(shorts, base, cfg, self.a2), cfg)
+                    *fused_range_planes_cuda(shorts, base, cfg,
+                                             dict(self.named_buffers())),
+                    cfg)
             else:
                 # clutter removal is linear: per plane == complex form
                 re, im = decode_to_planes(shorts, cfg)

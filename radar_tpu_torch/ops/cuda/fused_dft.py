@@ -7,9 +7,11 @@ range planes.  The Doppler stage stays outside the kernel
 (``ops.fuseddft.doppler_from_range_planes``), as in JAX.
 
 * :func:`fused_range_planes_cuda` launches the ``radar_fused_range``
-  entry of ``csrc/megakernel.cu`` — kernel 1's range GEMM as it is, plus
-  its chirp-mean pass for 'mean' clutter, not a second GEMM — and counts
-  its launches in :data:`launches`.  For 'mti2' / 'mti3' it runs the
+  entry of ``csrc/megakernel.cu`` — kernel 1's range stage as it is, at
+  the tier of ``cfg.dft_precision`` (``megakernel.dft_passes``: the f32
+  GEMM for 'highest', the split-TF32 tensor-core GEMM for 'high' and
+  'default'), plus its chirp-mean pass for 'mean' clutter, not a second
+  GEMM — and counts its launches in :data:`launches`.  For 'mti2' / 'mti3' it runs the
   GEMM with no base and applies the plain canceller to the planes, as
   the JAX wrapper applies ``declutter_planes`` after its kernel.
 * Its plain version is :func:`radar_tpu_torch.ops.fuseddft.fused_range_planes`.
@@ -31,7 +33,11 @@ from radar_tpu_torch.ops.cuda._launch import (
     ptr,
     require_cuda,
 )
-from radar_tpu_torch.ops.cuda.megakernel import mega_constants
+from radar_tpu_torch.ops.cuda.megakernel import (
+    check_range_consts,
+    dft_passes,
+    mega_constants,
+)
 from radar_tpu_torch.ops.fuseddft import (
     base_raw_interleave,
     fused_range_planes,
@@ -50,20 +56,21 @@ def fused_range_supported(cfg: RadarConfig) -> bool:
 
 
 def range_planes(shorts: torch.Tensor, base_cube: torch.Tensor | None,
-                 cfg: RadarConfig = DEFAULT_CONFIG, a2=None):
+                 cfg: RadarConfig = DEFAULT_CONFIG, consts=None):
     """Raw int16 frames (..., shorts_per_frame) -> clutter-removed range
     planes (re, im), each f32 (..., C, V, R).  CPU tensors take the
     plain version; CUDA tensors the kernel."""
     if shorts.device.type == "cpu":
         return fused_range_planes(shorts, base_cube, cfg)
-    return fused_range_planes_cuda(shorts, base_cube, cfg, a2)
+    return fused_range_planes_cuda(shorts, base_cube, cfg, consts)
 
 
 def fused_range_planes_cuda(shorts: torch.Tensor,
                             base_cube: torch.Tensor | None,
-                            cfg: RadarConfig = DEFAULT_CONFIG, a2=None):
-    """:func:`range_planes` through the CUDA kernel.  ``a2`` is the
-    (2S, 2R) constant of ``megakernel.mega_constants`` (built when None).
+                            cfg: RadarConfig = DEFAULT_CONFIG, consts=None):
+    """:func:`range_planes` through the CUDA kernel.  ``consts`` holds
+    ``megakernel.mega_constants``'s ``a2`` and ``a2_split`` on the
+    frames' device (built when None).
     Returns the planes as views of the kernel's (B*C*V, 2R) output; no
     frames launch nothing; non-contiguous frames are copied first.
     Raises for a tensor that is not on a CUDA device, for a geometry the
@@ -87,9 +94,10 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
         x = x.contiguous()
     check("shorts", x, torch.int16, (x.shape[0], cfg.shorts_per_frame), dev)
     check_aligned("shorts", x)
-    if a2 is None:
-        a2 = mega_constants(cfg)["a2"].to(dev)
-    check("a2", a2, torch.float32, (s2, 2 * r_size), dev)
+    if consts is None:
+        consts = {n: t.to(dev) for n, t in mega_constants(cfg).items()}
+    check_range_consts(consts, cfg, dev)
+    passes = dft_passes(cfg)
     base_raw = None
     if mode == "base":
         check("base_cube", base_cube, torch.complex64,
@@ -98,8 +106,9 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
     b = x.shape[0]
     z = torch.empty((b * c * v, 2 * r_size), dtype=torch.float32, device=dev)
     if b:
-        launch("radar_fused_range", dev, ptr(x), ptr(base_raw), ptr(a2),
-               ptr(z), b, c, v, s2, r_size, int(mode == "mean"))
+        launch("radar_fused_range", dev, ptr(x), ptr(base_raw),
+               ptr(consts["a2"]), ptr(consts["a2_split"]), ptr(z), b, c, v,
+               s2, r_size, int(mode == "mean"), passes)
         launches += 1
     planes = z.reshape(shorts.shape[:-1] + (c, v, 2 * r_size))
     re, im = planes[..., :r_size], planes[..., r_size:]

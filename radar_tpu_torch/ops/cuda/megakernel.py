@@ -25,8 +25,13 @@ dispatcher that chooses by tensor device only: CPU tensors get the
 plain version, CUDA tensors the kernel.  There is no fallback from a
 kernel to its plain version.
 
-All compute in plain float32 whatever ``cfg.dft_precision`` says (the
-TPU's bf16 tiers are not emulated; see ``ops/dftmat.py``).
+The kernels' two DFT stages run at the tier of ``cfg.dft_precision``
+(:func:`dft_passes`, the JAX package's tiers in TF32 instead of bf16):
+'highest' in plain f32 on the CUDA cores; 'high' as three split-TF32
+passes on the tensor cores (hi*lo + lo*hi + hi*hi, each product to
+about 2^-21); 'default' as one pass (hi*hi, about 2^-11).  The plain
+versions compute in f32 at every tier; ``ops/tf32.py`` emulates the
+tensor-core products for the tests.
 """
 
 from __future__ import annotations
@@ -61,6 +66,22 @@ K_MAX = 128         # the TPU kernel's selection width (_K_LANE); kept as the ga
 launches = 0        # kernel launches by detections_from_shorts_cuda
 maps_launches = 0   # kernel launches by power_(cfar_)from_shorts_cuda
 
+# cfg.dft_precision -> the kernels' ``passes`` argument: 0 the SIMT f32
+# kernels, else the tensor-core kernels with that many TF32 passes
+_PASSES = {"highest": 0, "high": 3, "default": 1}
+
+
+def dft_passes(cfg: RadarConfig) -> int:
+    """The kernel mode of ``cfg.dft_precision``: 0 for 'highest' (the
+    SIMT f32 kernels), 3 for 'high' and 1 for 'default' (split-TF32
+    passes on the tensor cores).  Raises for any other tier."""
+    try:
+        return _PASSES[cfg.dft_precision]
+    except KeyError:
+        raise ValueError(
+            f"dft_precision must be one of {tuple(_PASSES)}, not "
+            f"{cfg.dft_precision!r}") from None
+
 
 def _mti_matrix(kc: int, order: int) -> np.ndarray:
     """(kc, kc) float64 circulant canceller M with ``y = M @ x`` the
@@ -75,6 +96,67 @@ def _mti_matrix(kc: int, order: int) -> np.ndarray:
     return eye - 2.0 * r1 + np.roll(eye, -2, axis=1)
 
 
+def doppler_lhs(ft_re: np.ndarray, ft_im: np.ndarray) -> np.ndarray:
+    """The packed Doppler constant of the tensor-core Doppler stage,
+    (16 ceil(D / 8), 2 Kc8) f32 with Kc8 = Kc rounded up to 8, from the
+    (Kc, D) ``ft_re`` / ``ft_im``: rows in groups of 16, first the Re
+    rows ``[Fr | -Fi]`` of Doppler bins d..d+7, then their Im rows ``[Fi
+    | Fr]``, so that one product with the stacked planes ``[Zr; Zi]``
+    gives Re and Im of each cell in rows g and g + 8 of an m16 tile.  Each
+    half is zero-padded to Kc8 columns, padded rows are zero.  Entries
+    are ``ft_re`` / ``ft_im`` values or their negations, bit for bit."""
+    kc, d = ft_re.shape
+    kc8 = -(-kc // 8) * 8
+    lhs = np.zeros((-(-d // 8) * 16, 2 * kc8), np.float32)
+    bins = np.arange(d)
+    re_rows = bins // 8 * 16 + bins % 8
+    lhs[re_rows, :kc] = ft_re.T
+    lhs[re_rows, kc8:kc8 + kc] = -ft_im.T
+    lhs[re_rows + 8, :kc] = ft_im.T
+    lhs[re_rows + 8, kc8:kc8 + kc] = ft_re.T
+    return lhs
+
+
+def tf32_split(x: np.ndarray) -> np.ndarray:
+    """``(2,) + x.shape`` f32, ``[hi; lo]``: the TF32 split of the
+    tensor-core tiers, done once on the host for their constants.  hi =
+    rna(x), lo = rna(x - hi), with rna the rounding of
+    ``cvt.rna.tf32.f32`` (to nearest, ties away from zero, 10 explicit
+    mantissa bits): half of the 13 dropped bits added to the
+    sign-magnitude pattern, then the dropped bits cleared.  For finite
+    x; ``ops/tf32.split_tf32`` is the same split in torch, held equal to
+    it bit for bit by the tests."""
+    def rna(v):
+        bits = np.ascontiguousarray(v, np.float32).view(np.uint32)
+        return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+            np.float32)
+
+    x = np.asarray(x, np.float32)
+    hi = rna(x)
+    return np.stack([hi, rna(x - hi)])
+
+
+# the tensor-core kernels' operand tile, rows x K (csrc/megakernel.cu
+# kTcBM x kTcBK)
+GMMA_ROWS, GMMA_DEPTH = 128, 16
+
+
+def gmma_tiles(x: np.ndarray) -> np.ndarray:
+    """(R, K) f32 -> (ceil(R / 128), ceil(K / 16), 128 * 16): ``x``
+    zero-padded and cut into the 128 x 16 K-major operand tiles of the
+    tensor-core kernels, each in wgmma's interleaved order without
+    swizzle (``csrc/megakernel.cu`` ``gmma_off``): element (r, k) of a
+    tile at ((r // 8) * 4 + k // 4) * 32 + (r % 8) * 4 + k % 4, i.e. 8 x 4
+    core matrices of 128 contiguous bytes."""
+    rows, depth = x.shape
+    nr, nk = -(-rows // GMMA_ROWS), -(-depth // GMMA_DEPTH)
+    padded = np.zeros((nr * GMMA_ROWS, nk * GMMA_DEPTH), np.float32)
+    padded[:rows, :depth] = x
+    t = padded.reshape(nr, GMMA_ROWS // 8, 8, nk, GMMA_DEPTH // 4, 4)
+    return np.ascontiguousarray(t.transpose(0, 3, 1, 4, 2, 5)).reshape(
+        nr, nk, GMMA_ROWS * GMMA_DEPTH)
+
+
 def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]:
     """Host-built constants of the detect op, as CPU f32 tensors:
 
@@ -86,7 +168,13 @@ def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]
       ``F diag(w) M``, in complex128 before the f32 cast (as the JAX
       ``_plan`` does): the kernels then run with no base and no chirp
       mean, and the snapshots, Doppler-domain values of the same
-      transform, come out filtered too.
+      transform, come out filtered too;
+    * ``a2_split`` and ``dop_l``, the constants of the tensor-core
+      tiers: :func:`tf32_split` ([hi; lo]) of ``a2`` and of
+      :func:`doppler_lhs` of ``ft_re`` / ``ft_im``, each half cut by
+      :func:`gmma_tiles` (``a2`` transposed, K-major): (2, ceil(2R /
+      128), ceil(2S / 16), 2048) and (2, ceil(16 ceil(D / 8) / 128),
+      ceil(2 Kc8 / 16), 2048).
     """
     window = resolve_window(True, cfg)
     a_re, a_im = _interleaved_range_factors(cfg.num_samples,
@@ -96,13 +184,18 @@ def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]
     if cfg.clutter_mode in ("mti2", "mti3"):
         f_dop = f_dop @ _mti_matrix(cfg.chirps_per_tx,
                                     int(cfg.clutter_mode[-1]))
+    ft_re = np.ascontiguousarray(f_dop.real.T.astype(np.float32))
+    ft_im = np.ascontiguousarray(f_dop.imag.T.astype(np.float32))
+    a2 = np.ascontiguousarray(np.concatenate([a_re.T, a_im.T], axis=1),
+                              np.float32)
     return {
-        "a2": torch.from_numpy(
-            np.ascontiguousarray(np.concatenate([a_re.T, a_im.T], axis=1))),
-        "ft_re": torch.from_numpy(
-            np.ascontiguousarray(f_dop.real.T.astype(np.float32))),
-        "ft_im": torch.from_numpy(
-            np.ascontiguousarray(f_dop.imag.T.astype(np.float32))),
+        "a2": torch.from_numpy(a2),
+        "a2_split": torch.from_numpy(
+            np.stack([gmma_tiles(h.T) for h in tf32_split(a2)])),
+        "ft_re": torch.from_numpy(ft_re),
+        "ft_im": torch.from_numpy(ft_im),
+        "dop_l": torch.from_numpy(np.stack(
+            [gmma_tiles(h) for h in tf32_split(doppler_lhs(ft_re, ft_im))])),
     }
 
 
@@ -142,23 +235,33 @@ def detections_from_shorts_reference(
     six outputs from the maps (fused range + Doppler planes, the
     strip-form CA / GO / SO CFAR of ``cfg.cfar_kind``, stable-sort top-K,
     gathers)."""
+    x = shorts.reshape(-1, cfg.shorts_per_frame)
+    dr, di = doppler_from_range_planes(*fused_range_planes(x, base_cube, cfg),
+                                       cfg)
+    power = (dr * dr + di * di).sum(dim=-3)            # (B, D, R)
+    return detections_from_maps(power, dr, di, k, cfg, shorts.shape[:-1])
+
+
+def detections_from_maps(power, dr, di, k: int, cfg: RadarConfig,
+                         lead=None):
+    """The detect op's six outputs from power maps (B, D, R) and the RD
+    planes (B, TX*V, D, R) that the snapshots are gathered from: the
+    strip-form CFAR of ``cfg.cfar_kind``, the range-edge guard,
+    stable-sort top-K and the gathers; lead dims ``lead`` (default
+    (B,))."""
     from radar_tpu_torch.models.rd_pipeline import (
         gather_snapshots,
         neighbour_samples,
     )
 
-    lead = shorts.shape[:-1]
-    x = shorts.reshape(-1, cfg.shorts_per_frame)
-    dr, di = doppler_from_range_planes(*fused_range_planes(x, base_cube, cfg),
-                                       cfg)
-    power = (dr * dr + di * di).sum(dim=-3)            # (B, D, R)
+    lead = (len(power),) if lead is None else tuple(lead)
     hits = power > _threshold_reference(power, cfg)
     r_size = cfg.range_fft_size
     r_idx = torch.arange(r_size, device=power.device)
     hits = hits & (r_idx < r_size - cfg.range_edge_guard_effective)
     num_hits = hits.sum(dim=(-2, -1)).to(torch.int32)
     masked = torch.where(hits, power, float("-inf"))
-    top_val, top_idx = top_k_sorted(masked.reshape(len(x), -1), k)
+    top_val, top_idx = top_k_sorted(masked.reshape(len(power), -1), k)
     nbr = neighbour_samples(power, top_idx, top_idx // r_size,
                             top_idx % r_size)
     snaps = torch.complex(gather_snapshots(dr, top_idx),
@@ -166,6 +269,24 @@ def detections_from_shorts_reference(
     return (top_idx.reshape(lead + (k,)), top_val.reshape(lead + (k,)),
             nbr.reshape(lead + (k, 5)), num_hits.reshape(lead),
             snaps.reshape(lead + snaps.shape[-2:]))
+
+
+def _tiles_shape(rows: int, depth: int) -> tuple:
+    """Shape of a split constant cut by :func:`gmma_tiles`."""
+    return (2, -(-rows // GMMA_ROWS), -(-depth // GMMA_DEPTH),
+            GMMA_ROWS * GMMA_DEPTH)
+
+
+def check_range_consts(consts, cfg: RadarConfig, dev) -> None:
+    """The range stage's constants in ``consts``: ``a2`` (2S, 2R) and
+    ``a2_split`` (:func:`mega_constants`), f32 on ``dev``, 16-byte
+    aligned (the kernels read them in 16-byte chunks)."""
+    s2, r2 = 2 * cfg.num_samples, 2 * cfg.range_fft_size
+    check("a2", consts["a2"], torch.float32, (s2, r2), dev)
+    check("a2_split", consts["a2_split"], torch.float32,
+          _tiles_shape(r2, s2), dev)
+    for name in ("a2", "a2_split"):
+        check_aligned(name, consts[name])
 
 
 def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
@@ -190,16 +311,20 @@ def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
     check_aligned("shorts", x)
     if consts is None:
         consts = {n: t.to(dev) for n, t in mega_constants(cfg).items()}
-    check("a2", consts["a2"], torch.float32, (s2, 2 * r_size), dev)
+    check_range_consts(consts, cfg, dev)
     for name in ("ft_re", "ft_im"):
         check(name, consts[name], torch.float32,
               (cfg.chirps_per_tx, d_size), dev)
+    check("dop_l", consts["dop_l"], torch.float32,
+          _tiles_shape(-(-d_size // 8) * 16,
+                       2 * (-(-cfg.chirps_per_tx // 8) * 8)), dev)
+    check_aligned("dop_l", consts["dop_l"])
     base_raw = None
     if mode == "base":
         check("base_cube", base_cube, torch.complex64,
               (v, c, cfg.num_samples), dev, contiguous=False)
         base_raw = base_raw_interleave(base_cube).reshape(c * v, s2)
-    return x, base_raw, consts, mode
+    return x, base_raw, consts, mode, dft_passes(cfg)
 
 
 def detections_from_shorts_cuda(
@@ -221,7 +346,7 @@ def detections_from_shorts_cuda(
             f"max_detections {k} outside the detect kernel's 1..{K_MAX}; "
             "RDPipeline takes the maps path there"
         )
-    x, base_raw, consts, mode = _front_end_args(
+    x, base_raw, consts, mode, passes = _front_end_args(
         shorts, base_cube, cfg, consts, "detections_from_shorts")
     dev = shorts.device
     lead = shorts.shape[:-1]
@@ -238,10 +363,11 @@ def detections_from_shorts_cuda(
     snaps = torch.empty((b, k, tx * v, 2), **f32)
 
     launch("radar_mega_detect", dev,
-           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["ft_re"]),
-           ptr(consts["ft_im"]), ptr(z), ptr(power), ptr(top_idx),
-           ptr(top_val), ptr(nbr), ptr(num_hits), ptr(snaps),
-           b, c, v, tx, s2, r_size, d_size, k, int(mode == "mean"),
+           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["a2_split"]),
+           ptr(consts["ft_re"]), ptr(consts["ft_im"]), ptr(consts["dop_l"]),
+           ptr(z), ptr(power), ptr(top_idx), ptr(top_val), ptr(nbr),
+           ptr(num_hits), ptr(snaps),
+           b, c, v, tx, s2, r_size, d_size, k, int(mode == "mean"), passes,
            kind_id, range_wrap, gd, gr, wd, wr,
            r_size - cfg.range_edge_guard_effective, coef)
     launches += 1
@@ -328,8 +454,8 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
     when a launch fails."""
     global maps_launches
     kind = _map_kind(cfg) if with_cfar else "ca"
-    x, base_raw, consts, mode = _front_end_args(shorts, base_cube, cfg,
-                                                consts, "power_from_shorts")
+    x, base_raw, consts, mode, passes = _front_end_args(
+        shorts, base_cube, cfg, consts, "power_from_shorts")
     dev = shorts.device
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
@@ -339,10 +465,10 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
     power = torch.empty((b, d_size, r_size), **f32)
     thresh = torch.empty((b, d_size, r_size), **f32) if with_cfar else None
     launch("radar_mega_maps", dev,
-           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["ft_re"]),
-           ptr(consts["ft_im"]), ptr(z), ptr(power), ptr(thresh),
-           b, c, v, cfg.num_tx, s2, r_size, d_size, int(mode == "mean"),
-           *threshold_args(cfg, kind))
+           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["a2_split"]),
+           ptr(consts["ft_re"]), ptr(consts["ft_im"]), ptr(consts["dop_l"]),
+           ptr(z), ptr(power), ptr(thresh), b, c, v, cfg.num_tx, s2, r_size,
+           d_size, int(mode == "mean"), passes, *threshold_args(cfg, kind))
     maps_launches += 1
     shape = shorts.shape[:-1] + (d_size, r_size)
     if not with_cfar:

@@ -5,9 +5,10 @@ XLA).
 
 Precision: the JAX package emulates its ``cfg.dft_precision`` tiers
 ('default', 'high', 'highest') with bf16 passes on the TPU's matrix
-unit.  This port computes every tier in plain float32 for now — at
-least as accurate as 'high', the library default.  Tensor-core forms of
-the tiers are later work (ROADMAP.md).
+unit.  These plain front ends compute every tier in float32 — at least
+as accurate as 'high', the library default; the tiers run in the CUDA
+front end of kernels 1, 2 and 8, as split TF32 on the tensor cores
+(``ops/cuda/megakernel.py``).
 """
 
 from __future__ import annotations

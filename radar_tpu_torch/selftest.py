@@ -247,7 +247,7 @@ def check_fused_dft_kernel(dev):
     x = torch.as_tensor(cap[1:], device=dev)
     dr_w, di_w = fused_rd_planes(x, base, cfg)
     dr_g, di_g = doppler_from_range_planes(
-        *range_planes(x, base, cfg, pipe.a2), cfg)
+        *range_planes(x, base, cfg, dict(pipe.named_buffers())), cfg)
     scale = float(dr_w.abs().max())
     for got, want in ((dr_g, dr_w), (di_g, di_w)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
@@ -309,11 +309,13 @@ def check_vmem_geometry_sweep(dev):
 def check_speed_mode_detections(dev):
     """Speed-mode gate: ``dft_precision='default'`` must reproduce the
     'high' mode's detection sets, at most one flip per 8-frame batch over
-    three seeds.  In the port every tier computes in plain f32, so the
-    two modes run the same arithmetic and the check holds trivially
-    until tensor-core tiers exist; it keeps the plumbing honest."""
+    three seeds.  On the card the two modes run the tensor-core front
+    end at one and at three split-TF32 passes (``ops/cuda/megakernel``);
+    on the CPU both run the plain f32 version, so the check holds there
+    trivially.  Prints the flips of each seed."""
     cfg_hi = RadarConfig()
     cfg_lo = dataclasses.replace(cfg_hi, dft_precision="default")
+    per_seed = []
     for seed in (3, 7, 11):
         cap = _capture(cfg_hi, 9, seed=seed)
         sets = {}
@@ -330,6 +332,9 @@ def check_speed_mode_detections(dev):
                     for sa, sb in zip(sets["high"], sets["default"]))
         assert flips <= 1, (
             f"seed {seed}: {flips} detection flips high vs default")
+        per_seed.append(f"seed {seed} {flips}")
+    print("speed-mode flips, default vs high, per 8-frame batch: "
+          + ", ".join(per_seed), flush=True)
 
 
 CHECKS = [

@@ -102,10 +102,10 @@ def plain_kernel8(monkeypatch):
     plain version (with a launch count); the kernels are never built."""
     calls = []
 
-    def plain(shorts, base, cfg, a2=None):
+    def plain(shorts, base, cfg, consts=None):
         calls.append(tuple(shorts.shape))
-        assert a2 is not None and a2.shape == (2 * cfg.num_samples,
-                                               2 * cfg.range_fft_size)
+        assert consts is not None and consts["a2"].shape == (
+            2 * cfg.num_samples, 2 * cfg.range_fft_size)
         return fused_range_planes(shorts, base, cfg)
 
     def no_build():
