@@ -31,7 +31,7 @@ line or more:
 5. CUDA-event timing of kernel 1 and its plain version at B=512 and
    B=1, and a profiler breakdown by kernel;
 6. kernels 2, 3 and 4 against their plain versions at B=512;
-7. 'mega' against 'mega-maps' bit for bit at K=16 and 48, and K=200
+7. 'mega' against 'mega-maps' bit for bit at K=16, 48 and 128, and K=200
    through the maps fall-through against the plain maps path;
 8. ``detect_integrated`` (n=4; base and mean clutter; with and without
    range walk) against the all-plain path, and 4 groups against the
@@ -66,9 +66,16 @@ line or more:
     'default': the split-TF32 tensor-core stages at 3 and 1 passes) of
     kernels 1, 2 and 8 against the f32 plain versions (and the emulated
     tier) at B=512, 'mega' against 'mega-maps' bit for bit, the golden
-    on 4 frames, kernel 1's CA checksum at each tier ('highest' must be
-    the SIMT kernels' ``CA_DIGEST``), device-only times in turns beside
-    cuBLAS, the stages' profile rows and the host-inclusive ``detect``.
+    on 4 frames, kernel 1's CA checksum at each tier (``CA_DIGEST``,
+    ``HIGH_DIGEST``, ``DEFAULT_DIGEST``: a redesign that keeps the bits
+    keeps them), device-only times in turns beside cuBLAS, the stages'
+    profile rows, stage (c) beside its plain version and its bound, and
+    the host-inclusive ``detect`` with its enqueue;
+18. the six selftest geometries (maps of 4,096 to 65,536 cells) at
+    B=64: kernel 1 against its plain version, 'mega' against 'mega-maps'
+    bit for bit, 'fused-pallas', OS and NCI against the plain path,
+    kernels 3 and 4 against their plain versions, and kernel 3 bit-exact
+    on rows of 32,768, 65,536 and 50,000 cells.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -502,6 +509,35 @@ def cfar_flops(cfg, n_cells: int, kind: str = "ca") -> float:
     return float(n_cells) * (2 * td + 2 * gd + 1 + rng + 1)
 
 
+def snapshot_gather_bytes(top_idx, cfg) -> tuple[float, float]:
+    """The bytes that stage (c)'s snapshot gather must move for this
+    run's slots ``top_idx`` (B, K), as (32-byte sectors, distinct
+    floats): in the range planes z (B x C x V rows of 2R f32, re then
+    im), each slot reads its cell's re and im in every row of its frame;
+    in the Doppler constants ft_re / ft_im (Kc rows of D f32), its
+    Doppler bin in every row.  Slots that share a sector share its read,
+    and CFAR hits cluster, so this is far under one sector per read."""
+    b = top_idx.shape[0]
+    r_size, d_size = cfg.range_fft_size, cfg.doppler_fft_size
+    rows, kc = cfg.num_chirps * cfg.num_rx, cfg.chirps_per_tx
+    idx = top_idx.reshape(b, -1).long()
+    dev = idx.device
+    cols = torch.cat([idx % r_size, idx % r_size + r_size], dim=1)
+    row_start = (torch.arange(b, device=dev)[:, None, None] * rows
+                 + torch.arange(rows, device=dev)[None, None, :]) * 2 * r_size
+    z_floats = (row_start + cols[:, :, None]).reshape(-1)
+    ft_floats = (torch.arange(kc, device=dev)[:, None] * d_size
+                 + (idx // r_size).reshape(1, -1)).reshape(-1)
+
+    def count(flat, arrays):
+        return (arrays * torch.unique(flat // 8).numel() * 32.0,
+                arrays * torch.unique(flat).numel() * 4.0)
+
+    z_sectors, z_bytes = count(z_floats, 1)
+    ft_sectors, ft_bytes = count(ft_floats, 2)   # ft_re and ft_im
+    return z_sectors + ft_sectors, z_bytes + ft_bytes
+
+
 def os_ops(cfg, n_cells: int) -> float:
     """One compare and one add per (cell, training-ring cell): the least
     that any exact selection of the k-th smallest ring cell, or count
@@ -545,9 +581,12 @@ def ptxas_summary(log: str) -> str:
     for ln in log.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", ln)
         if entry:
-            k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", entry.group(1))
-            name = (k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
-                    if k else entry.group(1))
+            k = re.search(r"\d+([a-z_]+_kernel)(I(?:Li(?:n?\d+)E)+E)?",
+                          entry.group(1))
+            args = re.findall(r"Li(n?)(\d+)E", k.group(2) or "") if k else []
+            name = (k.group(1) + (
+                "<" + ",".join(("-" if neg else "") + v for neg, v in args)
+                + ">" if args else "") if k else entry.group(1))
         elif "spill" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln:
@@ -730,7 +769,7 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     # -- 7. 'mega' against 'mega-maps' ---------------------------------------
     bit_fields = ("valid", "num_hits", "doppler_bin", "range_bin", "power",
                   "range_m_interp", "velocity_mps_interp")
-    for k in (K_DET, 48):
+    for k in (K_DET, 48, 128):
         a = result_to_numpy(RDPipeline(cfg, k, device=dev, rd_impl="mega")
                             .detect(frames, base))
         maps = RDPipeline(cfg, k, device=dev, rd_impl="mega-maps")
@@ -761,7 +800,8 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         want["nbr"] = nbr_of(power_p, want)
         flips[impl] = compare(got, want, cfg, max_flips=2, f32_floor=True,
                                unit=tier_unit(cfg))[0]
-    say(f"'mega' vs 'mega-maps' B={BATCH} K={K_DET} and 48: bit-identical "
+    say(f"'mega' vs 'mega-maps' B={BATCH} K={K_DET}, 48 and 128: "
+        "bit-identical "
         f"{', '.join(bit_fields)}, azimuth within the gate; mega-maps "
         f"launches {maps_counts}; vs the plain maps path: K=200 through "
         f"'auto' (maps fall-through) {flips['auto']} flips, 'fused' "
@@ -1570,6 +1610,8 @@ def selftest_phase() -> None:
 
 
 HIGH_DIGEST = "42c4276b4e5b21f1"  # kernel 1 at dft_precision 'high', as CA_DIGEST
+DEFAULT_DIGEST = "0f65ede98afe8f0e"  # and at 'default'
+TIER_DIGEST = {"highest": None, "high": HIGH_DIGEST, "default": DEFAULT_DIGEST}
 
 
 def kernel_us(fn, calls: int = 3) -> dict:
@@ -1642,6 +1684,7 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
     from radar_tpu_torch.ops.cuda import megakernel
     from radar_tpu_torch.ops.cuda.fused_dft import fused_range_planes_cuda
     from radar_tpu_torch.ops.cuda.megakernel import (
+        detections_from_maps,
         detections_from_shorts_cuda,
         detections_from_shorts_reference,
         power_cfar_from_shorts_cuda,
@@ -1731,6 +1774,7 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
                                  unit=unit)
             line.append(f"kernel 1 vs plain {flips} flips, max |power err| "
                         f"{err:.4g}")
+        errs[("k1", tier)] = err
         maps = result_to_numpy(RDPipeline(ct, K_DET, device=dev,
                                           rd_impl="mega-maps")
                                .detect(frames, base))
@@ -1740,13 +1784,11 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
         worst = golden_check(capture, {k: v[:4] for k, v in res.items()}, ct)
         digest = outputs_digest(detections_from_shorts_cuda(frames, base,
                                                             K_DET, ct))
-        if tier == "highest":
-            assert digest == CA_DIGEST, f"'highest' checksum {digest}"
-        want = {"highest": CA_DIGEST, "high": HIGH_DIGEST}.get(tier)
+        want = TIER_DIGEST[tier] or CA_DIGEST
+        assert digest == want, f"{tier} checksum {digest}, was {want}"
         line.append(f"'mega' vs 'mega-maps' bit-identical; golden (4 frames) "
-                    f"equal sets, power {worst:.1e}; CA checksum {digest}"
-                    + ("" if want is None else " (unchanged)" if digest == want
-                       else f" (was {want})") + f"; launches {launched[tier]}")
+                    f"equal sets, power {worst:.1e}; CA checksum {digest} "
+                    f"(unchanged); launches {launched[tier]}")
         report[tier] = "; ".join(line)
     for tier in tiers:
         say(f"tier {tier} B={BATCH}: {report[tier]}")
@@ -1802,11 +1844,38 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
                     (f"range_tc_kernel<{megakernel.dft_passes(ct)}>",
                      f"doppler_tc_kernel<{megakernel.dft_passes(ct)}>"))
         stages[tier] = (stage_us(rows, rng), stage_us(rows, dop),
-                        stage_us(rows, "detect_kernel"))
+                        stage_us(rows, "detect_band_kernel"))
     say("stages of kernel 1 (profiler, device us per launch, one launch "
         "a call): " + "; ".join(
         f"{tier} range {a:.1f}, Doppler {b:.1f}, detect {d:.1f}"
         for tier, (a, b, d) in stages.items()))
+    # stage (c)'s plain version on the same maps: the CFAR, the guard, the
+    # stable-sort top-K and the gathers of detections_from_maps
+    dr_p, di_p = doppler_from_range_planes(re_p, im_p, cfg)
+    t_c = alternate({"plain stage (c)": lambda pw: detections_from_maps(
+        pw, dr_p, di_p, K_DET, cfg)}, power_p, device_only=True)
+    del dr_p, di_p
+    n_cells = BATCH * d_size * r_size
+    tv, kc = cfg.num_virtual_rx, cfg.chirps_per_tx
+    # the snapshot gather as the 32-byte sectors that this run's slots
+    # touch (the distinct floats beside it); every slot in sectors of its
+    # own would be B K TV Kc x 2 x 32 bytes
+    top_idx = detections_from_shorts_cuda(frames, base, K_DET, cfgs["high"],
+                                          consts)[0]
+    gather_bytes, gather_floats = snapshot_gather_bytes(top_idx, cfg)
+    gather_max = BATCH * K_DET * tv * kc * 2 * 32.0
+    out_bytes = BATCH * K_DET * (4 + 4 + 20 + 8 * tv) + 4.0 * BATCH
+    b_c = bound(cfar_flops(cfg, n_cells) + BATCH * K_DET * tv * kc * 8.0,
+                n_cells * 4.0 + gather_bytes + out_bytes)
+    b_floor = bound(0.0, n_cells * 4.0 + gather_floats + out_bytes)
+    say(f"stage (c) B={BATCH} on {gpu}: {stages['high'][2]:.1f} us a launch "
+        f"at 'high' (profiler), plain {t_c['plain stage (c)']:.4f} ms (device "
+        f"only); bound {b_c[0]:.5f} ms ({b_c[1]}; the snapshot gather's "
+        f"{gather_bytes / 1e6:.3f} MB of 32-byte sectors for this run's "
+        f"slots, against {gather_max / 1e6:.0f} MB were every slot in "
+        f"sectors of its own), {b_floor[0]:.5f} ms counting its distinct "
+        f"floats ({gather_floats / 1e6:.3f} MB); "
+        f"{stages['high'][2] / 1e3 / b_c[0]:.2f}x the bound")
 
     # -- the kernels-line entries of the two tensor-core stages ------------
     rows = BATCH * c * v
@@ -1821,7 +1890,13 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
                           + 5.0 * d_size * math.log2(d_size) + 4.0 * d_size),
                   rows * 2 * r_size * 4.0 + lhs_bytes
                   + BATCH * d_size * r_size * 4.0)
-    out = []
+    out = [dict(
+        name="detect_stage", route="cuda",
+        source="radar_tpu_torch/csrc/detect.cu",
+        replaces="radar_tpu/ops/pallas/megakernel.py:782",
+        launches=launched["high"], max_abs_err=errs[("k1", "high")],
+        ms=stages["high"][2] / 1e3, plain_ms=t_c["plain stage (c)"],
+        bound_ms=b_c[0], bound_by=b_c[1], library_ms=None)]
     for tier in ("high", "default"):
         lib_ms = lib["cuBLAS SGEMM" if tier == "high" else "torch.matmul TF32"]
         out.append(dict(
@@ -1841,6 +1916,176 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
     assert stages["high"][0] < stages["highest"][0], "range stage not faster"
     assert stages["high"][1] < stages["highest"][1], "Doppler stage not faster"
     return out
+
+
+GEOMETRY_BATCH = 64
+
+
+def geometry_phase(gpu, targets, dev) -> None:
+    """Phase 18: the six selftest geometries (maps of 4,096 to 65,536
+    cells) at B=64 on the card, each through every path with a kernel:
+    kernel 1 against its plain version; 'mega' against 'mega-maps' bit
+    for bit (CA at K=16 and 128, GO at K=16) with kernels 1, 2 and 3
+    launched; 'fused-pallas' (kernels 8, 4, 3), the OS ``detect``
+    (kernels 2, 6, 3) and ``detect_integrated`` (kernels 2, 4, 3) against
+    the plain path, at 'highest' (the f32 front end on both sides, so
+    the gate's flips are the CFAR and selection kernels', not the TF32
+    tier's, which phase 17 holds); kernel 4's thresholds and kernel 3
+    (the masked maps and rows of ties, K=16 and 200) against their plain
+    versions; and
+    kernel 3 bit-exact at N = 32,768, 65,536 and 50,000 (not a multiple
+    of its 2,048-cell chunk)."""
+    import dataclasses
+
+    from radar_tpu_torch.config import RadarConfig
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.synthetic import synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cfar import ca_cfar_2d
+    from radar_tpu_torch.ops.cuda import cfar as cfar_k
+    from radar_tpu_torch.ops.cuda import fused_dft, megakernel, oscfar
+    from radar_tpu_torch.ops.cuda import topk as topk_k
+    from radar_tpu_torch.ops.cuda.cfar import ca_cfar_2d_cuda
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        detections_from_shorts_cuda,
+        detections_from_shorts_reference,
+        power_from_shorts_cuda,
+        power_from_shorts_reference,
+    )
+    from radar_tpu_torch.ops.cuda.topk import top_k_sorted, topk_cuda
+    from radar_tpu_torch.selftest import GEOMETRIES
+
+    b = GEOMETRY_BATCH
+    bit_fields = ("valid", "num_hits", "doppler_bin", "range_bin", "power",
+                  "range_m_interp", "velocity_mps_interp")
+    counters = {"mega_detect": (megakernel, "launches"),
+                "mega_maps": (megakernel, "maps_launches"),
+                "fused_range": (fused_dft, "launches"),
+                "ca_cfar": (cfar_k, "launches"), "topk": (topk_k, "launches"),
+                "os_hits": (oscfar, "hits_launches")}
+
+    def run(pipe, method, *args):
+        """(result dict, launches by kernel) of one pipeline call."""
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        res = result_to_numpy(getattr(pipe, method)(*args))
+        torch.cuda.synchronize()
+        return res, {k: getattr(mod, attr) for k, (mod, attr)
+                     in counters.items() if getattr(mod, attr)}
+
+    def plain(c):
+        return RDPipeline(c, K_DET, device=dev, rd_impl="fused",
+                          cfar_impl="xla", topk_impl="xla")
+
+    def gate(what, got, want, c, **kw):
+        """compare(), its failure named by geometry and path."""
+        try:
+            return compare(got, want, c, **kw)[0]
+        except AssertionError as e:
+            raise AssertionError(f"{geom} {what}: {e}") from None
+
+    lines = []
+    for geom in GEOMETRIES:
+        cfg = RadarConfig(**geom)
+        d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+        unit = tier_unit(cfg)
+        cap = synthesize_capture(targets, b + 1, cfg, noise_std=5.0, seed=4)
+        pipe = RDPipeline(cfg, K_DET, device=dev)
+        base = pipe.prepare_base(cap[0])
+        frames = torch.from_numpy(cap[1:]).to(dev)
+        consts = dict(pipe.named_buffers())
+        part = [f"{d_size}x{r_size} ({d_size * r_size} cells)"]
+        # kernel 1 against its plain version
+        kern = run_detect(detections_from_shorts_cuda, frames, base, K_DET,
+                          cfg)
+        ref = run_detect(detections_from_shorts_reference, frames, base,
+                         K_DET, cfg)
+        flips = gate("kernel 1 vs plain", kern, ref, cfg, max_flips=2,
+                     f32_floor=True, unit=unit)
+        part.append(f"kernel 1 vs plain {flips} flips, valid "
+                    f"{int(kern['valid'].sum())}")
+        # 'mega' against 'mega-maps'
+        for kind, k in (("ca", K_DET), ("ca", 128), ("goca", K_DET)):
+            ck = dataclasses.replace(cfg, cfar_kind=kind)
+            a, la = run(RDPipeline(ck, k, device=dev), "detect", frames, base)
+            m, lm = run(RDPipeline(ck, k, device=dev, rd_impl="mega-maps"),
+                        "detect", frames, base)
+            assert la == {"mega_detect": 1}, la
+            assert lm == {"mega_maps": 1, "topk": 1}, lm
+            for f in bit_fields:
+                np.testing.assert_array_equal(
+                    m[f], a[f], err_msg=f"{geom} {kind} K={k} 'mega' vs "
+                    f"'mega-maps': {f}")
+            a["nbr"] = detections_from_shorts_cuda(frames, base, k, ck,
+                                                   consts)[2].cpu().numpy()
+            gate(f"{kind} K={k} 'mega' vs 'mega-maps'", m, a, ck,
+                 max_flips=0, f32_floor=True)
+        part.append("'mega' = 'mega-maps' (CA K=16, 128; GO K=16)")
+        # the maps paths against the plain path, at 'highest'
+        cfg_f32 = dataclasses.replace(cfg, dft_precision="highest")
+        power_p = power_from_shorts_reference(frames, base, cfg_f32)
+        cfg_os = dataclasses.replace(cfg_f32, cfar_kind="os")
+        cfg_mean = dataclasses.replace(cfg_f32, clutter_mode="mean")
+        for name, c, impl, method, args, want_launch in (
+                ("fused-pallas", cfg_f32, "fused-pallas", "detect",
+                 (frames, base),
+                 {"fused_range", "ca_cfar", "topk"}),
+                ("OS", cfg_os, "auto", "detect", (frames, base),
+                 {"mega_maps", "os_hits", "topk"}),
+                ("NCI n=4", cfg_mean, "auto", "detect_integrated",
+                 (frames, base, 4), {"mega_maps", "ca_cfar", "topk"})):
+            kp = RDPipeline(c, K_DET, device=dev, rd_impl=impl)
+            got, launched = run(kp, method, *args)
+            assert set(launched) == want_launch, (name, launched)
+            pp = plain(c)
+            want = result_to_numpy(getattr(pp, method)(*args))
+            if method == "detect":
+                pw_k = kp._maps(frames, base, want_hits=False)[0]
+                pw_p = power_p
+            else:
+                pw_k = kp.integrated_power(frames, base, 4)
+                pw_p = pp.integrated_power(frames, base, 4)
+            got["nbr"], want["nbr"] = nbr_of(pw_k, got), nbr_of(pw_p, want)
+            n_flips = gate(f"{name} vs plain", got, want, c, max_flips=2,
+                           f32_floor=True)
+            part.append(f"{name} {n_flips} flips")
+        # kernel 4 and kernel 3 against their plain versions
+        pk = power_from_shorts_cuda(frames, base, cfg, consts)
+        th_k = ca_cfar_2d_cuda(pk, cfg)[1]
+        rel, flipped = threshold_check(f"kernel 4 {geom}", pk, th_k,
+                                       ca_cfar_2d(pk, cfg)[1])
+        r_ok = torch.arange(r_size, device=dev) < (
+            r_size - cfg.range_edge_guard_effective)
+        rows = torch.where((pk > th_k) & r_ok, pk,
+                           float("-inf")).reshape(b, -1)
+        ties = torch.randint(0, 8, (8, d_size * r_size), device=dev,
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(0))
+        rows = torch.cat([rows, ties.to(torch.float32)])
+        for k in (K_DET, 200):
+            vk, ik = topk_cuda(rows, k)
+            vp, ip = top_k_sorted(rows, k)
+            assert torch.equal(ik, ip) and bits_equal(vk, vp), \
+                f"kernel 3 {geom} K={k}"
+        part.append(f"kernel 4 {rel:.1e} rel, {flipped} hits flipped; "
+                    "kernel 3 bit-exact (K=16, 200)")
+        lines.append("; ".join(part))
+    rng = np.random.default_rng(5)
+    for n in (32768, 65536, 50000):
+        x = np.full((16, n), -np.inf, np.float32)
+        for i in range(16):
+            cells = rng.choice(n, 4 * i, replace=False)
+            x[i, cells] = rng.integers(1, 6, cells.size)
+        x[15] = rng.integers(0, 3, n)   # dense, all ties
+        xd = torch.from_numpy(x).to(dev)
+        for k in (1, K_DET, 128, 2100):
+            vk, ik = topk_cuda(xd, k)
+            vp, ip = top_k_sorted(xd, k)
+            assert torch.equal(ik, ip) and bits_equal(vk, vp), \
+                f"kernel 3 N={n} K={k}"
+    say(f"six selftest geometries B={b} on {gpu}: " + " | ".join(lines)
+        + "; kernel 3 bit-exact at N = 32768, 65536, 50000 (K = 1, 16, "
+        "128, 2100; sparse, empty and dense rows)")
 
 
 # ---------------------------------------------------------------------------
@@ -2030,6 +2275,7 @@ def main() -> int:
     mti_frontends_phase(cfg, frames, base, gpu)
     selftest_phase()
     kernels += tiers_phase(cfg, capture, frames, base, consts, gpu)
+    geometry_phase(gpu, targets, dev)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

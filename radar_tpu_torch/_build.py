@@ -8,6 +8,12 @@ beside this file (listed in ``.gitignore``); the digest covers the
 sources and headers, the flags and the compiler path, so an edited
 source rebuilds.
 
+The kernels' layouts and gates (``csrc/layout.h``) are also built for
+the host, with the host's C++ compiler, into a small library of their
+own (:func:`load_layout`), so the wrappers check the kernels' own gates
+before a launch, and the tests check them where there is no CUDA
+toolkit.
+
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines without a CUDA toolkit.
 """
@@ -32,7 +38,12 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",   # registers / shared memory / spills into build.log
 )
 
+LAYOUT_LIB = "libradar_layout.so"
+LAYOUT_SOURCES = ("layout.cpp", "layout.h")
+CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
+
 _lib = None
+_layout = None
 build_seconds = 0.0   # time the last build of this process took (0: cached)
 
 
@@ -54,21 +65,36 @@ def find_nvcc() -> str:
     )
 
 
+def find_cxx() -> str:
+    """Path of the host's C++ compiler: ``$CXX``, else ``c++`` or ``g++``
+    on PATH.  Raises when there is none."""
+    for name in (os.environ.get("CXX"), "c++", "g++"):
+        found = name and shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError(
+        "no C++ compiler found ($CXX, c++, g++): the kernels' layouts "
+        "(radar_tpu_torch/csrc/layout.h) are built for the host at first use"
+    )
+
+
 def _sources() -> list[Path]:
-    return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+    return (sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
+            + sorted(CSRC_DIR.glob("*.h")))
 
 
-def _digest(nvcc: str) -> str:
+def _digest(compiler: str, flags=NVCC_FLAGS, sources=None) -> str:
     h = hashlib.sha256()
-    h.update(nvcc.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    h.update(compiler.encode())
+    h.update(" ".join(flags).encode())
+    for src in _sources() if sources is None else sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: list[list[str]], log: list[str]) -> None:
+def _run_all(cmds: list[list[str]], log: list[str],
+             what: str = "nvcc") -> None:
     """Run the commands side by side; append each one's output to
     ``log``; raise with the first failure's output."""
     procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -82,7 +108,8 @@ def _run_all(cmds: list[list[str]], log: list[str]) -> None:
             failed = (proc.returncode, out)
     if failed is not None:
         raise RuntimeError(
-            f"nvcc failed with exit code {failed[0]}:\n{failed[1][-4000:]}"
+            f"{what} failed with exit code {failed[0]}:\n"
+            f"{failed[1][-4000:]}"
         )
 
 
@@ -116,6 +143,23 @@ def build() -> Path:
     return lib_path
 
 
+def build_layout() -> Path:
+    """Compile ``csrc/layout.cpp`` for the host unless the library for
+    its digest exists; returns its path."""
+    cxx = find_cxx()
+    sources = [CSRC_DIR / name for name in LAYOUT_SOURCES]
+    out_dir = BUILD_DIR / ("layout-" + _digest(cxx, CXX_FLAGS, sources))
+    lib_path = out_dir / LAYOUT_LIB
+    if lib_path.is_file():
+        return lib_path
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f"{LAYOUT_LIB}.{os.getpid()}.tmp"
+    _run_all([[cxx, *CXX_FLAGS, "-o", str(tmp), str(sources[0])]], [],
+             what=Path(cxx).name)
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
 def build_log() -> str:
     """The compiler output of the current build (``-Xptxas -v`` lines)."""
     path = BUILD_DIR / _digest(find_nvcc()) / "build.log"
@@ -123,12 +167,13 @@ def build_log() -> str:
 
 
 def _declare(lib) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     fn = lib.radar_mega_detect
     fn.argtypes = (
-        [ptr] * 14          # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
-                            # z, power, top_idx, top_val, nbr, num_hits,
-                            # snaps
+        [ptr] * 11          # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
+                            # z, power, tickets, work
+        + [i64]             # work words
+        + [ptr] * 5         # top_idx, top_val, nbr, num_hits, snaps
         + [i32] * 17        # geometry, clutter, passes, CFAR kind and
                             # window integers
         + [ctypes.c_float,  # coef
@@ -149,7 +194,10 @@ def _declare(lib) -> None:
     fn.argtypes = [ptr] * 2 + [i32] * 9 + [ctypes.c_float, ptr]
     fn.restype = i32
     fn = lib.radar_topk
-    fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]
+    fn.argtypes = ([ptr] * 5     # x, val, idx, tickets, work
+                   + [i64]       # work words
+                   + [i32] * 3   # rows, n, k
+                   + [ptr])
     fn.restype = i32
     for name in ("radar_os_hits", "radar_os_threshold"):
         fn = getattr(lib, name)
@@ -167,6 +215,27 @@ def _declare(lib) -> None:
     fn.restype = i32
     lib.radar_cuda_error_string.argtypes = [i32]
     lib.radar_cuda_error_string.restype = ctypes.c_char_p
+
+
+def load_layout():
+    """The host library of the kernels' layouts (built first if needed),
+    with its C signatures declared."""
+    global _layout
+    if _layout is None:
+        lib = ctypes.CDLL(str(build_layout()))
+        i32, i64 = ctypes.c_int, ctypes.c_longlong
+        for name in ("radar_smem_max", "radar_max_k"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        lib.radar_detect_layout.argtypes = (
+            [i32] * 5 + [i64] + [ctypes.POINTER(i64)] * 2)
+        lib.radar_detect_layout.restype = None
+        lib.radar_threshold_smem.argtypes = [i32] * 4
+        lib.radar_threshold_smem.restype = i64
+        lib.radar_topk_work_words.argtypes = [i64, i32, i32]
+        lib.radar_topk_work_words.restype = i64
+        _layout = lib
+    return _layout
 
 
 def load():

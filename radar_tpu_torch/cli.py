@@ -79,14 +79,15 @@ def cmd_detect(args) -> int:
                   f"trailing frame(s) to a whole group", file=sys.stderr)
             todo = todo[:kept]
 
+    # both pipelines' base: frame 0, or the mean of the first K frames
+    base_frames = capture[0] if n_base == 1 else capture[:n_base]
     det = RangeDetector(cfg, device=device)
-    peaks = result_to_numpy(det.detect(todo, det.prepare_base(capture[0])))
+    peaks = result_to_numpy(det.detect(todo, det.prepare_base(base_frames)))
     rd = None
     if args.full:
         pipe = RDPipeline(cfg, max_detections=args.max_detections,
                           rd_impl=args.rd_impl, device=device)
-        base = pipe.prepare_base(capture[0] if n_base == 1
-                                 else capture[:n_base])
+        base = pipe.prepare_base(base_frames)
         if n_int > 1:
             out = pipe.detect_integrated(todo, base, n_int, args.walk)
         else:

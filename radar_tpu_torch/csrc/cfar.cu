@@ -15,57 +15,46 @@
 // 512 maps, far under the f32 rate, so bytes bound it, and launch
 // latency shows at these sizes.  The design: one block per band of
 // kBand Doppler rows of one map, so 128 maps give 1024 blocks, several
-// to an SM.  The block gathers its rows plus the wrapped +-(gd + td)
-// Doppler halo into shared memory (28 rows of 128 at the default
-// window; the halo rows are read again from L2 by the next band), sums
-// the two Doppler strip maps of its rows, then the range strips.  Where
-// the halo would reach around the axis, the block holds the whole map
-// instead.  Every cell sums its window offsets through the index maps of
-// cfar_common.cuh in the same order as the detect kernel, so both paths'
-// thresholds are bit-identical.  On the card this form stays far above
-// the byte bound: the index arithmetic around each cell's ~55 shared-
-// memory adds, not the bytes, sets its pace (PERF.md).  Branch-free
-// interior loops or running sums along the axes (a new summation order)
-// are the next steps.
+// to an SM.  The block gathers its rows plus the wrapped +-wd Doppler
+// halo into shared memory (28 rows at the default window; the halo rows
+// are read again from L2 by the next band), sums the two Doppler strip
+// maps of its rows, then the range strips (cfar_common.cuh band_cfar,
+// the detect stage's code).  Where the halo would reach around the axis,
+// the block holds the whole map instead.  Every cell sums its window
+// offsets in the same order as the detect stage, so both paths'
+// thresholds are bit-identical; at the default window the adds come
+// from register copies of a column and of a strip row, and the
+// strip rows carry their range halo, so the edge cells take the same
+// path.  Shared memory, tile rows x R plus 2 kBand x (R + 2 range_pad)
+// floats (layout.h threshold_smem), is the only gate on the map's size.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "cfar_common.cuh"
+#include "layout.h"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBand = 16;   // Doppler rows a block
 
+template <int GD, int WD, int GR, int WR>
 __global__ void __launch_bounds__(kThreads) threshold_kernel(
     const float* __restrict__ power, float* __restrict__ thresh, int d_size,
-    int r_size, int halo, int kind, int range_wrap, int gd, int gr, int wd,
-    int wr, float coef) {
-  extern __shared__ float smem[];
-  const int n_bands = (d_size + kBand - 1) / kBand;
+    int r_size, int kind, int range_wrap, int gd, int gr, int wd, int wr,
+    float coef) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_bands = radar_layout::n_bands(d_size);
   const long long b = blockIdx.x / n_bands;
-  const int d0 = (blockIdx.x % n_bands) * kBand;
-  const int nb = min(kBand, d_size - d0);
-  // the band's rows with their Doppler halo, or the whole map
-  const int p_rows = halo ? nb + 2 * wd : d_size;
-  const int first = halo ? d0 - wd : 0;
+  const radar_cfar::BandRows rows =
+      radar_cfar::band_rows(blockIdx.x % n_bands, d_size, wd);
   float* p = smem;
-  float* y1 = p + p_rows * r_size;
-  float* y2 = y1 + nb * r_size;
-  const float* pf = power + b * d_size * r_size;
-  for (int i = threadIdx.x; i < p_rows * r_size; i += kThreads) {
-    const int h = i / r_size, r = i % r_size;
-    p[i] = pf[radar_cfar::wrap_index(first + h, d_size) * r_size + r];
-  }
-  __syncthreads();
-  radar_cfar::doppler_strips(p, y1, y2, p_rows, halo ? wd : d0, nb, r_size,
-                             gd, wd, kThreads);
-  __syncthreads();
-  float* out = thresh + (b * d_size + d0) * r_size;
-  for (int i = threadIdx.x; i < nb * r_size; i += kThreads)
-    out[i] = radar_cfar::threshold(y1, y2, i / r_size, i % r_size, r_size,
-                                   kind, range_wrap, gr, wr, coef);
+  float* strips = p + radar_cfar::tile_rows(d_size, wd) * r_size;
+  float* out = thresh + (b * d_size + rows.d0) * r_size;
+  radar_cfar::band_cfar<GD, WD, GR, WR>(
+      power + b * d_size * r_size, p, strips, rows, d_size, r_size, kind,
+      range_wrap, gd, gr, wd, wr, coef,
+      [&](int l, int r, float t) { out[l * r_size + r] = t; });
 }
 
 }  // namespace
@@ -80,25 +69,24 @@ int radar_cfar_threshold(const float* power, float* thresh, int n_maps,
                          int guard_d, int guard_r, int win_d, int win_r,
                          float coef, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_cells = d_size * r_size;
   if (n_maps <= 0) return cudaSuccess;
-  if (n_cells <= 0 || n_cells > radar_cfar::kMaxCells ||
-      kind < radar_cfar::kCA || kind > radar_cfar::kSO)
+  if (d_size < 1 || r_size < 1 || guard_d < 0 || win_d < guard_d ||
+      guard_r < 0 || win_r < guard_r || kind < radar_cfar::kCA ||
+      kind > radar_cfar::kSO)
     return cudaErrorInvalidValue;
-  // a halo that reaches around the axis holds no fewer rows than the map
-  const int halo = kBand + 2 * win_d < d_size;
-  const int band = d_size < kBand ? d_size : kBand;
-  const int p_rows = halo ? kBand + 2 * win_d : d_size;
-  const size_t smem = (size_t)(p_rows + 2 * band) * r_size * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      threshold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  const long long smem =
+      radar_layout::threshold_smem(d_size, r_size, win_d, win_r);
+  const long long n_blocks = (long long)n_maps * radar_layout::n_bands(d_size);
+  if (smem > radar_layout::kSmemMax || n_blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  auto kernel = radar_cfar::default_window(guard_d, guard_r, win_d, win_r)
+                    ? threshold_kernel<2, 6, 2, 10>
+                    : threshold_kernel<-1, -1, -1, -1>;
+  const cudaError_t err = radar_cfar::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  const long long n_blocks =
-      (long long)n_maps * ((d_size + kBand - 1) / kBand);
-  threshold_kernel<<<(unsigned)n_blocks, kThreads, smem, stream>>>(
-      power, thresh, d_size, r_size, halo, kind, range_wrap, guard_d,
-      guard_r, win_d, win_r, coef);
+  kernel<<<(unsigned)n_blocks, kThreads, smem, stream>>>(
+      power, thresh, d_size, r_size, kind, range_wrap, guard_d, guard_r,
+      win_d, win_r, coef);
   return cudaGetLastError();
 }
 

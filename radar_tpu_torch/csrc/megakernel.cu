@@ -29,8 +29,9 @@
 //   (a) the range DFT over all frames' rows, a GEMM
 //       chirp_mean_kernel      'mean' clutter only, in place on (a)'s planes
 //   (b) the Doppler DFT and power, per (frame, range tile)
-//   (c) detect_kernel          one block per frame, the power map and the
-//                              two CFAR strip maps in dynamic shared memory
+//   (c) detect.cu              one block per (frame, band of Doppler rows):
+//                              the band's CFAR and top K, merged per frame
+//                              by its last band block (radar_detect_stage)
 // Stages (a) and (b) run at the tier of cfg.dft_precision (the
 // ``passes`` argument of every entry, ops/cuda/megakernel.dft_passes):
 //   'highest' (0)  range_gemm_kernel, doppler_power_kernel: plain f32
@@ -51,9 +52,9 @@
 // them.  Its bound is the detect entry's front end: 61 GFLOP of f32 DFT
 // per 512-frame batch, about 0.9 ms at 67 TFLOP/s, against 105 MB in and
 // 34 MB of power (plus 34 MB of threshold) out, about 0.05 ms.  The CFAR
-// strip sums and the block argmax live in cfar_common.cuh, shared with
-// the threshold and top-K kernels, so the two entries' detections agree
-// bit for bit.
+// strip sums live in cfar_common.cuh and the top-K selection in
+// select_common.cuh, shared with the threshold and top-K kernels, so the
+// two entries' detections agree bit for bit.
 //
 // The fused range entry radar_fused_range replaces the TPU kernel
 // radar_tpu/ops/pallas/fused_dft_kernel.py (the inline kernel of
@@ -73,19 +74,12 @@
 #include <stdint.h>
 
 #include "cfar_common.cuh"
+#include "select_common.cuh"
 
 namespace {
 
-using radar_cfar::kF32Min;
+using radar_cfar::load4;
 
-// Vector load from 16-byte aligned memory into registers.
-__device__ __forceinline__ void load4(float* dst, const float* src) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x;
-  dst[1] = v.y;
-  dst[2] = v.z;
-  dst[3] = v.w;
-}
 
 // ---------------------------------------------------------------------------
 // (a) range DFT: Z[m, n] = sum_j (raw[m, j] - base[m % rows, j]) * A[j, n]
@@ -886,146 +880,6 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks) doppler_tc_kernel(
   }
 }
 
-// ---------------------------------------------------------------------------
-// (c) per-frame detection: CFAR, mask, top-K, neighbours, snapshots.
-
-constexpr int kDetThreads = 512;
-constexpr int kDetCellsPerThread = radar_cfar::kMaxCells / kDetThreads;
-constexpr int kMaxK = 128;
-
-__global__ void __launch_bounds__(kDetThreads) detect_kernel(
-    const float* __restrict__ power, const float* __restrict__ z,
-    const float* __restrict__ ft_re, const float* __restrict__ ft_im,
-    int32_t* __restrict__ top_idx, float* __restrict__ top_val,
-    float* __restrict__ nbr, int32_t* __restrict__ num_hits,
-    float* __restrict__ snaps, int n_chirps, int n_rx, int n_tx, int r_size,
-    int d_size, int kc_size, int k_det, int kind, int range_wrap, int gd,
-    int gr, int wd, int wr, int r_valid, float coef) {
-  extern __shared__ float smem[];
-  __shared__ float red_v[kDetThreads / 32];
-  __shared__ int red_i[kDetThreads / 32];
-  __shared__ int s_idx[kMaxK];
-  __shared__ float s_val[kMaxK];
-  const int n_cells = d_size * r_size;
-  float* p = smem;             // power map
-  float* y1 = p + n_cells;     // (Td - Gd) @ p: Doppler training strips
-  float* y2 = y1 + n_cells;    // Gd @ p:        Doppler guard strip
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int n_warps = kDetThreads / 32;
-  const long long b = blockIdx.x;
-
-  const float* pf = power + b * n_cells;
-  for (int i = tid; i < n_cells; i += kDetThreads) p[i] = pf[i];
-  __syncthreads();
-  radar_cfar::doppler_strips(p, y1, y2, d_size, 0, d_size, r_size, gd, wd,
-                             kDetThreads);
-  __syncthreads();
-
-  // Range strips (reflect or wrap), the CA / GO / SO threshold of
-  // cfar_common.cuh (the maps entry's, so both agree bit for bit),
-  // range-edge guard, mask.
-  // Non-hits hold the f32-min sentinel, so taken cells (-inf) sort below
-  // every untaken one and exhausted slots come out in lax.top_k order.
-  float mv[kDetCellsPerThread];
-  int hits = 0;
-#pragma unroll
-  for (int j = 0; j < kDetCellsPerThread; ++j) {
-    const int i = tid + j * kDetThreads;
-    mv[j] = -CUDART_INF_F;
-    if (i < n_cells) {
-      const int d = i / r_size, r = i % r_size;
-      const float pv = p[i];
-      const bool hit = pv > radar_cfar::threshold(y1, y2, d, r, r_size, kind,
-                                                  range_wrap, gr, wr, coef) &&
-                       r < r_valid;
-      mv[j] = hit ? pv : kF32Min;
-      hits += hit;
-    }
-  }
-
-  // num_hits: block sum
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) hits += __shfl_down_sync(0xffffffffu, hits, off);
-  if (lane == 0) red_i[warp] = hits;
-  __syncthreads();
-  if (tid == 0) {
-    int total = 0;
-    for (int w = 0; w < n_warps; ++w) total += red_i[w];
-    num_hits[b] = total;
-  }
-  __syncthreads();
-
-  // Top-K knockout: K rounds of a block argmax keyed on (value desc,
-  // index asc); the winner's cell becomes -inf.
-  for (int kk = 0; kk < k_det; ++kk) {
-    float bv = -CUDART_INF_F;
-    int bi = 0x7fffffff;
-#pragma unroll
-    for (int j = 0; j < kDetCellsPerThread; ++j) {
-      const int i = tid + j * kDetThreads;
-      if (i < n_cells && radar_cfar::better(mv[j], i, bv, bi)) {
-        bv = mv[j];
-        bi = i;
-      }
-    }
-    radar_cfar::block_argmax(bv, bi, red_v, red_i, &s_val[kk], &s_idx[kk]);
-    const int win = s_idx[kk];
-#pragma unroll
-    for (int j = 0; j < kDetCellsPerThread; ++j)
-      if (tid + j * kDetThreads == win) mv[j] = -CUDART_INF_F;
-  }
-
-  // Outputs per slot: index, value (-inf where exhausted), neighbours.
-  for (int kk = tid; kk < k_det; kk += kDetThreads) {
-    const int idx = s_idx[kk];
-    const float val = s_val[kk];
-    const long long o = b * k_det + kk;
-    top_idx[o] = idx;
-    top_val[o] = val == kF32Min ? -CUDART_INF_F : val;
-    const int d = idx / r_size, r = idx % r_size;
-    const float* row = p + d * r_size;
-    float* nb = nbr + o * 5;
-    nb[0] = row[r];
-    nb[1] = row[r > 0 ? r - 1 : r];
-    nb[2] = row[r < r_size - 1 ? r + 1 : r];
-    nb[3] = p[radar_cfar::wrap_index(d - 1, d_size) * r_size + r];
-    nb[4] = p[radar_cfar::wrap_index(d + 1, d_size) * r_size + r];
-  }
-
-  // Snapshots: s[k, tv] = sum_kc F[d_k, kc] * z[kc*TX + tx, v, r_k], one
-  // warp per (k, tv), lanes over kc, shuffle-reduced.
-  const int tv_total = n_tx * n_rx;
-  const long long row_len = 2LL * r_size;
-  const float* zf = z + b * n_chirps * n_rx * row_len;
-  for (int q = warp; q < k_det * tv_total; q += n_warps) {
-    const int kk = q / tv_total, tv = q % tv_total;
-    const int t = tv / n_rx, v = tv % n_rx;
-    const int idx = s_idx[kk];
-    const int d = idx / r_size, r = idx % r_size;
-    float sr = 0.f, si = 0.f;
-#pragma unroll 4   // the loads of four chirps in flight at once
-    for (int kc = lane; kc < kc_size; kc += 32) {
-      const float* row = zf + ((long long)(kc * n_tx + t) * n_rx + v) * row_len;
-      const float zr = row[r], zi = row[r_size + r];
-      const float fr = ft_re[(long long)kc * d_size + d];
-      const float fi = ft_im[(long long)kc * d_size + d];
-      sr = fmaf(fr, zr, fmaf(-fi, zi, sr));
-      si = fmaf(fr, zi, fmaf(fi, zr, si));
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off /= 2) {
-      sr += __shfl_down_sync(0xffffffffu, sr, off);
-      si += __shfl_down_sync(0xffffffffu, si, off);
-    }
-    if (lane == 0) {
-      float* out = snaps + ((b * k_det + kk) * tv_total + tv) * 2;
-      out[0] = sr;
-      out[1] = si;
-    }
-  }
-}
-
 // The precision tier: 0 is 'highest' (the SIMT f32 kernels), 3 'high'
 // and 1 'default' (the tensor-core kernels with that many passes).
 bool valid_passes(int passes) {
@@ -1036,8 +890,7 @@ bool valid_passes(int passes) {
 template <typename Kernel, typename... Args>
 cudaError_t launch_tc(Kernel kernel, size_t smem, dim3 grid,
                       cudaStream_t stream, Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = radar_cfar::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kTcThreads, smem, stream>>>(args...);
   return cudaGetLastError();
@@ -1139,13 +992,16 @@ const char* radar_cuda_error_string(int err) {
 // ceil(D / 8), the split packed Doppler constant cut likewise for
 // doppler_tc_kernel (a2s and dop_l NULL allowed at passes 0); scratch z
 // (B*C*V, 2R) and power (B, D, R); passes 0 ('highest'), 3 ('high') or 1
-// ('default'); outputs top_idx int32 (B, K), top_val (B, K), nbr (B, K,
-// 5), num_hits int32 (B), snaps (B, K, TX*V, 2).  kind: 0 CA,
-// 1 GO, 2 SO; coef = alpha / n_train (CA) or the GO/SO multiplier.
+// ('default'); tickets, B int32 that are zero (left zero), and work, an
+// int32 workspace of work_words words: stage (c)'s (detect.cu); outputs
+// top_idx int32 (B, K), top_val (B, K), nbr (B, K, 5), num_hits int32
+// (B), snaps (B, K, TX*V, 2).  kind: 0 CA, 1 GO, 2 SO; coef = alpha /
+// n_train (CA) or the GO/SO multiplier.
 int radar_mega_detect(const int16_t* raw, const float* base_raw,
                       const float* a2, const float* a2s, const float* ft_re,
                       const float* ft_im, const float* dop_l, float* z,
-                      float* power,
+                      float* power, int* tickets, int* work,
+                      long long work_words,
                       int32_t* top_idx, float* top_val, float* nbr,
                       int32_t* num_hits, float* snaps, int n_frames,
                       int n_chirps, int n_rx, int n_tx, int s2, int r_size,
@@ -1154,32 +1010,23 @@ int radar_mega_detect(const int16_t* raw, const float* base_raw,
                       int win_d, int win_r, int r_valid, float coef,
                       void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int n_cells = d_size * r_size;
   if (n_frames <= 0) return cudaSuccess;
-  if (k_det < 1 || k_det > kMaxK || k_det > n_cells ||
-      n_cells > kDetThreads * kDetCellsPerThread || n_chirps % n_tx != 0 ||
-      s2 % 8 != 0 || r_size % 4 != 0 || d_size % 4 != 0 ||
-      kind < radar_cfar::kCA || kind > radar_cfar::kSO ||
+  if (n_chirps % n_tx != 0 || s2 % 8 != 0 || r_size % 4 != 0 ||
+      d_size % 4 != 0 || kind < radar_cfar::kCA || kind > radar_cfar::kSO ||
       !valid_passes(passes) ||
       (passes != 0 && (a2s == nullptr || dop_l == nullptr)))
     return cudaErrorInvalidValue;
-  const int kc_size = n_chirps / n_tx;
-  cudaError_t err =
+  const cudaError_t err =
       front_end(raw, base_raw, a2, a2s, ft_re, ft_im, dop_l, z, power,
                 n_frames, n_chirps, n_rx, n_tx, s2, r_size, d_size,
                 clutter_mean, passes, stream);
   if (err != cudaSuccess) return err;
-
-  const size_t smem = 3 * (size_t)n_cells * sizeof(float);
-  err = cudaFuncSetAttribute(detect_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  detect_kernel<<<n_frames, kDetThreads, smem, stream>>>(
-      power, z, ft_re, ft_im, top_idx, top_val, nbr, num_hits, snaps, n_chirps,
-      n_rx, n_tx, r_size, d_size, kc_size, k_det, kind, range_wrap, guard_d,
-      guard_r, win_d, win_r, r_valid, coef);
-  return cudaGetLastError();
+  return radar_detect_stage(power, z, ft_re, ft_im, tickets, work,
+                            work_words,
+                            top_idx, top_val, nbr, num_hits, snaps, n_frames,
+                            n_chirps, n_rx, n_tx, r_size, d_size, k_det, kind,
+                            range_wrap, guard_d, guard_r, win_d, win_r,
+                            r_valid, coef, stream);
 }
 
 // The maps entry: stages (a) and (b) on ``stream``, then, when

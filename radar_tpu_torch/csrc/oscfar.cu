@@ -177,8 +177,7 @@ cudaError_t launch_os(Kernel kernel, const float* power, Out* out,
   const int rows = (tile_rows < d_size ? tile_rows : d_size) + 2 * wd;
   const size_t smem =
       ((size_t)rows * (r_size + 2 * wr) + n_off) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const cudaError_t err = radar_cfar::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const long long n_blocks =
       (long long)n_maps * ((d_size + tile_rows - 1) / tile_rows);

@@ -62,9 +62,13 @@ class RangeDetector(nn.Module):
         return torch.as_tensor(x, device=self.device)
 
     def prepare_base(self, frame0_shorts) -> torch.Tensor:
-        """Decode frame 0 and keep its RX0 slice on the device."""
+        """The RX0 slice of the base on the device, from ONE frame
+        ``(shorts_per_frame,)`` or the mean of a STACK ``(K,
+        shorts_per_frame)`` of empty-scene frames, as
+        ``RDPipeline.prepare_base`` averages its base cube."""
         shorts = self._as_tensor(frame0_shorts)
-        return rx0_slice(decode_to_cube(shorts, self.cfg), self.cfg)
+        rx0 = rx0_slice(decode_to_cube(shorts, self.cfg), self.cfg)
+        return rx0.mean(dim=0) if rx0.ndim == 2 else rx0
 
     # -- stages (stage-level verification and timing) ----------------------
     @torch.no_grad()

@@ -40,6 +40,28 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
+# Per (device, stream): the selection kernels' tickets (int32, zeroed
+# once; every launch of kernels 1 and 3 leaves them zero) and their
+# scratch (the chunks' candidate lists), kept between calls so that a
+# call allocates nothing, and never shared by two streams.
+_selection: dict = {}
+
+
+def selection_buffers(device: torch.device, n_tickets: int, n_words: int):
+    """(tickets, work): at least ``n_tickets`` zero int32 words and
+    ``n_words`` int32 words of scratch on ``device`` for the current
+    stream."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    tickets, work = _selection.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(max(n_tickets, 1), dtype=torch.int32,
+                              device=device)
+    if work is None or work.numel() < n_words:
+        work = torch.empty(max(n_words, 4), dtype=torch.int32, device=device)
+    _selection[key] = (tickets, work)
+    return tickets, work
+
+
 def launch(entry: str, device: torch.device, *args) -> None:
     """Call the C entry point ``entry`` of the kernel library with
     ``args`` and the current stream of ``device``; raise on a non-zero

@@ -8,7 +8,10 @@ reaches it).
 
 * :func:`ca_cfar_2d_cuda` launches the CUDA kernel (``csrc/cfar.cu``;
   design and bounds are noted there) and counts its launches in
-  :data:`launches`.  The same kernel, with a kind argument, is the
+  :data:`launches`.  One block takes one band of 16 Doppler rows with
+  its halo, so shared memory (:func:`threshold_smem`, from the kernel's
+  own layout, ``ops/cuda/layout.py``) is the only gate on the map's
+  size.  The same kernel, with a kind argument, is the
   threshold stage of the maps kernel (``megakernel.power_cfar_from_shorts``)
   and takes GO/SO there.
 * Its plain version is :func:`radar_tpu_torch.ops.cfar.ca_cfar_2d`, the
@@ -24,6 +27,7 @@ import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cfar import cfar_alpha, go_so_params
+from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import (
     check,
     check_aligned,
@@ -32,7 +36,6 @@ from radar_tpu_torch.ops.cuda._launch import (
     require_cuda,
 )
 
-MAX_CELLS = 18432   # D*R of the kernels' gate (cfar_common.cuh kMaxCells)
 KIND = {"ca": 0, "goca": 1, "soca": 2}
 
 launches = 0        # kernel launches by ca_cfar_2d_cuda
@@ -55,12 +58,12 @@ def threshold_args(cfg: RadarConfig, kind: str) -> tuple:
             gd + td, gr + tr, float(coef))
 
 
-def check_map_size(d_size: int, r_size: int) -> None:
-    if d_size * r_size > MAX_CELLS:
-        raise NotImplementedError(
-            f"a {d_size}x{r_size} map exceeds the CFAR kernel's "
-            f"{MAX_CELLS}-cell shared-memory gate"
-        )
+def threshold_smem(d_size: int, r_size: int, cfg: RadarConfig) -> int:
+    """Shared-memory bytes of the threshold kernel's band block at
+    ``cfg``'s window (``csrc/layout.h`` ``threshold_smem``)."""
+    gd, gr = cfg.cfar_guard
+    td, tr = cfg.cfar_train
+    return layout.threshold_smem(d_size, r_size, gd + td, gr + tr)
 
 
 def ca_cfar_2d_cuda(
@@ -74,7 +77,8 @@ def ca_cfar_2d_cuda(
     global launches
     require_cuda(power, "CFAR", "radar_tpu_torch.ops.cfar.ca_cfar_2d")
     d_size, r_size = power.shape[-2], power.shape[-1]
-    check_map_size(d_size, r_size)
+    layout.check_smem("CFAR kernel", threshold_smem(d_size, r_size, cfg),
+                      d_size, r_size)
     x = power.reshape(-1, d_size, r_size)
     check("power", x, torch.float32, (x.shape[0], d_size, r_size),
           power.device)

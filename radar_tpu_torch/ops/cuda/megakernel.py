@@ -41,14 +41,16 @@ import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cfar import cfar_detect
+from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import (
     check,
     check_aligned,
     launch,
     ptr,
     require_cuda,
+    selection_buffers,
 )
-from radar_tpu_torch.ops.cuda.cfar import check_map_size, threshold_args
+from radar_tpu_torch.ops.cuda.cfar import threshold_args, threshold_smem
 from radar_tpu_torch.ops.cuda.topk import top_k_sorted
 from radar_tpu_torch.ops.dftmat import _dft_factors, dft_matrix
 from radar_tpu_torch.ops.fuseddft import (
@@ -303,7 +305,6 @@ def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
             f"({cfg.num_samples}), range_fft_size ({r_size}) and "
             f"doppler_fft_size ({d_size}) must be multiples of 4"
         )
-    check_map_size(d_size, r_size)
     mode = cfg.effective_clutter(base_cube is not None)
     dev = shorts.device
     x = shorts.reshape(-1, cfg.shorts_per_frame)
@@ -327,6 +328,23 @@ def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
     return x, base_raw, consts, mode, dft_passes(cfg)
 
 
+def _detect_gate(cfg: RadarConfig, k: int, n_frames: int = 1) -> int:
+    """Raise NotImplementedError where the detect kernel does not take
+    ``k`` or the geometry (its band block's shared memory); returns the
+    scratch words of ``n_frames`` frames."""
+    d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+    if not 1 <= k <= min(K_MAX, d_size * r_size):
+        raise NotImplementedError(
+            f"max_detections {k} outside the detect kernel's 1..{K_MAX}; "
+            "RDPipeline takes the maps path there"
+        )
+    smem, words = layout.detect_layout(
+        d_size, r_size, cfg.cfar_guard[0] + cfg.cfar_train[0],
+        cfg.cfar_guard[1] + cfg.cfar_train[1], k, n_frames)
+    layout.check_smem("detect kernel", smem, d_size, r_size)
+    return words
+
+
 def detections_from_shorts_cuda(
     shorts: torch.Tensor,
     base_cube: torch.Tensor | None,
@@ -341,16 +359,12 @@ def detections_from_shorts_cuda(
     kind = _map_kind(cfg)
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     d_size, r_size, tx = cfg.doppler_fft_size, cfg.range_fft_size, cfg.num_tx
-    if not 1 <= k <= min(K_MAX, d_size * r_size):
-        raise NotImplementedError(
-            f"max_detections {k} outside the detect kernel's 1..{K_MAX}; "
-            "RDPipeline takes the maps path there"
-        )
     x, base_raw, consts, mode, passes = _front_end_args(
         shorts, base_cube, cfg, consts, "detections_from_shorts")
     dev = shorts.device
     lead = shorts.shape[:-1]
     b = x.shape[0]
+    words = _detect_gate(cfg, k, b)
     kind_id, range_wrap, gd, gr, wd, wr, coef = threshold_args(cfg, kind)
 
     f32 = dict(dtype=torch.float32, device=dev)
@@ -361,11 +375,13 @@ def detections_from_shorts_cuda(
     nbr = torch.empty((b, k, 5), **f32)
     num_hits = torch.empty((b,), dtype=torch.int32, device=dev)
     snaps = torch.empty((b, k, tx * v, 2), **f32)
+    tickets, work = selection_buffers(dev, b, words)
 
     launch("radar_mega_detect", dev,
            ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["a2_split"]),
            ptr(consts["ft_re"]), ptr(consts["ft_im"]), ptr(consts["dop_l"]),
-           ptr(z), ptr(power), ptr(top_idx), ptr(top_val), ptr(nbr),
+           ptr(z), ptr(power), ptr(tickets), ptr(work), words,
+           ptr(top_idx), ptr(top_val), ptr(nbr),
            ptr(num_hits), ptr(snaps),
            b, c, v, tx, s2, r_size, d_size, k, int(mode == "mean"), passes,
            kind_id, range_wrap, gd, gr, wd, wr,
@@ -454,11 +470,14 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
     when a launch fails."""
     global maps_launches
     kind = _map_kind(cfg) if with_cfar else "ca"
+    d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+    if with_cfar:
+        layout.check_smem("maps kernel's CFAR",
+                          threshold_smem(d_size, r_size, cfg), d_size, r_size)
     x, base_raw, consts, mode, passes = _front_end_args(
         shorts, base_cube, cfg, consts, "power_from_shorts")
     dev = shorts.device
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
-    d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
     b = x.shape[0]
     f32 = dict(dtype=torch.float32, device=dev)
     z = torch.empty((b * c * v, 2 * r_size), **f32)

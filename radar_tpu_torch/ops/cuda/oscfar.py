@@ -32,10 +32,10 @@ import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cfar import os_ring_params
+from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import check, launch, ptr, require_cuda
 
 TILE_ROWS = 16        # Doppler rows a block, where the halo fits
-SMEM_BYTES = 232448   # shared memory a block may use on sm_90 (227 KB)
 
 threshold_launches = 0   # kernel launches by os_cfar_2d_cuda
 hits_launches = 0        # kernel launches by os_cfar_hits_cuda
@@ -44,12 +44,12 @@ hits_launches = 0        # kernel launches by os_cfar_hits_cuda
 def tile_rows(d_size: int, r_size: int, cfg: RadarConfig) -> int:
     """Doppler rows of a block's tile: :data:`TILE_ROWS`, or fewer where
     the rows and their 2 wd halo rows (each R + 2 wr cells of f32), with
-    the ring's offset list, would pass :data:`SMEM_BYTES`; 0 where not
-    even one row fits."""
+    the ring's offset list, would pass the shared memory a block may use
+    (``layout.smem_max``); 0 where not even one row fits."""
     gd, gr = cfg.cfar_guard
     td, tr = cfg.cfar_train
     wd, wr = gd + td, gr + tr
-    fit = ((SMEM_BYTES - 4 * os_ring_params(cfg)[1])
+    fit = ((layout.smem_max() - 4 * os_ring_params(cfg)[1])
            // (4 * (r_size + 2 * wr)) - 2 * wd)
     return max(0, min(TILE_ROWS, d_size, fit))
 
@@ -97,9 +97,9 @@ def _run(entry: str, power: torch.Tensor, out_dtype, cfg: RadarConfig,
     if rows == 0:
         raise NotImplementedError(
             f"a {d_size}x{r_size} map with a +-{wd} x +-{wr} CFAR window "
-            f"does not fit the OS kernels' {SMEM_BYTES}-byte shared-memory "
-            "tile (os_hits_supported is False); decimate the ring "
-            "(cfg.cfar_os_stride) or use cfar_impl='xla'"
+            f"does not fit the OS kernels' {layout.smem_max()}-byte "
+            "shared-memory tile (os_hits_supported is False); decimate "
+            "the ring (cfg.cfar_os_stride) or use cfar_impl='xla'"
         )
     x = power.reshape(-1, d_size, r_size)
     check("power", x, torch.float32, (x.shape[0], d_size, r_size),

@@ -8,7 +8,9 @@ value -inf.
 
 * :func:`topk_cuda` launches the CUDA kernel (``csrc/topk.cu``; design
   and bounds are noted there) and counts its launches in
-  :data:`launches`.
+  :data:`launches`: a two-level selection, each chunk of 2,048 cells of
+  a row ordered by one block, the chunks' lists merged by the row's last
+  block, the selection of kernel 1 (``csrc/select_common.cuh``).
 * :func:`top_k_sorted` is its plain version (a stable descending sort).
 
 ``models.rd_pipeline.topk_cells`` picks between them; there is no
@@ -19,14 +21,15 @@ from __future__ import annotations
 
 import torch
 
+from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import (
     check,
     check_aligned,
     launch,
     ptr,
     require_cuda,
+    selection_buffers,
 )
-from radar_tpu_torch.ops.cuda.cfar import MAX_CELLS
 
 launches = 0      # kernel launches by topk_cuda
 
@@ -44,15 +47,15 @@ def topk_cuda(flat: torch.Tensor, k: int):
     """:func:`top_k_sorted` through the CUDA kernel, for f32 (..., N).
     Entries equal to the f32 minimum read as -inf (the kernel's
     sentinel); masked power maps never hold one.  Raises for a tensor
-    that is not on a CUDA device, for N or K outside the kernel's range,
-    when the build fails and when the launch fails."""
+    that is not on a CUDA device, for K outside 1..N, when the build
+    fails and when the launch fails."""
     global launches
     require_cuda(flat, "top-K", "top_k_sorted")
     n = flat.shape[-1]
-    if n > MAX_CELLS or not 1 <= k <= n:
+    if not 1 <= k <= n:
         raise NotImplementedError(
             f"top-{k} of {n} cells is outside the top-K kernel's range "
-            f"(1 <= K <= N <= {MAX_CELLS})"
+            "(1 <= K <= N)"
         )
     lead = flat.shape[:-1]
     x = flat.reshape(-1, n)
@@ -61,7 +64,9 @@ def topk_cuda(flat: torch.Tensor, k: int):
     vals = torch.empty((x.shape[0], k), dtype=torch.float32,
                        device=flat.device)
     idx = torch.empty((x.shape[0], k), dtype=torch.int32, device=flat.device)
+    words = layout.topk_work_words(x.shape[0], n, k)
+    tickets, work = selection_buffers(flat.device, x.shape[0], words)
     launch("radar_topk", flat.device, ptr(x), ptr(vals), ptr(idx),
-           x.shape[0], n, k)
+           ptr(tickets), ptr(work), words, x.shape[0], n, k)
     launches += 1
     return vals.reshape(lead + (k,)), idx.reshape(lead + (k,))

@@ -7,10 +7,11 @@ of the 15 checks of the JAX selftest runs the port's kernel path on the
 device it is given — the CUDA kernels for ``cuda``, their plain versions
 for ``cpu`` — against the twin the JAX check uses: the plain version,
 the float64 golden, or a NumPy stable sort for top-K.  The JAX "vmem
-geometry sweep" becomes a sweep of the port's shared-memory gates
-(``ops.cuda.cfar.check_map_size``, ``ops.cuda.oscfar.tile_rows`` and
-kernel 8's ``fused_range_supported``) over the same six geometries,
-with every kernel path the gates admit held against the plain 'fused'
+geometry sweep" becomes a sweep of the port's shared-memory gates (the
+band blocks of kernels 1, 2 and 4, ``layout.detect_layout`` and
+``cfar.threshold_smem``; ``oscfar.tile_rows``; kernel 8's
+``fused_range_supported``) over the same six geometries, each of which
+every gate admits, with the kernel paths held against the plain 'fused'
 path.  Each check raises on failure; ``run_selftests`` counts them.
 """
 
@@ -30,7 +31,7 @@ from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
 from radar_tpu_torch.models.rd_pipeline import RDPipeline
 from radar_tpu_torch.ops.cfar import cfar_detect, os_cfar_2d, os_cfar_hits
 from radar_tpu_torch.ops.cuda import cfar as cfar_k
-from radar_tpu_torch.ops.cuda import oscfar
+from radar_tpu_torch.ops.cuda import layout, megakernel, oscfar
 from radar_tpu_torch.ops.cuda.fused_dft import (
     fused_range_supported,
     range_planes,
@@ -265,40 +266,36 @@ GEOMETRIES = [
 
 
 def check_vmem_geometry_sweep(dev):
-    """The shared-memory gates over the JAX sweep's six geometries.
-    Kernel 8 and the OS kernels' tiles take all six; the map gate of
-    kernels 1-4 takes maps up to 18,432 cells (four of the six).  Where
-    a gate admits, the kernel path (kernel 2 under 'mega' with the plain
-    CFAR, kernel 8 under 'fused-pallas') agrees with the plain 'fused'
-    path on detections; where the map gate refuses, the maps kernel
-    raises on the card rather than falling back."""
+    """The shared-memory gates over the JAX sweep's six geometries, maps
+    of 4,096 to 65,536 cells: every gate admits all six, as the JAX
+    sweep asserts ``mega_supported`` for each.  On each, 'mega' (kernel
+    1), 'mega-maps' (kernels 2 and 3) and, on the card, 'fused-pallas'
+    (kernels 8, 4 and 3) agree with the plain 'fused' path on
+    detections."""
     for geom in GEOMETRIES:
         cfg = RadarConfig(**geom)
         d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
+        wd = cfg.cfar_guard[0] + cfg.cfar_train[0]
+        wr = cfg.cfar_guard[1] + cfg.cfar_train[1]
         assert fused_range_supported(cfg), f"kernel 8 gate rejected {geom}"
         assert oscfar.tile_rows(d_size, r_size, cfg) > 0, \
             f"OS tile gate rejected {geom}"
-        try:
-            cfar_k.check_map_size(d_size, r_size)
-            maps_ok = True
-        except NotImplementedError:
-            maps_ok = False
-        assert maps_ok == (d_size * r_size <= cfar_k.MAX_CELLS), geom
+        for name, smem in (
+                ("kernel 1", layout.detect_layout(
+                    d_size, r_size, wd, wr, megakernel.K_MAX)[0]),
+                ("kernels 2 and 4", cfar_k.threshold_smem(d_size, r_size,
+                                                          cfg))):
+            assert smem <= layout.smem_max(), f"{name} gate rejected {geom}"
         cap = _capture(cfg, 3, seed=20)
-        kw = dict(max_detections=8, device=dev, cfar_impl="xla",
-                  topk_impl="xla")
-        fused = RDPipeline(cfg, rd_impl="fused", **kw)
+        fused = RDPipeline(cfg, rd_impl="fused", max_detections=8,
+                           device=dev, cfar_impl="xla", topk_impl="xla")
         base = fused.prepare_base(cap[0])
         b = result_to_numpy(fused.detect(cap[1:], base))
-        impls = ["mega", "fused-pallas"] if dev.type == "cuda" else ["mega"]
+        impls = ["mega", "mega-maps"]
+        if dev.type == "cuda":
+            impls.append("fused-pallas")
         for impl in impls:
-            pipe = RDPipeline(cfg, rd_impl=impl, **kw)
-            if impl == "mega" and dev.type == "cuda" and not maps_ok:
-                try:
-                    pipe.detect(cap[1:], base)
-                except NotImplementedError:
-                    continue
-                raise AssertionError(f"maps kernel ran past its gate: {geom}")
+            pipe = RDPipeline(cfg, rd_impl=impl, max_detections=8, device=dev)
             a = result_to_numpy(pipe.detect(cap[1:], base))
             np.testing.assert_array_equal(a["range_bin"], b["range_bin"],
                                           err_msg=f"{impl} {geom}")
