@@ -40,11 +40,14 @@ line or more:
 10. timing of kernels 2-4 and of the two paths, their bounds, and a
     profiler breakdown of ``detect_integrated``;
 11. OS-CFAR: kernels 5 and 6 bit for bit against their plain versions
-    on the B=512 maps, the 128 NCI sums, odd maps, a decimated ring,
-    range wrap and the exact tie; the OS ``detect`` (its launches of
-    kernels 5 and 6), ``detect_integrated`` and the CLI with
-    ``--cfar-kind os`` against the plain path and the golden; timing,
-    bounds and a profiler breakdown of the OS ``detect``;
+    on the B=512 maps, the 128 NCI sums, odd maps (R of 13, 22 and 41
+    too, at strides 1 and 3), a decimated ring,
+    range wrap, the exact tie and adversarial maps (ties, plateaus, a
+    step of 1e6, subnormals, +inf, k = 1 and k = N); kernel 5's passes
+    from its model; the OS ``detect`` (its launches of kernels 5
+    and 6), ``detect_integrated`` and the CLI with ``--cfar-kind os``
+    against the plain path and the golden; timing, bounds and a profiler
+    breakdown of the OS ``detect``;
 12. GO/SO inside kernel 1: 'mega' against 'mega-maps' bit for bit, its
     time beside CA's, and kernel 1's CA checksum again;
 13. kernel 7 bit for bit against its plain version (512 spectra, a
@@ -547,6 +550,134 @@ def os_ops(cfg, n_cells: int) -> float:
     return 2.0 * n_cells * os_ring_params(cfg)[1]
 
 
+def os_pivot(lo, hi, n_lo, n_hi, k: int):
+    """Kernel 5's next pivot (``csrc/oscfar.cu`` ``pivot``) of int64 bit
+    patterns ``lo`` < ``hi`` and counts ``n_lo`` < k <= ``n_hi``, in the
+    kernel's f32 arithmetic: interpolated toward rank k, clamped to
+    [lo + w/4, hi - 1 - w/4]."""
+    w = hi - lo
+    q = w // 4
+    frac = ((k - n_lo).astype(np.float32) - np.float32(0.5)) \
+        / (n_hi - n_lo).astype(np.float32)
+    t = lo + (frac * w.astype(np.float32)).astype(np.int64)
+    return np.minimum(np.maximum(t, lo + q), hi - 1 - q)
+
+
+OS_CELLS = 4    # csrc/layout.h kOsCells: the cells of a kernel-5 thread
+OS_STALL = 3    # csrc/oscfar.cu kStall: count passes in a row that move a
+                # cell's bound past no ring value before a snapping pass
+
+
+def os_search_model(ring: np.ndarray, k: int, cells: int = OS_CELLS):
+    """NumPy model of kernel 5's search, pass for pass: ``ring`` (n, N)
+    non-negative f32, one cell a row, ``cells`` consecutive rows a thread
+    (the cells of a row of a map, in order, where R is a multiple of 4,
+    as the compile-time ring groups them; the list form's groups are
+    strided, so there the counts of a thread's passes differ, not the
+    values).
+    Returns (the k-th smallest value of each row, f32; the passes while
+    the row was open, int; how many of them were snapping passes).
+
+    The bracket [lo, hi] of bit patterns starts at the ring's min and max
+    (n_lo = 0 values below lo, n_hi = N at or below hi).  A pass counts
+    v <= pivot, and c >= k moves hi to the pivot (n_hi = c), else lo past
+    it (n_lo = c).  Where a thread has an open cell whose last OS_STALL
+    passes each moved a bound past no ring value (c equal to that side's
+    old count), its next pass snaps: hi to the largest ring value <=
+    pivot, lo to the smallest > pivot.  A cell closes at lo == hi, n_hi ==
+    k or n_lo == k - 1; then its k-th value is lo, the largest ring value
+    <= hi, or the smallest >= lo."""
+    ring = np.ascontiguousarray(ring, np.float32)
+    n, size = ring.shape
+    thread = np.arange(n) // cells
+    lo = ring.min(axis=1).view(np.uint32).astype(np.int64)
+    hi = ring.max(axis=1).view(np.uint32).astype(np.int64)
+    n_lo = np.zeros(n, np.int64)
+    n_hi = np.full(n, size, np.int64)
+    stall = np.zeros(n, np.int64)
+    passes = np.zeros(n, np.int64)
+    snaps = np.zeros(n, np.int64)
+    while True:
+        live = (lo != hi) & (n_hi != k) & (n_lo != k - 1)
+        if not live.any():
+            break
+        idx = np.flatnonzero(live)
+        snap = np.isin(thread[idx], thread[idx[stall[idx] >= OS_STALL]])
+        t = os_pivot(lo[idx], hi[idx], n_lo[idx], n_hi[idx], k)
+        r = ring[idx]
+        le = r <= t.astype(np.uint32).view(np.float32)[:, None]
+        c = le.sum(1)
+        up = c >= k
+        below = np.where(le, r, -np.inf).max(1).view(np.uint32)
+        above = np.where(le, np.inf, r).min(1).view(np.uint32)
+        new_hi = np.where(snap, below.astype(np.int64), t)
+        new_lo = np.where(snap, above.astype(np.int64), t + 1)
+        same = np.where(up, c == n_hi[idx], c == n_lo[idx])
+        stall[idx] = np.where(same & ~snap, stall[idx] + 1, 0)
+        hi[idx[up]], n_hi[idx[up]] = new_hi[up], c[up]
+        lo[idx[~up]], n_lo[idx[~up]] = new_lo[~up], c[~up]
+        passes[idx] += 1
+        snaps[idx] += snap
+    lo_f = lo.astype(np.uint32).view(np.float32)
+    hi_f = hi.astype(np.uint32).view(np.float32)
+    below = np.where(ring <= hi_f[:, None], ring, -np.inf).max(axis=1)
+    above = np.where(ring >= lo_f[:, None], ring, np.inf).min(axis=1)
+    kth = np.where(lo == hi, lo_f, np.where(n_hi == k, below, above))
+    return kth.astype(np.float32), passes, snaps
+
+
+def os_warp_passes(passes: np.ndarray, r_size: int) -> np.ndarray:
+    """Passes of the slowest cell of each warp's cells: a warp of kernel
+    5 takes 32 groups of 4 consecutive range cells of one tile, one
+    Doppler row where R = 128 (``passes`` in row-major (.., D, R)
+    order)."""
+    groups = (r_size + 3) // 4
+    g = np.pad(passes.reshape(-1, r_size),
+               ((0, 0), (0, 4 * groups - r_size))).reshape(-1, groups, 4)
+    per_thread = g.max(axis=2).reshape(-1)
+    pad = -len(per_thread) % 32
+    return np.pad(per_thread, (0, pad)).reshape(-1, 32).max(axis=1)
+
+
+def adversarial_os_maps(power, cfg_os, n: int = 128) -> dict:
+    """Maps made to stress kernels 5 and 6, ``n`` of the scene's map size
+    (seed 11): {name: (maps, cfg)}.  All cells equal; all zero; plateaus
+    of ties (values 1-4, the ring's k-th inside the 40 % at 2); a step of
+    1e6 between the range halves; subnormal cells (a tenth of them zero);
+    a quarter of the cells +inf; and the scene's maps at k = 1 and k = N
+    (``cfar_os_k_frac`` 0.001 and 1.0)."""
+    import dataclasses
+
+    rng = np.random.default_rng(11)
+    shape = (n,) + tuple(power.shape[-2:])
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            power.device)
+
+    noise = rng.exponential(size=shape).astype(np.float32)
+    step = noise.copy()
+    step[..., shape[-1] // 2:] *= np.float32(1e6)
+    sub = noise * np.float32(1e-41)
+    sub[rng.random(shape) < 0.1] = 0.0
+    inf = noise.copy()
+    inf[rng.random(shape) < 0.25] = np.inf
+    plateau = rng.choice(np.float32([1, 2, 3, 4]), size=shape,
+                         p=[0.5, 0.4, 0.05, 0.05])
+    return {
+        "all equal": (dev(np.ones(shape)), cfg_os),
+        "all zero": (dev(np.zeros(shape)), cfg_os),
+        "plateaus": (dev(plateau), cfg_os),
+        "step 1e6": (dev(step), cfg_os),
+        "subnormal": (dev(sub), cfg_os),
+        "+inf": (dev(inf), cfg_os),
+        "k = 1": (power[:n],
+                  dataclasses.replace(cfg_os, cfar_os_k_frac=0.001)),
+        "k = N": (power[:n],
+                  dataclasses.replace(cfg_os, cfar_os_k_frac=1.0)),
+    }
+
+
 def front_end_bytes(cfg, b: int, base: bool) -> float:
     """int16 frames, the base in the raw interleave and the constants."""
     s2 = 2 * cfg.num_samples
@@ -958,9 +1089,11 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
 
 def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     """Phase 11: OS-CFAR.  Kernels 5 (threshold) and 6 (hits) against
-    their plain versions, bit for bit; the OS ``detect``, its NCI and
-    its CLI against the plain path and the golden; timing and bounds.
-    Returns the kernels-line entries of kernels 5 and 6: kernel 6
+    their plain versions, bit for bit, on the scene's maps and on
+    ``adversarial_os_maps``; kernel 5's passes from ``os_search_model``
+    over the run's maps (the model's thresholds held
+    to the kernel's, bit for bit); the OS ``detect``, its NCI and its CLI
+    against the plain path and the golden; timing and bounds.  Returns the kernels-line entries of kernels 5 and 6: kernel 6
     counted on the OS ``detect`` at B=512, kernel 5 on ``cfar_detect``
     without ``hits_only`` (the call that returns the threshold map)."""
     import dataclasses
@@ -1035,12 +1168,24 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         variants.append(check_os(str(kw), power[:64],
                                  dataclasses.replace(cfg_os, **kw)))
     rng = np.random.default_rng(2)
-    for shape, mode in (((6, 36, 20), "reflect"), ((6, 24, 40), "wrap"),
-                        ((3, 4, 12), "reflect")):
+    # odd maps; R = 22, 41 and 13 leave a thread's last group of four
+    # cells partly past the map, on the compile-time ring and (stride 3)
+    # on the offset list
+    for shape, mode, stride in (((6, 36, 20), "reflect", 1),
+                                ((6, 24, 40), "wrap", 1),
+                                ((3, 4, 12), "reflect", 1),
+                                ((6, 36, 22), "reflect", 1),
+                                ((6, 36, 22), "reflect", 3),
+                                ((6, 24, 41), "wrap", 1),
+                                ((6, 24, 41), "wrap", 3),
+                                ((3, 4, 13), "reflect", 1),
+                                ((3, 4, 13), "reflect", 3)):
         pw = torch.from_numpy(rng.exponential(size=shape).astype(
             np.float32)).to(dev)
-        variants.append(check_os(str(shape), pw, dataclasses.replace(
-            cfg_os, cfar_range_mode=mode)))
+        variants.append(check_os(f"{shape} stride {stride}", pw,
+                                 dataclasses.replace(
+                                     cfg_os, cfar_range_mode=mode,
+                                     cfar_os_stride=stride)))
     # the exact tie: power equal to its threshold is no hit, one ulp
     # above is one (the cell is not in its own ring)
     p1 = power[:1].clone()
@@ -1052,6 +1197,33 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         hk = os_cfar_hits_cuda(p1, cfg_os)
         assert bool(hk[0, 40, 60]) is want, f"exact tie: hit {not want}"
         assert torch.equal(hk, p1 > os_cfar_2d_cuda(p1, cfg_os)[1])
+    adv = adversarial_os_maps(power, cfg_os)
+    adv_hits = {name: check_os(name, p, c) for name, (p, c) in adv.items()}
+    say("kernels 5 and 6 vs plain on adversarial maps (128 each): "
+        "bit-identical thresholds and hits; hits " + ", ".join(
+            f"{name} {n}" for name, n in adv_hits.items()))
+
+    # kernel 5's passes, from the model over the run's own maps
+    def passes_of(name, p, c, n_maps):
+        kk, alpha = os_ring_params(c)[2:]
+        ring = os_ring(p[:n_maps], c).cpu().numpy()
+        kth, passes, snaps = os_search_model(
+            ring.reshape(-1, ring.shape[-1]), kk)
+        got = os_cfar_2d_cuda(p[:n_maps], c)[1].cpu().numpy().reshape(-1)
+        assert np.array_equal(np.float32(alpha) * kth, got), (
+            f"kernel 5 vs its model, {name}")
+        warp = os_warp_passes(passes, r_size)
+        snapping = snaps.sum() / max(1, passes.sum())
+        return (f"{name} mean {passes.mean():.2f} max {passes.max()} "
+                f"(slowest cell of a warp: mean {warp.mean():.2f} max "
+                f"{warp.max()}; snapping {snapping:.1%})")
+
+    say("kernel 5 passes (os_search_model over the run's maps, its "
+        "thresholds bit-equal to the kernel's): " + "; ".join(
+            [passes_of("scene, 4 maps", power, cfg_os, 4),
+             passes_of("NCI sums, 4", p_sum, cfg_int, 4)]
+            + [passes_of(f"{name}, 2", p, c, 2)
+               for name, (p, c) in adv.items()]))
     reset()
     _, th_path = cfar_detect(power, cfg_os, "pallas")
     thr_counts = counts()
@@ -1061,7 +1233,8 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         f"{BATCH} maps ({n512} hits), {groups} NCI "
         f"sums (Erlang-{cfg_int.cfar_pulses_effective} alpha, {n128} hits), "
         "stride 3, range wrap, k_frac 0.9, guard (1,1) train (2,3), 36x20, "
-        f"24x40 wrap, 4x12 ({sum(variants)} hits); exact tie no hit, one ulp "
+        "24x40 wrap, 4x12, and at strides 1 and 3 36x22, 24x41 wrap, 4x13 "
+        f"({sum(variants)} hits); exact tie no hit, one ulp "
         f"above a hit; cfar_detect without hits_only launches {thr_counts}")
 
     # -- 11b. the OS paths against the plain path and the golden ---------
@@ -1135,18 +1308,30 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
 
     # -- 11c. timing ---------------------------------------------------------
     k = os_ring_params(cfg_os)[2]
+
+    def turns(c, plain_fns: bool):
+        """kernel (, plain) of kernels 5 and 6 for cfg c."""
+        f5 = {"kernel": lambda x: os_cfar_2d_cuda(x, c)}
+        f6 = {"kernel": lambda x: os_cfar_hits_cuda(x, c)}
+        if plain_fns:
+            f5["plain"] = lambda x: os_cfar_2d(x, c)
+            f6["plain"] = lambda x: os_cfar_hits(x, c)
+        return f5, f6
+
     t5, t6, tlib = {}, {}, {}
     for n, maps_n, c in ((groups, p_sum, cfg_int), (BATCH, power, cfg_os)):
-        t5[n] = alternate({
-            "kernel": lambda x: os_cfar_2d_cuda(x, c),
-            "plain": lambda x: os_cfar_2d(x, c)}, maps_n, device_only=True)
-        t6[n] = alternate({
-            "kernel": lambda x: os_cfar_hits_cuda(x, c),
-            "plain": lambda x: os_cfar_hits(x, c)}, maps_n, device_only=True)
+        f5, f6 = turns(c, True)
+        t5[n] = alternate(f5, maps_n, device_only=True)
+        t6[n] = alternate(f6, maps_n, device_only=True)
         ring = os_ring(maps_n, c)
         tlib[n] = alternate({"kthvalue": lambda x: torch.kthvalue(
             x, k, dim=-1)}, ring, device_only=True)["kthvalue"]
         del ring
+    t5_adv, t6_adv = {}, {}
+    for name, (maps_n, c) in adv.items():
+        f5, f6 = turns(c, False)
+        t5_adv[name] = alternate(f5, maps_n, device_only=True)
+        t6_adv[name] = alternate(f6, maps_n, device_only=True)
     e2e = alternate({
         "OS detect": lambda x: pipe.detect(x, base),
         "plain OS detect": lambda x: plain.detect(x, base),
@@ -1162,6 +1347,10 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         f"{n} maps {fmt(t6[n])}" for n in t6) + "; torch.kthvalue on the "
         "gathered ring (selection only) " + ", ".join(
         f"{n} maps {v:.4f} ms" for n, v in tlib.items()))
+    say(f"timing on {gpu} (device only, median of 10), adversarial maps "
+        "(128 each): " + "; ".join(
+            f"{name}: kernel 5 {fmt(t5_adv[name])}, kernel 6 "
+            f"{fmt(t6_adv[name])}" for name in adv))
     say(f"timing on {gpu} B={BATCH} (host-inclusive, median of 10): "
         + ", ".join(f"{name} {v:.4f} ms ({BATCH / v * 1e3:.0f} frames/s)"
                     for name, v in e2e.items()))

@@ -202,7 +202,7 @@ def _declare(lib) -> None:
     for name in ("radar_os_hits", "radar_os_threshold"):
         fn = getattr(lib, name)
         fn.argtypes = ([ptr] * 3   # power, hits / thresh, offsets
-                       + [i32] * 9 + [ctypes.c_float, ptr])
+                       + [i32] * 10 + [ctypes.c_float, ptr])
         fn.restype = i32
     fn = lib.radar_masked_argmax
     fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]   # x, idx, mag; rows, n, w
@@ -234,6 +234,10 @@ def load_layout():
         lib.radar_threshold_smem.restype = i64
         lib.radar_topk_work_words.argtypes = [i64, i32, i32]
         lib.radar_topk_work_words.restype = i64
+        for name, n_args in (("radar_os_box_ring", 5),
+                             ("radar_os_tile_rows", 5), ("radar_os_pitch", 2)):
+            getattr(lib, name).argtypes = [i32] * n_args
+            getattr(lib, name).restype = i32
         _layout = lib
     return _layout
 

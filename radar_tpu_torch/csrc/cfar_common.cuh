@@ -342,12 +342,7 @@ __device__ __forceinline__ void band_cfar(const float* __restrict__ pf,
                           emit);
 }
 
-// Whether (gd, wd, gr, wr) is the window the compile-time instantiation
-// fixes: RadarConfig's default guard (2, 2) and training (4, 8) cells.
-__host__ __device__ __forceinline__ bool default_window(int gd, int gr, int wd,
-                                                        int wr) {
-  return gd == 2 && wd == 6 && gr == 2 && wr == 10;
-}
+using radar_layout::default_window;
 
 // Raises ``kernel``'s dynamic shared-memory limit to ``bytes`` on the
 // current device once: the CUDA call would otherwise cost host time on

@@ -31,4 +31,19 @@ long long radar_topk_work_words(long long n_rows, int n, int k) {
   return radar_layout::topk_work_words(n_rows, n, k);
 }
 
+// Kernels 5 and 6: whether the ring is the one fixed at compile time
+// (then the entries take no offset list), a tile row's floats and a
+// block's tile rows.
+int radar_os_box_ring(int gd, int gr, int wd, int wr, int stride) {
+  return radar_layout::os_box_ring(gd, gr, wd, wr, stride);
+}
+
+int radar_os_pitch(int r_size, int wr) {
+  return radar_layout::os_pitch(r_size, wr);
+}
+
+int radar_os_tile_rows(int d_size, int r_size, int wd, int wr, int n_list) {
+  return radar_layout::os_tile_rows(d_size, r_size, wd, wr, n_list);
+}
+
 }  // extern "C"

@@ -1,8 +1,9 @@
 // Shared-memory and scratch layouts of the selection and CFAR kernels,
 // and the limits their entries gate on: the band blocks of the detect
 // stage (detect.cu, kernel 1) and of the threshold kernel (cfar.cu,
-// kernel 4), and the chunk blocks of the top-K kernel (topk.cu, kernel
-// 3).  The one place these sizes are defined: the kernels include this
+// kernel 4), the chunk blocks of the top-K kernel (topk.cu, kernel 3)
+// and the tile blocks of the OS-CFAR kernels (oscfar.cu, kernels 5 and
+// 6).  The one place these sizes are defined: the kernels include this
 // header, and layout.cpp, built with the host's C++ compiler, exports it
 // to the wrappers (ops/cuda/layout.py), so the gates they check before a
 // launch are the kernels' own.  Plain C++; nvcc and the host compiler
@@ -118,6 +119,47 @@ RADAR_HD long long topk_smem(int k) {
 RADAR_HD long long topk_work_words(long long n_rows, int n, int k) {
   const int n_chunks = topk_chunks(n);
   return n_chunks > 1 ? 2LL * n_rows * n_chunks * min_int(k, kChunk) : 0;
+}
+
+// Whether (gd, wd, gr, wr) is the CFAR window that the kernels fix at
+// compile time: RadarConfig's default guard (2, 2) and training (4, 8).
+RADAR_HD bool default_window(int gd, int gr, int wd, int wr) {
+  return gd == 2 && wd == 6 && gr == 2 && wr == 10;
+}
+
+// The OS-CFAR kernels' block: a tile of os_tile_rows Doppler rows with
+// their +-wd Doppler halo, os_pitch floats a row (the R + 2 wr cells of
+// the row and its range halo, then zeros, so that the 16-byte loads of a
+// thread's kOsCells cells' windows stay inside the row), then, for a ring
+// given as a list of offsets, the list (n_list int32).  The default
+// window's undecimated ring is fixed at compile time and needs no list.
+constexpr int kOsTileRows = 16;    // Doppler rows a block, where they fit
+constexpr int kOsCells = 4;        // consecutive range cells a thread owns
+
+RADAR_HD int round4(int n) { return (n + 3) / 4 * 4; }
+
+RADAR_HD int os_pitch(int r_size, int wr) {
+  return round4(r_size) + round4(2 * wr);
+}
+
+RADAR_HD bool os_box_ring(int gd, int gr, int wd, int wr, int stride) {
+  return stride == 1 && default_window(gd, gr, wd, wr);
+}
+
+RADAR_HD long long os_smem(int tile_rows, int r_size, int wd, int wr,
+                           int n_list) {
+  return ((long long)(tile_rows + 2 * wd) * os_pitch(r_size, wr) + n_list) *
+         4;
+}
+
+// Doppler rows of a block's tile: kOsTileRows, or fewer where the tile
+// would pass kSmemMax; 0 where not even one row fits.
+RADAR_HD int os_tile_rows(int d_size, int r_size, int wd, int wr,
+                          int n_list) {
+  const long long fit =
+      ((long long)kSmemMax / 4 - n_list) / os_pitch(r_size, wr) - 2 * wd;
+  const int rows = min_int(kOsTileRows, d_size);
+  return fit < 0 ? 0 : (fit < rows ? (int)fit : rows);
 }
 
 }  // namespace radar_layout

@@ -1,4 +1,4 @@
-"""Shared-memory gates and scratch sizes of kernels 1, 3 and 4, read from
+"""Shared-memory gates and scratch sizes of kernels 1, 3-6, read from
 the kernels' own layouts (``csrc/layout.h``) through the host build of
 that header (``_build.load_layout``).  The wrappers check these gates
 before a launch, so a map past them raises NotImplementedError and never
@@ -43,6 +43,25 @@ def threshold_smem(d_size: int, r_size: int, wd: int, wr: int) -> int:
 def topk_work_words(n_rows: int, n: int, k: int) -> int:
     """int32 scratch words of the top-K kernel: each chunk's list."""
     return _build.load_layout().radar_topk_work_words(n_rows, n, k)
+
+
+def os_box_ring(gd: int, gr: int, wd: int, wr: int, stride: int) -> bool:
+    """Whether the OS kernels fix this ring at compile time (the default
+    window, undecimated): then they take no list of ring offsets."""
+    return bool(_build.load_layout().radar_os_box_ring(gd, gr, wd, wr, stride))
+
+
+def os_pitch(r_size: int, wr: int) -> int:
+    """Floats a row of the OS kernels' shared tile."""
+    return _build.load_layout().radar_os_pitch(r_size, wr)
+
+
+def os_tile_rows(d_size: int, r_size: int, wd: int, wr: int,
+                 n_list: int) -> int:
+    """Doppler rows of an OS kernel block's tile (0: the map does not fit
+    a block), with a list of ``n_list`` ring offsets beside it."""
+    return _build.load_layout().radar_os_tile_rows(d_size, r_size, wd, wr,
+                                                   n_list)
 
 
 def check_smem(kernel: str, need: int, d_size: int, r_size: int) -> None:

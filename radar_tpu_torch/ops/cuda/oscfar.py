@@ -10,13 +10,16 @@ Port of ``radar_tpu/ops/pallas/oscfar_kernel.py``:
 * :func:`os_cfar_hits_cuda` launches the OS hits kernel (replaces
   ``_os_hits_box_kernel`` and ``_os_hits_kernel``, entry
   ``os_cfar_hits_pallas``): hit <=> count(RN(alpha * v) < p) >= k,
-  bit-identical to ``power > threshold``.  One kernel, driven by the
-  list of ring offsets, serves both TPU bodies; ``impl`` keeps the JAX
-  semantics ('box' refuses a decimated ring).  It counts its launches in
-  :data:`hits_launches`; its plain version is
-  :func:`radar_tpu_torch.ops.cfar.os_cfar_hits`.
+  bit-identical to ``power > threshold``.  One kernel serves both TPU
+  bodies; ``impl`` keeps the JAX semantics ('box' refuses a decimated
+  ring).  It counts its launches in :data:`hits_launches`; its plain
+  version is :func:`radar_tpu_torch.ops.cfar.os_cfar_hits`.
 * :func:`os_hits_supported` states the two kernels' gate: a tile of
-  Doppler rows with its halo in a block's shared memory.
+  Doppler rows with its halo in a block's shared memory, as
+  ``csrc/layout.h`` lays it out (read through ``layout``).
+
+Both kernels fix the default window's undecimated ring at compile time;
+for any other ring they take its list of offsets (:func:`_offset_table`).
 
 Both kernels live in ``csrc/oscfar.cu`` (design and bounds are noted
 there).  ``ops.cfar.cfar_detect`` picks between kernels and plain
@@ -35,23 +38,34 @@ from radar_tpu_torch.ops.cfar import os_ring_params
 from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import check, launch, ptr, require_cuda
 
-TILE_ROWS = 16        # Doppler rows a block, where the halo fits
-
 threshold_launches = 0   # kernel launches by os_cfar_2d_cuda
 hits_launches = 0        # kernel launches by os_cfar_hits_cuda
 
 
-def tile_rows(d_size: int, r_size: int, cfg: RadarConfig) -> int:
-    """Doppler rows of a block's tile: :data:`TILE_ROWS`, or fewer where
-    the rows and their 2 wd halo rows (each R + 2 wr cells of f32), with
-    the ring's offset list, would pass the shared memory a block may use
-    (``layout.smem_max``); 0 where not even one row fits."""
+def _window(cfg: RadarConfig) -> tuple[int, int, int, int]:
+    """(gd, gr, wd, wr): the CFAR window's guard and half-widths."""
     gd, gr = cfg.cfar_guard
     td, tr = cfg.cfar_train
-    wd, wr = gd + td, gr + tr
-    fit = ((layout.smem_max() - 4 * os_ring_params(cfg)[1])
-           // (4 * (r_size + 2 * wr)) - 2 * wd)
-    return max(0, min(TILE_ROWS, d_size, fit))
+    return gd, gr, gd + td, gr + tr
+
+
+def _list_len(cfg: RadarConfig) -> int:
+    """Ring offsets the kernels take as a list: none for the ring they fix
+    at compile time (``layout.os_box_ring``), else the whole ring."""
+    gd, gr, wd, wr = _window(cfg)
+    if layout.os_box_ring(gd, gr, wd, wr, cfg.cfar_os_stride):
+        return 0
+    return os_ring_params(cfg)[1]
+
+
+def tile_rows(d_size: int, r_size: int, cfg: RadarConfig) -> int:
+    """Doppler rows of a block's tile, as ``csrc/layout.h``
+    ``os_tile_rows`` counts them: 16, or fewer where the rows and their
+    2 wd halo rows, with the ring's offset list where the kernels take
+    one, would pass the shared memory a block may use; 0 where not even
+    one row fits."""
+    _, _, wd, wr = _window(cfg)
+    return layout.os_tile_rows(d_size, r_size, wd, wr, _list_len(cfg))
 
 
 def os_hits_supported(d_size: int, r_size: int, cfg: RadarConfig) -> bool:
@@ -77,8 +91,8 @@ def _check_impl(cfg: RadarConfig, impl: str) -> None:
 def _offset_table(offsets, wd: int, wr: int, r_size: int,
                   device: torch.device) -> torch.Tensor:
     """The ring offsets as int32 cells from a window's top-left corner in
-    the kernels' shared tile (row pitch R + 2 wr)."""
-    w = r_size + 2 * wr
+    the kernels' shared tile (row pitch ``layout.os_pitch``)."""
+    w = layout.os_pitch(r_size, wr)
     return torch.tensor([(wd + dd) * w + wr + dr for dd, dr in offsets],
                         dtype=torch.int32, device=device)
 
@@ -89,12 +103,9 @@ def _run(entry: str, power: torch.Tensor, out_dtype, cfg: RadarConfig,
     returns its (..., D, R) output."""
     require_cuda(power, what, plain)
     offsets, n_train, k, alpha = os_ring_params(cfg)
-    gd, gr = cfg.cfar_guard
-    td, tr = cfg.cfar_train
-    wd, wr = gd + td, gr + tr
+    gd, gr, wd, wr = _window(cfg)
     d_size, r_size = power.shape[-2], power.shape[-1]
-    rows = tile_rows(d_size, r_size, cfg)
-    if rows == 0:
+    if tile_rows(d_size, r_size, cfg) == 0:
         raise NotImplementedError(
             f"a {d_size}x{r_size} map with a +-{wd} x +-{wr} CFAR window "
             f"does not fit the OS kernels' {layout.smem_max()}-byte "
@@ -104,11 +115,12 @@ def _run(entry: str, power: torch.Tensor, out_dtype, cfg: RadarConfig,
     x = power.reshape(-1, d_size, r_size)
     check("power", x, torch.float32, (x.shape[0], d_size, r_size),
           power.device)
-    table = _offset_table(offsets, wd, wr, r_size, power.device)
+    table = (_offset_table(offsets, wd, wr, r_size, power.device)
+             if _list_len(cfg) else None)
     out = torch.empty(x.shape, dtype=out_dtype, device=power.device)
     launch(entry, power.device, ptr(x), ptr(out), ptr(table), x.shape[0],
-           d_size, r_size, rows, n_train, int(cfg.cfar_range_mode == "wrap"),
-           wd, wr, k, float(np.float32(alpha)))
+           d_size, r_size, n_train, int(cfg.cfar_range_mode == "wrap"),
+           gd, gr, wd, wr, k, float(np.float32(alpha)))
     return out.reshape(power.shape)
 
 

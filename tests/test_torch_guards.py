@@ -30,7 +30,7 @@ from radar_tpu_torch.ops.cuda import (  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "radar_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"
+    ROOT / "chip_smoke.py", ROOT / "os_ab.py"
 ]
 SMALL = dict(num_samples=64, num_chirps=64, num_rx=2)
 
@@ -65,7 +65,7 @@ def test_importing_the_port_loads_no_jax():
         "mods = [m.name for m in pkgutil.walk_packages("
         "radar_tpu_torch.__path__, 'radar_tpu_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, os_ab\n"
         "print(len(mods), sorted(m for m in sys.modules if any("
         "m == t or m.startswith(t + '.') for t in ('jax', 'radar_tpu'))))\n"
     )
@@ -249,6 +249,21 @@ def test_cpu_range_and_front_end_paths_never_build(monkeypatch):
                          dtype=torch.int16)
     assert det.detect_capture(frames).peak_bin.shape == (2,)
     assert _counts() == before
+
+
+def test_os_ab_needs_cuda(monkeypatch, capsys):
+    """The OS kernels' A/B script exits 1 without a card, before it starts
+    a run, and 2 (printing its usage) without a tree."""
+    import os_ab
+
+    def no_run(*_, **__):
+        raise AssertionError("no run may start without a card")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(os_ab.subprocess, "run", no_run)
+    assert os_ab.main(["."]) == 1
+    assert "is_available() is False" in capsys.readouterr().err
+    assert os_ab.main([]) == 2
 
 
 def test_timing_needs_cuda_and_fence_passes_cpu_tensors(monkeypatch):

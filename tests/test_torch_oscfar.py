@@ -16,6 +16,7 @@ made from numpy seeds:
   package's cross-implementation gate.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -45,7 +46,7 @@ from radar_tpu_torch.ops.cfar import (  # noqa: E402
     os_cfar_2d,
     os_cfar_hits,
 )
-from radar_tpu_torch.ops.cuda import oscfar  # noqa: E402
+from radar_tpu_torch.ops.cuda import layout, oscfar  # noqa: E402
 from test_torch_maps import (  # noqa: E402
     TARGETS,
     _jax_pipeline,
@@ -210,17 +211,24 @@ def test_hits_impl_argument():
 
 
 def test_hits_supported_is_the_shared_memory_gate():
-    """A block holds its tile rows, 2 x 6 halo rows of R + 20 f32 and the
-    248 ring offsets in 227 KB: 16 rows at the default map, fewer for
-    wide maps, none from R = 4432 on."""
+    """A block holds its tile rows and 2 x 6 halo rows, each of R rounded
+    up to 4 plus 20 f32 (``csrc/layout.h`` ``os_pitch``), in 227 KB: 16
+    rows at the default map, fewer for wide maps, none from R = 4449 on.
+    The default ring is fixed at compile time and takes no offset list;
+    a decimated ring's 82 offsets share the block (none from R = 4441)."""
     cfg = config_from_jax(RadarConfig(cfar_kind="os"))
     assert oscfar.os_hits_supported(128, 128, cfg)
-    assert oscfar.tile_rows(128, 128, cfg) == oscfar.TILE_ROWS
+    assert oscfar.tile_rows(128, 128, cfg) == 16
     assert oscfar.tile_rows(4, 12, cfg) == 4
     assert oscfar.tile_rows(64, 4096, cfg) == 2
-    assert oscfar.tile_rows(64, 4431, cfg) == 1
-    assert oscfar.tile_rows(64, 4432, cfg) == 0
-    assert not oscfar.os_hits_supported(64, 4432, cfg)
+    assert oscfar.tile_rows(64, 4129, cfg) == 1
+    assert oscfar.tile_rows(64, 4448, cfg) == 1
+    assert oscfar.tile_rows(64, 4449, cfg) == 0
+    assert not oscfar.os_hits_supported(64, 4449, cfg)
+    assert layout.os_pitch(4449, 10) == 4472
+    stride3 = dataclasses.replace(cfg, cfar_os_stride=3)
+    assert oscfar.tile_rows(64, 4440, stride3) == 1
+    assert oscfar.tile_rows(64, 4441, stride3) == 0
 
 
 def test_cfar_detect_dispatch(monkeypatch):
