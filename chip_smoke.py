@@ -17,8 +17,11 @@ argmax) and ``python -m radar_tpu_torch.cli verify``; ``RDPipeline(
 rd_impl='fused-pallas')`` (kernel 8, the fused range DFT, then kernels
 4 and 3); MTI clutter through kernel 1; the 'planar', 'fft' and 'mxu'
 front ends; ``python -m radar_tpu_torch.cli detect --full [--integrate
-4 | --cfar-kind os]`` and ``... selftest``.  Phases, each printing one
-line or more:
+4 | --cfar-kind os]`` and ``... selftest``; the object level,
+``detect_objects`` and ``detect_cmap`` (kernel 2, then kernel 3),
+``disambiguate``, ``capon_refine``, ``refine_2d``, ``RDPipeline(
+keystone=True)`` (kernels 4 and 3 on the keystone cube's maps) and the
+CLI's object-level flags.  Phases, each printing one line or more:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
@@ -78,7 +81,22 @@ line or more:
     B=64: kernel 1 against its plain version, 'mega' against 'mega-maps'
     bit for bit, 'fused-pallas', OS and NCI against the plain path,
     kernels 3 and 4 against their plain versions, and kernel 3 bit-exact
-    on rows of 32,768, 65,536 and 50,000 cells.
+    on rows of 32,768, 65,536 and 50,000 cells;
+19. the object level at B=512: ``detect_objects`` bit-identical to
+    'mega-maps' ``detect`` and ``detect_cmap`` to the plain top-K of the
+    same power, each with its launches of kernels 2 and 3; ``label_hits``
+    equal to ``golden.cluster_hits`` on 16 frames; the clutter map's hits
+    against ``golden.clutter_map_cfar`` on the card's maps (flips only
+    within 1e-5 of the threshold); ``disambiguate`` at num_tx=2 (the
+    10 m/s target recovered past the 7.6 m/s TDM span, hypotheses and
+    velocities against the golden); ``capon_refine`` and ``refine_2d``
+    with an elevated TX against the golden spectra on 16 frames, TF32
+    off and on; keystone at 512 chirps and 4x the slope, B=64 (the
+    walker refocused, the cube against the golden, TF32 on and off);
+    the CLI with ``--cluster``, ``--cmap``, ``--num-tx 2
+    --disambiguate``, ``--refine capon``, ``--elevated-tx --refine
+    2d``, ``--keystone`` and ``--points``; host-inclusive times and a
+    profile line of each method.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -471,6 +489,142 @@ def threshold_check(name, power, got, want) -> tuple[float, int]:
         f"{name}: {int((flipped & ~edge).sum())} hit decisions differ off "
         "the threshold's 1e-3 band")
     return worst, int(flipped.sum())
+
+
+def grid_angle_check(name, got, want, spectrum, step: float,
+                     margin: float = 1e-3) -> int:
+    """Angles picked on a scan grid (degrees, (..., K)) held equal
+    wherever the scanned spectrum's peak beats its runner-up by more than
+    ``margin`` relative, and within one grid ``step`` elsewhere: there
+    two implementations that round differently may pick neighbouring
+    grid angles.  ``spectrum`` is (..., K, n_grid), the golden's on the
+    same snapshots.  Returns the number of near-tie cells whose angles
+    differ (counted, not hidden)."""
+    top2 = np.sort(np.asarray(spectrum, np.float64), axis=-1)[..., -2:]
+    tie = top2[..., 1] - top2[..., 0] <= margin * top2[..., 1]
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert not (diff[~tie] > 0).any(), (
+        f"{name}: {int((diff[~tie] > 0).sum())} angles differ off a tie; "
+        f"worst {diff[~tie].max():.4g} deg")
+    assert not (diff[tie] > step * (1 + 1e-6)).any(), (
+        f"{name}: near-tie angles more than one grid step ({step} deg) "
+        f"apart: worst {diff[tie].max():.4g} deg")
+    return int((diff[tie] > 0).sum())
+
+
+def capon_golden_spectrum(range_cube, d_bin, r_bin, cfg) -> np.ndarray:
+    """float64 Capon spectra (B, K, n_angles) of detected cells, from a
+    (B, V, chirps_per_tx, R) range cube: the chirp-domain snapshots at
+    each detection's range bin, TDM-compensated, through
+    ``golden.capon_spectrum`` (the truth of ``capon_aoa_at_cells``)."""
+    from radar_tpu_torch import golden
+
+    rc = np.asarray(range_cube, np.complex128)
+    r_bin = np.asarray(r_bin)
+    snaps = np.swapaxes(
+        rc[np.arange(rc.shape[0])[:, None], :, :, r_bin], -2, -1)
+    if cfg.num_tx > 1:
+        snaps = golden.mimo_doppler_compensate(
+            snaps, np.asarray(d_bin)[..., None], cfg)
+    return golden.capon_spectrum(snaps, cfg)[1]
+
+
+def planar_golden_spectrum(snaps, cfg) -> np.ndarray:
+    """float64 planar matched-filter spectra (..., K, n_az * n_el) of
+    TDM-compensated snapshots (..., K, V): the scan of
+    ``golden.aoa_2d``, flattened azimuth-major."""
+    pos = cfg.virtual_positions_wl()
+    az = np.deg2rad(np.linspace(*cfg.angle_grid_deg[:2],
+                                int(cfg.angle_grid_deg[2])))
+    el = np.deg2rad(np.linspace(*cfg.elevation_grid_deg[:2],
+                                int(cfg.elevation_grid_deg[2])))
+    phase = 2 * np.pi * (
+        pos[None, None, :, 0] * np.sin(az)[:, None, None]
+        * np.cos(el)[None, :, None]
+        + pos[None, None, :, 1] * np.sin(el)[None, :, None])
+    steer = np.exp(-1j * phase).reshape(-1, pos.shape[0])
+    spec = np.asarray(snaps, np.complex128) @ steer.T
+    return np.abs(spec) ** 2
+
+
+def golden_refiner_inputs(capture, cfg, n: int, d_bin, r_bin):
+    """float64 truth of the refiners' inputs on capture frames 1..n
+    (clutter removal as :func:`golden_power`): the calibrated virtual
+    range cube (n, V, chirps_per_tx, R) of ``RDPipeline.range_cube``,
+    and the calibrated snapshots (n, K, V) of
+    ``RDPipeline.cell_snapshots``, ``golden.range_doppler_map`` read at
+    the detected cells ``d_bin``, ``r_bin`` (n, K)."""
+    from radar_tpu_torch import golden
+    from radar_tpu_torch.io.capture import decode_shorts
+
+    cube = decode_shorts(capture[1:n + 1], cfg)
+    if cfg.clutter_mode == "mean":
+        cube = cube - cube.mean(axis=-2, keepdims=True)
+    else:
+        cube = cube - decode_shorts(capture[0], cfg)
+    vc = golden.virtual_cube(cube, cfg)
+    rng = np.fft.fft(vc * golden.window_fn(vc.shape[-1], cfg.window_kind),
+                     n=cfg.range_fft_size, axis=-1)
+    rd = np.moveaxis(golden.range_doppler_map(vc, cfg), -3, -1)
+    snaps = rd[np.arange(n)[:, None], np.asarray(d_bin), np.asarray(r_bin)]
+    return (golden.apply_rx_cal(rng, cfg, axis=-3),
+            golden.apply_rx_cal(snaps, cfg))
+
+
+def near_check(name, got, want, rel: float) -> float:
+    """``got`` within ``rel`` of ``want``'s largest magnitude, elementwise
+    (rtol ``rel`` too); returns the largest error over that magnitude."""
+    got = np.asarray(got)
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * scale,
+                               err_msg=name)
+    return float(np.abs(got - want).max()) / scale
+
+
+def golden_clusters(power, hits, d_bin, r_bin, valid, cfg) -> dict:
+    """NumPy truth of ``ops.cluster.cluster_detections`` (B, K) over
+    ``golden.cluster_hits``' labels: each valid detection's component,
+    its first (strongest) valid member as the cluster id, the cell count,
+    the float64 power sum, the power-weighted centroid (Doppler offsets
+    taken modulo D around the detection's own cell) in metres and m/s,
+    and the bounding extents; zeros (ids -1) on invalid slots."""
+    from radar_tpu_torch import golden
+    from radar_tpu_torch.config import LIGHT_SPEED
+
+    labels = golden.cluster_hits(hits)
+    p = np.asarray(power, np.float64)
+    n_b, d_sz, _ = hits.shape
+    k = d_bin.shape[-1]
+    half = d_sz // 2
+    ints = ("cluster_id", "cells", "extent_doppler_bins",
+            "extent_range_bins")
+    out = {f: np.zeros((n_b, k), np.int32) for f in ints}
+    out["cluster_id"][:] = -1
+    for f in ("total_power", "centroid_range_m", "centroid_velocity_mps"):
+        out[f] = np.zeros((n_b, k), np.float64)
+    m_per_bin = (cfg.sample_rate_hz / cfg.range_fft_size * LIGHT_SPEED
+                 / (2.0 * cfg.slope_hz_per_s))
+    mps_per_bin = cfg.wavelength_m / (2.0 * d_sz * cfg.slow_time_interval_s)
+    for b in range(n_b):
+        lab = labels[b, d_bin[b], r_bin[b]]
+        for kk in np.flatnonzero(valid[b]):
+            first = next(j for j in range(k)
+                         if valid[b, j] and lab[j] == lab[kk])
+            dd, rr = np.nonzero(labels[b] == lab[kk])
+            w = p[b, dd, rr]
+            ds = (dd - d_bin[b, kk] + half) % d_sz
+            tot = w.sum()
+            d_c = d_bin[b, kk] + (w @ ds / tot - half)
+            out["cluster_id"][b, kk] = first
+            out["cells"][b, kk] = dd.size
+            out["extent_doppler_bins"][b, kk] = ds.max() - ds.min() + 1
+            out["extent_range_bins"][b, kk] = rr.max() - rr.min() + 1
+            out["total_power"][b, kk] = tot
+            out["centroid_range_m"][b, kk] = w @ rr / tot * m_per_bin
+            out["centroid_velocity_mps"][b, kk] = (d_c - half) * mps_per_bin
+    out["num_clusters"] = (out["cluster_id"]
+                           == np.arange(k)).sum(axis=1).astype(np.int32)
+    return out
 
 
 # -- bounds (H100 SXM, NVIDIA data sheet: the card's least time) -------------
@@ -2279,6 +2433,410 @@ def geometry_phase(gpu, targets, dev) -> None:
 
 # ---------------------------------------------------------------------------
 
+OBJECTS_KEYSTONE_BATCH = 64   # phase 19's keystone batch (512 chirps)
+
+
+def _cmap_golden_check(power, hits, cfg, beta: float, block: int) -> int:
+    """The clutter map's hits of ``power`` (F, D, R) against
+    ``golden.clutter_map_cfar`` in float64: equal except on cells within
+    1e-5 relative of the golden's ``alpha * m``.  Returns how many such
+    cells differ."""
+    from radar_tpu_torch import golden
+
+    p = power.double().cpu().numpy()
+    n_pulses = cfg.cfar_pulses_effective
+    want, _ = golden.clutter_map_cfar(p, cfg.cfar_pfa, beta, None, block,
+                                      n_pulses)
+    alpha = golden.clutter_map_alpha(cfg.cfar_pfa, beta, block, n_pulses)
+    near = np.zeros(p.shape, bool)
+    m = p[:block].mean(axis=0)
+    for f in range(min(block, p.shape[0]), p.shape[0], block):
+        thr = alpha * m
+        near[f:f + block] = np.abs(p[f:f + block] - thr) <= 1e-5 * thr
+        m = (1.0 - beta) * m + beta * p[f:f + block].mean(axis=0)
+    diff = hits.cpu().numpy() != want
+    assert not (diff & ~near).any(), (
+        f"clutter map: {int((diff & ~near).sum())} hits differ from the "
+        "golden away from the threshold")
+    return int(diff.sum())
+
+
+def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
+    """Phase 19, the object level: ``detect_objects`` and ``detect_cmap``
+    (kernel 2, then kernel 3) at B=512 against 'mega-maps' and the plain
+    top-K, their labels, clusters and clutter-map hits against the
+    golden; TDM velocity disambiguation at num_tx=2; the refiners' inputs
+    (range cube, cell snapshots) against the float64 golden, and Capon
+    and the planar scan with an elevated TX against the golden spectra,
+    with TF32 on and off;
+    keystone at 512 chirps against the golden; the CLI's object-level
+    flags; times and profiles."""
+    import dataclasses
+
+    from radar_tpu_torch import cli, golden
+    from radar_tpu_torch.config import LIGHT_SPEED
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import (
+        RDPipeline,
+        RDResult,
+        assemble_result,
+        virtualize_cube,
+    )
+    from radar_tpu_torch.ops import cluster
+    from radar_tpu_torch.ops.cmap import clutter_map_cfar
+    from radar_tpu_torch.ops.cuda import cfar as cfar_k
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.ops.cuda import topk as topk_k
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        power_cfar_from_shorts_cuda,
+        power_from_shorts_cuda,
+        snapshots_from_shorts,
+    )
+    from radar_tpu_torch.ops.decode import decode_to_cube
+    from radar_tpu_torch.ops.keystone import keystone_cube
+    from radar_tpu_torch.ops.physics import mimo_compensate
+
+    def reset():
+        megakernel.launches = megakernel.maps_launches = 0
+        cfar_k.launches = topk_k.launches = cluster.fixpoint_tests = 0
+
+    def counts() -> dict:
+        torch.cuda.synchronize()
+        return {"kernel 1": megakernel.launches,
+                "kernel 2": megakernel.maps_launches,
+                "kernel 3": topk_k.launches, "kernel 4": cfar_k.launches,
+                "label tests": cluster.fixpoint_tests}
+
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    bit_fields = RDResult._fields
+
+    # -- detect_objects: the maps path, then the clusters -----------------
+    reset()
+    out, cl = pipe.detect_objects(frames, base)
+    n_obj = counts()
+    assert n_obj["kernel 2"] > 0 and n_obj["kernel 3"] > 0, n_obj
+    assert n_obj["kernel 1"] == 0, n_obj
+    got = result_to_numpy(out)
+    maps = result_to_numpy(RDPipeline(cfg, K_DET, device=dev,
+                                      rd_impl="mega-maps").detect(frames,
+                                                                  base))
+    for name in bit_fields:
+        np.testing.assert_array_equal(got[name], maps[name],
+                                      err_msg=f"detect_objects: {name}")
+    cln = result_to_numpy(cl)
+    has = got["valid"].any(axis=1)
+    assert (cln["num_clusters"][has] >= 1).all()
+    assert (cln["num_clusters"] <= got["valid"].sum(axis=1)).all()
+    # the maps detect_objects clustered: kernel 2 on the same batch
+    p_all, t_all = power_cfar_from_shorts_cuda(frames, base, cfg, consts)
+    hits_all = p_all > t_all
+    hits16 = hits_all[:16].cpu().numpy()
+    lab = cluster.label_hits(hits_all[:16]).cpu().numpy()
+    np.testing.assert_array_equal(lab, golden.cluster_hits(hits16))
+    want_cl = golden_clusters(p_all[:16].cpu().numpy(), hits16,
+                              got["doppler_bin"][:16], got["range_bin"][:16],
+                              got["valid"][:16], cfg)
+    spans = {"total_power": 0.0,
+             "centroid_range_m": cfg.sample_rate_hz * LIGHT_SPEED
+             / (2.0 * cfg.slope_hz_per_s),
+             "centroid_velocity_mps":
+                 cfg.wavelength_m / (2.0 * cfg.slow_time_interval_s)}
+    for name in cluster.ClusterResult._fields:
+        if name in spans:   # centroids: rtol 1e-5 of the bin index
+            np.testing.assert_allclose(
+                cln[name][:16], want_cl[name], rtol=1e-5,
+                atol=1e-5 * spans[name], err_msg=f"detect_objects: {name}")
+        else:
+            np.testing.assert_array_equal(cln[name][:16], want_cl[name],
+                                          err_msg=f"detect_objects: {name}")
+    say(f"detect_objects B={BATCH} K={K_DET}: RDResult bit-identical to "
+        f"'mega-maps' detect; launches {n_obj}; "
+        f"{int(cln['num_clusters'].sum())} clusters of "
+        f"{int(got['valid'].sum())} detections; label_hits equal to "
+        f"golden.cluster_hits on 16 frames ({int(hits16.sum())} hit cells); "
+        "the clusters of those frames equal to a NumPy pass over the "
+        "golden labels (ids, counts, cells, extents exact; power and "
+        "centroids within 1e-5)")
+
+    # -- detect_cmap: power only, the clutter map, the usual tail ---------
+    beta, block = 0.25, 16
+    reset()
+    out_c, m_out = pipe.detect_cmap(frames, base, beta=beta, block=block)
+    n_cmap = counts()
+    assert n_cmap["kernel 2"] > 0 and n_cmap["kernel 3"] > 0, n_cmap
+    pw = power_from_shorts_cuda(frames, base, cfg, consts)
+    hits_c, m_ref = clutter_map_cfar(pw, cfg.cfar_pfa, beta, None,
+                                     block=block,
+                                     n_pulses=cfg.cfar_pulses_effective)
+    assert torch.equal(m_out, m_ref)
+    plain = result_to_numpy(assemble_result(
+        pw, lambda top_idx: snapshots_from_shorts(frames, base, top_idx, cfg),
+        hits_c, K_DET, cfg, topk_impl="xla"))
+    got_c = result_to_numpy(out_c)
+    for name in bit_fields:
+        np.testing.assert_array_equal(got_c[name], plain[name],
+                                      err_msg=f"detect_cmap: {name}")
+    flips = _cmap_golden_check(pw, hits_c, cfg, beta, block)
+    assert not got_c["valid"][:block].any()
+    assert BATCH <= block or got_c["valid"][block:].any()
+    say(f"detect_cmap B={BATCH} beta={beta} block={block}: RDResult "
+        f"bit-identical to the plain top-K of the same power; launches "
+        f"{n_cmap}; hits vs golden.clutter_map_cfar on the card's maps: "
+        f"{flips} differ, all within 1e-5 of alpha*m; "
+        f"{int(got_c['valid'].sum())} detections after the "
+        f"{block}-frame warm-up")
+
+    # -- TDM velocity disambiguation at num_tx = 2 -------------------------
+    cfg_t = dataclasses.replace(cfg, num_tx=2)
+    # a closing target past the per-TX limit, in view for the whole batch
+    fast = (40.0, -9.0, 15.0, 2500.0)
+    frame_s = cfg.num_chirps * cfg.chirp_interval_s
+    cap_t = synthesize_capture([SceneTarget(*fast),
+                                SceneTarget(20.0, 3.0, -25.0, 2000.0)],
+                               BATCH + 1, cfg_t, noise_std=2.0, seed=11)
+    pipe_t = RDPipeline(cfg_t, K_DET, device=dev)
+    base_t = pipe_t.prepare_base(cap_t[0])
+    fr_t = torch.from_numpy(cap_t[1:]).to(dev)
+    res_t = pipe_t.detect(fr_t, base_t)
+    vel, _, hyp = pipe_t.disambiguate(fr_t, base_t, res_t.doppler_bin,
+                                      res_t.range_bin)
+    vel, hyp = vel.cpu().numpy(), hyp.cpu().numpy()
+    r_t = result_to_numpy(res_t)
+    want_r = fast[0] + fast[1] * frame_s * np.arange(1, BATCH + 1)
+    near = r_t["valid"] & (np.abs(r_t["range_m"] - want_r[:, None]) < 1.0)
+    assert (np.abs(r_t["velocity_mps"][near] - fast[1]) > 5.0).all()
+    ok = [(np.abs(vel[f][near[f]] - fast[1]) < 1.0).any()
+          and (hyp[f][near[f]] == 1).any() for f in range(BATCH)]
+    assert all(ok), f"fast target not recovered in {ok.count(False)} frames"
+    snaps = pipe_t.cell_snapshots(fr_t[:16], base_t, res_t.doppler_bin[:16],
+                                  res_t.range_bin[:16]).cpu().numpy()
+    snap_err = [near_check("cell_snapshots (2 TX)", snaps, golden_refiner_inputs(
+        cap_t, cfg_t, 16, r_t["doppler_bin"][:16], r_t["range_bin"][:16])[1],
+        1e-4)]
+    g_vel, g_hyp, _ = golden.disambiguate_velocity(
+        snaps, r_t["doppler_bin"][:16], cfg_t)
+    np.testing.assert_array_equal(hyp[:16], g_hyp)
+    np.testing.assert_allclose(vel[:16], g_vel, rtol=0, atol=1e-4)
+    say(f"disambiguate num_tx=2 B={BATCH}: the {fast[1]} m/s target "
+        f"(per-TX limit {cfg_t.wavelength_m / (8 * cfg_t.chirp_interval_s):.2f}"
+        f" m/s; aliased in the map) recovered with hypothesis 1 in all "
+        f"{BATCH} frames, {fast[0]} m closing to {want_r[-1]:.1f} m; "
+        "hypotheses equal and velocities within 1e-4 m/s of the golden on "
+        "16 frames' snapshots; those snapshots "
+        f"{snap_err[0]:.2e} of their peak from golden.range_doppler_map")
+
+    # -- Capon and the planar scan, elevated TX, TF32 on and off -----------
+    cfg_e = dataclasses.replace(cfg, num_tx=2,
+                                tx_positions_wl=((0.0, 0.0), (0.0, 0.5)))
+    cap_e = synthesize_capture([SceneTarget(6.0, 1.0, -15.0, 3000.0, 10.0)],
+                               BATCH + 1, cfg_e, noise_std=2.0, seed=61)
+    pipe_e = RDPipeline(cfg_e, K_DET, device=dev)
+    base_e = pipe_e.prepare_base(cap_e[0])
+    fr_e = torch.from_numpy(cap_e[1:]).to(dev)
+    res_e = pipe_e.detect(fr_e, base_e)
+    cells = (res_e.doppler_bin, res_e.range_bin)
+    d16, r16 = (c[:16].cpu().numpy() for c in cells)
+    az_grid = np.linspace(*cfg_e.angle_grid_deg[:2],
+                          int(cfg_e.angle_grid_deg[2]))
+    el_grid = np.linspace(*cfg_e.elevation_grid_deg[:2],
+                          int(cfg_e.elevation_grid_deg[2]))
+    rc16 = pipe_e.range_cube(fr_e[:16], base_e)
+    cs16 = pipe_e.cell_snapshots(fr_e[:16], base_e, *(c[:16] for c in cells))
+    g_rc, g_cs = golden_refiner_inputs(cap_e, cfg_e, 16, d16, r16)
+    rc_err = near_check("range_cube", rc16.cpu().numpy(), g_rc, 1e-5)
+    snap_err.append(near_check("cell_snapshots (elevated TX)",
+                               cs16.cpu().numpy(), g_cs, 1e-4))
+    spec_c = capon_golden_spectrum(rc16.cpu().numpy(), d16, r16, cfg_e)
+    snaps_e = mimo_compensate(cs16, cells[0][:16], cfg_e).cpu().numpy()
+    spec_2d = planar_golden_spectrum(snaps_e, cfg_e)
+    n_el = el_grid.size
+    runs = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            runs[tf32] = [pipe_e.capon_refine(fr_e, base_e, *cells),
+                          *pipe_e.refine_2d(fr_e, base_e, *cells),
+                          *pipe_t.disambiguate(fr_t, base_t,
+                                               res_t.doppler_bin,
+                                               res_t.range_bin)]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    for name, a, b in zip(("capon_refine", "refine_2d azimuth",
+                           "refine_2d elevation", "disambiguate velocity",
+                           "disambiguate azimuth", "hypothesis"),
+                          runs[False], runs[True]):
+        assert torch.equal(a, b), f"{name} depends on the TF32 flag"
+    cap_az, az2, el2 = (t.cpu().numpy() for t in runs[False][:3])
+    # the golden on the 16 frames' detections (exhausted slots hold noise
+    # cells, where f32 rounding alone moves a noise spectrum's peak)
+    v16 = result_to_numpy(res_e)["valid"][:16]
+    ties = (grid_angle_check("capon_refine", cap_az[:16][v16],
+                             az_grid[spec_c.argmax(-1)][v16], spec_c[v16],
+                             1.0),
+            grid_angle_check("refine_2d azimuth", az2[:16][v16],
+                             az_grid[spec_2d.argmax(-1) // n_el][v16],
+                             spec_2d[v16], 1.0),
+            grid_angle_check("refine_2d elevation", el2[:16][v16],
+                             el_grid[spec_2d.argmax(-1) % n_el][v16],
+                             spec_2d[v16], 1.0))
+    first = result_to_numpy(res_e)["valid"][:, 0]
+    assert (np.abs(az2[first, 0] + 15.0) <= 8.0).all()
+    assert (np.abs(el2[first, 0] - 10.0) <= 4.0).all()
+    say(f"capon_refine / refine_2d elevated TX B={BATCH} K={K_DET}: vs the "
+        f"golden spectra on 16 frames' {int(v16.sum())} detections, exact "
+        "off a 1e-3 spectrum tie; near-tie cells a grid step from the "
+        f"golden: Capon {ties[0]}, azimuth {ties[1]}, elevation {ties[2]}; "
+        "the target at (-15, 10) deg on every frame's strongest cell; "
+        "capon_refine, refine_2d and disambiguate bit-identical with TF32 "
+        f"on; their inputs against the float64 golden: range_cube "
+        f"{rc_err:.2e}, cell_snapshots {snap_err[1]:.2e} of their peak")
+
+    # -- keystone at 512 chirps --------------------------------------------
+    walk = dataclasses.replace(cfg, num_chirps=512,
+                               slope_hz_per_s=4 * cfg.slope_hz_per_s)
+    walker = (1.0, 10.0, 0.0, 1000.0)   # 3.3 range cells a CPI
+    bk = OBJECTS_KEYSTONE_BATCH
+    cap_w = synthesize_capture([SceneTarget(*walker)], bk + 1, walk,
+                               noise_std=2.0, seed=9, chirp_level_motion=True)
+    pipe_k = RDPipeline(walk, 8, keystone=True, device=dev)
+    base_w = pipe_k.prepare_base(cap_w[0])
+    fr_w = torch.from_numpy(cap_w[1:]).to(dev)
+    reset()
+    res_k = result_to_numpy(pipe_k.detect(fr_w, base_w))
+    n_ks = counts()
+    assert n_ks["kernel 3"] > 0 and n_ks["kernel 4"] > 0, n_ks
+    pipe_f = RDPipeline(walk, 8, rd_impl="fft", device=dev)
+    smeared = result_to_numpy(pipe_f.detect(fr_w, base_w))
+    # the walker leaves the 10.6 m this slope can detect: hold the
+    # frames where it is in view
+    walk_s = walk.num_chirps * walk.chirp_interval_s
+    r_max = ((walk.range_fft_size - walk.range_edge_guard_effective)
+             * walk.sample_rate_hz / walk.range_fft_size * LIGHT_SPEED
+             / (2.0 * walk.slope_hz_per_s))
+    seen = walker[0] + walker[1] * walk_s * np.arange(1, bk + 1) < r_max - 1
+    assert seen.sum() >= min(bk, 16), seen.sum()
+    gain = res_k["power"][seen, 0] / smeared["power"][seen, 0]
+    assert (gain > 1.3).all() and (np.abs(
+        res_k["velocity_mps_interp"][seen, 0] - walker[1]) < 0.5).all()
+    cube = virtualize_cube(decode_to_cube(fr_w[:2], walk) - base_w, walk)
+    ks = {}
+    for tf32 in (False, True):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            ks[tf32] = keystone_cube(cube, walk)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(ks[True], ks[False]), "keystone depends on TF32"
+    gold = golden.keystone_transform(cube.cpu().numpy(), walk)
+    ks_err = float(np.abs(ks[False].cpu().numpy() - gold).max()
+                   / np.abs(gold).max())
+    assert ks_err <= 2e-4, f"keystone {ks_err:.2e} of the cube's peak"
+    say(f"keystone 512 chirps slope x4 B={bk} K=8: the 10 m/s walker "
+        f"refocused in the {int(seen.sum())} frames it is in view "
+        f"(strongest cell {gain.min():.2f}-{gain.max():.2f}x "
+        f"the plain 'fft' pipeline's); launches {n_ks}; the cube of 2 "
+        f"frames {ks_err:.2e} of its peak from golden.keystone_transform, "
+        "bit-identical with TF32 on")
+
+    # -- the CLI's object-level flags ---------------------------------------
+    cases = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def cap(name, c, cap_frames):
+            path = os.path.join(tmp, f"{name}.bin")
+            write_capture(path, cap_frames, c)
+            return path
+
+        p_def = cap("default", cfg, capture[:33])
+        p_tdm = cap("tdm", cfg_t, cap_t[:9])
+        p_el = cap("planar", cfg_e, cap_e[:9])
+        p_walk = cap("walk", walk, cap_w[:5])
+        slope = f"{walk.slope_hz_per_s / 1e12!r}"
+        runs_cli = {
+            "--cluster": (p_def, ["--cluster"]),
+            "--cmap": (p_def, ["--cmap"]),
+            "--num-tx 2 --disambiguate": (p_tdm, ["--num-tx", "2",
+                                                  "--disambiguate"]),
+            "--refine capon": (p_def, ["--refine", "capon"]),
+            "--elevated-tx --refine 2d --points": (
+                p_el, ["--num-tx", "2", "--elevated-tx", "--refine", "2d",
+                       "--points", os.path.join(tmp, "pts.ply")]),
+            "--keystone": (p_walk, ["--chirps", "512", "--slope", slope,
+                                    "--keystone"]),
+            "--points": (p_def, ["--points", os.path.join(tmp, "pts.csv")]),
+        }
+        for label, (path, flags) in runs_cli.items():
+            out_path = os.path.join(tmp, "dets.jsonl")
+            rc = cli.main(["detect", path, "--full", "--device", "cuda",
+                           "--out", out_path] + flags)
+            assert rc == 0, f"cli detect {label}: rc {rc}"
+            with open(out_path) as f:
+                recs = [json.loads(ln) for ln in f if ln.strip()]
+            dets = [d for r in recs for d in r["detections"]]
+            if label == "--cluster":
+                assert dets and all(d["cluster_cells"] >= 1 for d in dets)
+            if label == "--cmap":
+                assert not any(r["detections"] for r in recs[:16])
+                assert all(r["detections"] for r in recs[16:])
+            if label.startswith("--num-tx"):
+                assert all(any(abs(d["range_m"] - fast[0] - fast[1]
+                                   * frame_s * r["frame"]) < 1.0
+                               and abs(d["velocity_mps"] - fast[1]) < 1.0
+                               and d["doppler_hypothesis"] == 1
+                               for d in r["detections"]) for r in recs)
+            if label.startswith("--elevated"):
+                assert all(abs(r["detections"][0]["elevation_deg"] - 10.0)
+                           <= 4.0 for r in recs)
+                with open(os.path.join(tmp, "pts.ply")) as f:
+                    assert f"element vertex {len(dets)}" in f.read()
+            if label == "--keystone":
+                assert all(any(abs(d["velocity_mps_interp"] - 10.0) < 0.5
+                               for d in r["detections"]) for r in recs)
+            if label == "--points":
+                with open(os.path.join(tmp, "pts.csv")) as f:
+                    assert len(f.read().splitlines()) == len(dets) + 1
+            assert dets, f"cli detect {label}: no detections"
+            cases.append(f"{label} {len(recs)} records / {len(dets)} dets")
+    say("cli detect --full on the card: " + "; ".join(cases))
+
+    # -- times ---------------------------------------------------------------
+    fns = {
+        "detect (main path)": lambda: pipe.detect(frames, base),
+        "detect mega-maps": lambda m=RDPipeline(cfg, K_DET, device=dev,
+                                                rd_impl="mega-maps"):
+            m.detect(frames, base),
+        "detect_objects": lambda: pipe.detect_objects(frames, base),
+        "detect_cmap": lambda: pipe.detect_cmap(frames, base),
+        "label_hits": lambda: cluster.label_hits(hits_all),
+        "disambiguate (2 TX)": lambda: pipe_t.disambiguate(
+            fr_t, base_t, res_t.doppler_bin, res_t.range_bin),
+        "capon_refine (2 TX)": lambda: pipe_e.capon_refine(fr_e, base_e,
+                                                            *cells),
+        "refine_2d (2 TX)": lambda: pipe_e.refine_2d(fr_e, base_e, *cells),
+    }
+    reset()
+    cluster.label_hits(hits_all)
+    tests = cluster.fixpoint_tests
+    e2e = alternate({k: (lambda x, fn=fn: fn()) for k, fn in fns.items()},
+                    None)
+    ks_ms = alternate({"keystone detect": lambda x: pipe_k.detect(fr_w,
+                                                                  base_w),
+                       "fft detect": lambda x: pipe_f.detect(fr_w, base_w)},
+                      None)
+    say(f"object-level times on {gpu} B={BATCH} (host-inclusive, median of "
+        "10 in turns): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                     e2e.items())
+        + f"; label_hits made {tests} fixpoint tests (host syncs) on the "
+        f"{BATCH} maps; at 512 chirps B={bk}: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ks_ms.items()))
+    for name in ("detect_objects", "detect_cmap", "disambiguate (2 TX)",
+                 "capon_refine (2 TX)", "refine_2d (2 TX)"):
+        say(profile_line(fns[name], f"{name} B={BATCH}"))
+    say(profile_line(lambda: pipe_k.detect(fr_w, base_w),
+                     f"keystone detect B={bk}"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2465,6 +3023,7 @@ def main() -> int:
     selftest_phase()
     kernels += tiers_phase(cfg, capture, frames, base, consts, gpu)
     geometry_phase(gpu, targets, dev)
+    objects_phase(cfg, capture, frames, base, consts, gpu, dev)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

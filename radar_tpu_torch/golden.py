@@ -3,12 +3,14 @@
 
 The reference-parity range pipeline (its butterfly FFT, base frame,
 FindAbsMax and per-frame detection, the truth of ``cli verify``),
-windows, the TDM virtual cube, the MTI filter, the range-Doppler map and
+windows, the TDM virtual cube, the MTI filter, the range-Doppler map,
 the CA, GO/SO and OS CFAR detectors with their Erlang-matched alphas,
-copied as they are; ``tests/test_torch_constants.py`` holds each
-copy's output equal to the original's.  The rest of the golden model
-(Capon, MUSIC, clusters, ego-motion) comes with the slices that need
-it.
+and the object-level stages (TDM compensation, velocity disambiguation,
+calibration, keystone, the angle FFT, the planar scan, Capon, the
+cluster labels and the clutter map), copied as they are;
+``tests/test_torch_constants.py`` holds each copy's output equal to the
+original's.  The rest of the golden model (MUSIC, the scene maps,
+ego-motion) comes with the slices that need it.
 """
 
 from __future__ import annotations
@@ -643,3 +645,406 @@ def mti_filter(
     if order == 2:
         return x - prev
     return x - 2.0 * prev + np.roll(x, 2 * stride, axis=axis)
+
+
+# --------------------------------------------------------------------------
+# Object-level detection: TDM velocity, keystone, angle refinement,
+# clusters and the clutter map (copied from radar_tpu.golden)
+# --------------------------------------------------------------------------
+
+def mimo_doppler_compensate(
+    snaps: np.ndarray, doppler_bin: np.ndarray, cfg: RadarConfig = DEFAULT_CONFIG
+) -> np.ndarray:
+    """Remove the TDM time-offset phase from virtual-array snapshots.
+
+    TX ``tx``'s chirps lag TX0's by ``tx * Tr``; a target with Doppler
+    frequency fd therefore adds phase 2*pi*fd*tx*Tr to that TX's virtual
+    elements, which would bias the angle estimate.  ``doppler_bin`` is the
+    fftshifted Doppler index of the detection.
+
+    Args:
+      snaps: complex (..., num_virtual_rx); doppler_bin: int (...).
+    """
+    if cfg.num_tx == 1:
+        return np.asarray(snaps)
+    d = cfg.doppler_fft_size
+    fd = (np.asarray(doppler_bin) - d // 2) / (d * cfg.slow_time_interval_s)
+    tx_idx = np.arange(cfg.num_virtual_rx) // cfg.num_rx
+    phase = -2.0 * np.pi * fd[..., None] * tx_idx * cfg.chirp_interval_s
+    return snaps * np.exp(1j * phase)
+
+
+def apply_rx_cal(
+    x: np.ndarray, cfg: RadarConfig = DEFAULT_CONFIG, axis: int = -1
+) -> np.ndarray:
+    """Multiply the per-virtual-channel calibration correction
+    (``cfg.rx_cal``) along ``axis``.  Identity when no calibration is
+    configured.  The correction is diagonal and constant, so it commutes
+    with the TDM phase compensation and with the disambiguation
+    hypothesis ramps — apply it once, wherever snapshots are formed.
+
+    Args:
+      x: complex (..., V on ``axis``, ...) snapshots or virtual cube.
+    """
+    cal = cfg.rx_cal_vector()
+    if cal is None:
+        return np.asarray(x)
+    x = np.asarray(x)
+    shape = [1] * x.ndim
+    shape[axis] = -1
+    return x * cal.reshape(shape)
+
+
+def disambiguate_velocity(
+    snaps: np.ndarray,
+    doppler_bin: np.ndarray,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """TDM Doppler-ambiguity hypothesis test (float64 golden).
+
+    TDM-MIMO divides the unambiguous Doppler span by ``num_tx`` (each
+    TX fires every ``num_tx * Tr``), so a fast target wraps in the
+    Doppler map AND receives the wrong TDM compensation — which
+    decoheres the virtual array.  That decoherence is the signal: the
+    true Doppler is ``fd_meas + h / Ts`` for one of ``num_tx``
+    hypotheses h (compensation phases differ by ``e^{-j 2 pi h t /
+    num_tx}`` on TX t's elements), and only the correct h yields a
+    coherent steering vector across the full virtual array.  Scoring
+    each hypothesis by its peak angle-spectrum power recovers the full
+    single-TX span ``[-lambda/(4 Tr), +lambda/(4 Tr))`` — for the
+    2-TX default geometry, 15.2 m/s instead of 7.6.
+
+    Args:
+      snaps: complex (..., num_virtual_rx) UNCOMPENSATED virtual-array
+        snapshots at the detected cells.
+      doppler_bin: int (...) fftshifted Doppler index per snapshot.
+
+    Returns:
+      (velocity_mps, hypothesis, snaps_compensated): float64 (...) true
+      radial velocity, int (...) winning hypothesis in [0, num_tx), and
+      the winner's compensated snapshots (..., V) for angle estimation.
+    """
+    snaps = np.asarray(snaps, np.complex128)
+    d = cfg.doppler_fft_size
+    ts = cfg.slow_time_interval_s
+    fd = (np.asarray(doppler_bin) - d // 2) / (d * ts)
+    tx_idx = np.arange(cfg.num_virtual_rx) // cfg.num_rx
+    best_score = np.full(fd.shape, -np.inf)
+    best_h = np.zeros(fd.shape, np.int64)
+    best_fd = np.array(fd, np.float64)
+    best_snaps = np.array(snaps)
+    for h in range(cfg.num_tx):
+        fd_h = fd + h / ts
+        phase = -2.0 * np.pi * fd_h[..., None] * tx_idx * cfg.chirp_interval_s
+        comp = snaps * np.exp(1j * phase)
+        spec = angle_fft(comp, cfg.num_angle_bins, cfg)
+        score = np.max(np.abs(spec) ** 2, axis=-1)
+        take = score > best_score
+        best_score = np.where(take, score, best_score)
+        best_h = np.where(take, h, best_h)
+        best_fd = np.where(take, fd_h, best_fd)
+        best_snaps = np.where(take[..., None], comp, best_snaps)
+    # wrap the extended Doppler into the symmetric single-TX span
+    lim = 1.0 / (2.0 * cfg.chirp_interval_s)
+    best_fd = np.mod(best_fd + lim, 2.0 * lim) - lim
+    return best_fd * (cfg.wavelength_m / 2.0), best_h, best_snaps
+
+
+def keystone_transform(
+    cube: np.ndarray, cfg: RadarConfig = DEFAULT_CONFIG
+) -> np.ndarray:
+    """f64 keystone transform on a VIRTUALIZED cube (..., V, D, N).
+
+    Bit-twin of ops.keystone.keystone_cube (see that module for the
+    derivation): per fast-time sample n, re-evaluate each stream's
+    slow-time inverse DFT at positions scaled by
+    ``alpha_n = f_c / (f_c + S*t_n)`` (TDM streams get the fractional
+    ``(alpha_n - 1)*tx/num_tx`` offset), removing the range-Doppler
+    coupling term ``(f_c + S*t_n) * v * t_m`` exactly for unambiguous
+    velocities.  The reference has no motion compensation
+    (one uncorrected range FFT per frame, acceleration.cu:522).
+    """
+    x = np.asarray(cube, np.complex128)
+    if x.shape[-3] != cfg.num_virtual_rx:
+        raise ValueError(
+            f"keystone_transform wants a virtualized cube with "
+            f"{cfg.num_virtual_rx} channels, got {x.shape[-3]}"
+        )
+    d, n_s = x.shape[-2], x.shape[-1]
+    t_n = np.arange(n_s, dtype=np.float64) / cfg.sample_rate_hz
+    alpha = cfg.carrier_hz / (cfg.carrier_hz + cfg.slope_hz_per_s * t_n)
+    k = np.arange(d)
+    k_signed = np.where(k < (d + 1) // 2, k, k - d).astype(np.float64)
+    m = np.arange(d, dtype=np.float64)
+    lead = x.shape[:-3]
+    xv = x.reshape((-1, cfg.num_tx, cfg.num_rx, d, n_s))
+    spec = np.fft.fft(xv, axis=-2)
+    out = np.empty_like(xv)
+    for tx in range(cfg.num_tx):
+        pos = (alpha[:, None] * m[None, :]
+               + (alpha - 1.0)[:, None] * (tx / cfg.num_tx))  # (N, D)
+        kmat = np.exp(2j * np.pi / d
+                      * pos[:, :, None] * k_signed[None, None, :]) / d
+        out[:, tx] = np.einsum("nmk,brkn->brmn", kmat, spec[:, tx])
+    return out.reshape(lead + (cfg.num_virtual_rx, d, n_s))
+
+
+def angle_fft(
+    rx_snapshot: np.ndarray, num_bins: int, cfg: RadarConfig = DEFAULT_CONFIG
+) -> np.ndarray:
+    """Angle spectrum via zero-padded FFT across the (virtual) RX axis.
+
+    Args:
+      rx_snapshot: complex (..., num_virtual_rx) values at a detected
+        (range, doppler) cell.
+
+    Returns:
+      (..., num_bins) magnitude spectrum, fftshifted so bin k maps to
+      sin(theta) = (k - num_bins/2) / (num_bins * rx_spacing_wavelengths).
+    """
+    spec = np.fft.fft(rx_snapshot, n=num_bins, axis=-1)
+    return np.fft.fftshift(spec, axes=-1)
+
+
+def aoa_2d(
+    snapshot: np.ndarray, cfg: RadarConfig = DEFAULT_CONFIG
+) -> tuple[float, float]:
+    """Joint (azimuth, elevation) from one virtual-array snapshot via a
+    matched-filter scan over the planar steering grid.
+
+    Steering for element at (x, z) wavelengths (x: azimuth axis, z: up):
+    a_v = exp(j 2 pi (x sin(az) cos(el) + z sin(el))).
+
+    Args:
+      snapshot: complex (num_virtual_rx,) cell values (TDM-compensated).
+
+    Returns:
+      (azimuth_deg, elevation_deg) at the grid argmax.
+    """
+    pos = cfg.virtual_positions_wl()  # (V, 2)
+    az = np.linspace(*cfg.angle_grid_deg[:2], int(cfg.angle_grid_deg[2]))
+    el = np.linspace(
+        *cfg.elevation_grid_deg[:2], int(cfg.elevation_grid_deg[2])
+    )
+    saz, cel = np.sin(np.deg2rad(az)), np.cos(np.deg2rad(el))
+    sel = np.sin(np.deg2rad(el))
+    phase = 2 * np.pi * (
+        pos[None, None, :, 0] * saz[:, None, None] * cel[None, :, None]
+        + pos[None, None, :, 1] * sel[None, :, None]
+    )  # (n_az, n_el, V)
+    spec = np.exp(-1j * phase) @ snapshot  # (n_az, n_el)
+    i, j = np.unravel_index(np.argmax(np.abs(spec)), spec.shape)
+    return float(az[i]), float(el[j])
+
+
+def capon_spectrum(
+    snapshots: np.ndarray,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    diagonal_loading: float = 1e-3,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Capon (MVDR) angle spectrum from multiple snapshots of the RX array.
+
+    Args:
+      snapshots: complex (..., num_snapshots, n_rx) — e.g. the chirp axis
+        at a detected range bin.
+
+    Returns:
+      (angles_deg, spectrum) with spectrum shape (..., n_angles):
+      P(theta) = 1 / (a^H R^{-1} a).
+    """
+    x = np.asarray(snapshots, dtype=np.complex128)
+    n_rx = x.shape[-1]
+    n_snap = x.shape[-2]
+    r = np.einsum("...si,...sj->...ij", x, x.conj()) / n_snap
+    tr = np.trace(r, axis1=-2, axis2=-1).real / n_rx
+    r = r + (diagonal_loading * tr)[..., None, None] * np.eye(n_rx)
+    r_inv = np.linalg.inv(r)
+
+    lo, hi, n = cfg.angle_grid_deg
+    angles = np.linspace(lo, hi, int(n))
+    k = 2.0 * np.pi * cfg.rx_spacing_wavelengths
+    steering = np.exp(
+        1j * k * np.sin(np.deg2rad(angles))[:, None] * np.arange(n_rx)[None, :]
+    )  # (n_angles, n_rx)
+    denom = np.einsum(
+        "ai,...ij,aj->...a", steering.conj(), r_inv, steering
+    ).real
+    return angles, 1.0 / np.maximum(denom, 1e-30)
+
+
+def cluster_hits(hits: np.ndarray) -> np.ndarray:
+    """Connected-component labels of a CFAR hit map (float64-free but
+    exact by construction): 8-connectivity, Doppler (axis -2) wraps,
+    range (axis -1) does not.
+
+    Twin of ``ops.cluster.label_hits``; both label each component with
+    its minimum flat cell index (d * R + r), so the arrays compare
+    bit-for-bit.  Plain BFS — this is the irregular CPU formulation the
+    TPU path replaces with vectorized min-label propagation.
+
+    Args:
+      hits: bool (..., D, R).
+
+    Returns:
+      int32 labels, same shape; -1 for non-hit cells.
+    """
+    hits = np.asarray(hits, bool)
+    lead = hits.shape[:-2]
+    d_sz, r_sz = hits.shape[-2], hits.shape[-1]
+    flat = hits.reshape((-1, d_sz, r_sz))
+    out = np.full(flat.shape, -1, np.int32)
+    for b in range(flat.shape[0]):
+        h = flat[b]
+        seen = np.zeros_like(h)
+        for d0 in range(d_sz):
+            for r0 in range(r_sz):
+                if not h[d0, r0] or seen[d0, r0]:
+                    continue
+                comp = [(d0, r0)]
+                seen[d0, r0] = True
+                q = [(d0, r0)]
+                while q:
+                    d, r = q.pop()
+                    for dd in (-1, 0, 1):
+                        for dr in (-1, 0, 1):
+                            nd = (d + dd) % d_sz  # Doppler wraps
+                            nr = r + dr
+                            if not 0 <= nr < r_sz:
+                                continue  # range does not
+                            if h[nd, nr] and not seen[nd, nr]:
+                                seen[nd, nr] = True
+                                comp.append((nd, nr))
+                                q.append((nd, nr))
+                label = min(d * r_sz + r for d, r in comp)
+                for d, r in comp:
+                    out[b, d, r] = label
+    return out.reshape(lead + (d_sz, r_sz))
+
+
+def clutter_map_alpha(
+    pfa: float, beta: float, block: int = 1, n_pulses: int = 1
+) -> float:
+    """Clutter-map (Nitzberg) CFAR threshold multiplier (float64 golden).
+
+    Per-cell recursive background updated once per BLOCK of frames with
+    the block mean, ``m <- (1-beta) m + beta mean(block)``, decision
+    ``p > alpha * m`` against the pre-update map.
+
+    ``n_pulses = 1`` (exponential cells): the background is a weighted
+    sum of past exponentials with each block contributing ``block``
+    terms of weight ``beta (1-beta)^i / block``, so
+
+        Pfa(alpha) = prod_{i>=0} (1 + alpha beta (1-beta)^i / s)^{-s}
+
+    with s = block (the exponential MGF per term; block=1 recovers the
+    classic per-frame Nitzberg product).
+
+    ``n_pulses = N > 1`` (RX-summed / non-coherently integrated maps,
+    the Erlang match every spatial kind already has): the cell under
+    test is Gamma(N, 1) and each map update's block mean is
+    Gamma(N*block, 1)/block, so with ``w_i = beta (1-beta)^i / block``
+    and ``s = N * block``
+
+        M(t)       = prod_i (1 - t w_i)^{-s}          (background MGF)
+        Pfa(alpha) = sum_{k=0}^{N-1} alpha^k/k! * M^(k)(-alpha)
+
+    (condition the Gamma survival series on the background and push the
+    expectation through term by term: E[m^k e^{-alpha m}] is the k-th
+    MGF derivative at -alpha).  The derivatives come from the
+    log-derivative recursion ``M^(k) = sum_j C(k-1,j) M^(j) L^(k-j)``
+    with ``L^(r)(-a) = s (r-1)! sum_i w_i^r/(1+a w_i)^r``, carried as
+    ratios ``R_k = M^(k)/M`` (all positive) so the whole evaluation
+    stays in log space.  Monotone in alpha; solved by bisection with
+    the product truncated once the remaining weights are negligible.
+    MC-validated at the design rate for N in {1, 2, 4} (tests).
+    """
+    import math
+    from math import log1p
+
+    if not 0.0 < beta < 1.0:
+        raise ValueError(f"beta must be in (0, 1), got {beta}")
+    if block < 1:
+        raise ValueError(f"block must be >= 1, got {block}")
+    if n_pulses < 1:
+        raise ValueError(f"n_pulses must be >= 1, got {n_pulses}")
+    n_terms = 1
+    while beta * (1.0 - beta) ** n_terms > 1e-14 and n_terms < 100000:
+        n_terms += 1
+    w = [beta * (1.0 - beta) ** i / block for i in range(n_terms)]
+    s = float(block) * n_pulses
+
+    def log_pfa(alpha: float) -> float:
+        logm = -s * sum(log1p(alpha * wi) for wi in w)
+        if n_pulses == 1:
+            return logm
+        lr = [0.0] * n_pulses  # lr[r] = L^(r)(-alpha), r = 1..N-1
+        for r in range(1, n_pulses):
+            lr[r] = (s * math.factorial(r - 1)
+                     * sum(wi**r / (1.0 + alpha * wi) ** r for wi in w))
+        ratio = [1.0]  # R_k = M^(k)(-alpha) / M(-alpha)
+        for k in range(1, n_pulses):
+            ratio.append(sum(math.comb(k - 1, j) * ratio[j] * lr[k - j]
+                             for j in range(k)))
+        series = sum(alpha**k / math.factorial(k) * ratio[k]
+                     for k in range(n_pulses))
+        return logm + math.log(series)
+
+    lo, hi = 1e-6, 1e9
+    target = math.log(pfa)
+    for _ in range(200):
+        mid = math.sqrt(lo * hi)
+        if log_pfa(mid) > target:
+            lo = mid
+        else:
+            hi = mid
+    return math.sqrt(lo * hi)
+
+
+def clutter_map_cfar(
+    power: np.ndarray,
+    pfa: float,
+    beta: float = 0.25,
+    m0: np.ndarray | None = None,
+    block: int = 16,
+    n_pulses: int = 1,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Clutter-map CFAR over a frame sequence (float64 golden).
+
+    Each cell keeps its OWN recursive background estimate, so the
+    detector adapts exactly to spatially varying clutter floors that a
+    spatial training window averages wrongly (rain/ground patches,
+    floor steps).  The map updates once per BLOCK of frames with the
+    block mean — the scan-cadence discipline classic clutter maps use:
+    at per-CPI frame rates a per-frame EMA absorbs even a moving target
+    (measured: a 3 m/s target dwells ~16 frames in one 0.39 m range
+    cell and vanished after ONE frame at beta=0.25), so choose
+    ``block >= cell_size / (v_min * frame_interval)``.  Decisions
+    compare against the PRE-update map (no self-masking within a
+    block).  With no ``m0`` the first block seeds the map (its mean)
+    and emits no hits (warmup); the trailing partial block detects
+    normally and folds into the final map with the same beta.
+
+    Args:
+      power: (frames, doppler, range) non-negative power.
+      m0: optional (doppler, range) initial background (a previous
+        call's returned map — the serving path carries it).
+
+    Returns:
+      (hits bool (frames, d, r), m_out (d, r) final background).
+    """
+    p = np.asarray(power, np.float64)
+    alpha = clutter_map_alpha(pfa, beta, block, n_pulses)
+    hits = np.zeros(p.shape, bool)
+    start = 0
+    if m0 is None:
+        m = p[:block].mean(axis=0)
+        start = min(block, p.shape[0])
+    else:
+        m = np.asarray(m0, np.float64).copy()
+    f = start
+    while f < p.shape[0]:
+        blk = p[f : f + block]
+        hits[f : f + block] = blk > alpha * m
+        m = (1.0 - beta) * m + beta * blk.mean(axis=0)
+        f += block
+    return hits, m

@@ -25,12 +25,18 @@ constant of kernels 1 and 2 (``megakernel.mega_constants``).  Each op
 launches its CUDA kernel for CUDA tensors and takes its plain version
 for CPU tensors; ``cfar_impl`` / ``topk_impl`` 'xla' pin the plain
 versions, 'pallas' and ``rd_impl`` 'fused-pallas' the kernels.
+
+The object level: ``detect_objects`` clusters the hit map
+(``ops.cluster``) and ``detect_cmap`` swaps spatial CFAR for the
+clutter map (``ops.cmap``), both on the maps path (kernel 2, then
+kernel 3); ``disambiguate``, ``refine_2d`` and ``capon_refine``
+re-estimate detected cells (``ops.aoa``); ``keystone=True`` applies the
+keystone transform (``ops.keystone``) on the complex-cube front end.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import NamedTuple
 
 import numpy as np
@@ -38,8 +44,15 @@ import torch
 from torch import nn
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, LIGHT_SPEED, RadarConfig
-from radar_tpu_torch.ops.aoa import angle_fft_spectrum
+from radar_tpu_torch.ops.aoa import (
+    angle_fft_spectrum,
+    aoa_2d_from_snapshots,
+    capon_aoa_at_cells,
+    disambiguate_velocity,
+)
 from radar_tpu_torch.ops.cfar import cfar_detect
+from radar_tpu_torch.ops.cluster import ClusterResult, cluster_detections
+from radar_tpu_torch.ops.cmap import clutter_map_cfar
 from radar_tpu_torch.ops.cuda.megakernel import (
     K_MAX,
     detections_from_shorts,
@@ -56,8 +69,15 @@ from radar_tpu_torch.ops.fuseddft import (
     doppler_from_range_planes,
     fused_rd_planes,
 )
+from radar_tpu_torch.ops.keystone import keystone_cube
+from radar_tpu_torch.ops.physics import (
+    apply_rx_cal,
+    cell_physics,
+    mimo_compensate,
+)
 from radar_tpu_torch.ops.preproc import mean_clutter_removal, mti_clutter_removal
 from radar_tpu_torch.ops.rangefft import range_doppler
+from radar_tpu_torch.ops.window import make_window
 from radar_tpu_torch.utils.device import resolve_device
 
 
@@ -122,17 +142,6 @@ def topk_cells(power: torch.Tensor, hits: torch.Tensor, k: int,
     return num_hits, top_idx, top_power, valid, d_bin, r_bin
 
 
-def cell_physics(d_bin: torch.Tensor, r_bin: torch.Tensor, cfg: RadarConfig):
-    """Map (doppler, range) bins to (range m, velocity m/s)."""
-    rng_hz = r_bin.to(torch.float32) * (cfg.sample_rate_hz / cfg.range_fft_size)
-    range_m = rng_hz * (LIGHT_SPEED / (2.0 * cfg.slope_hz_per_s))
-    dopp_hz = (d_bin - cfg.doppler_fft_size // 2).to(torch.float32) / (
-        cfg.doppler_fft_size * cfg.slow_time_interval_s
-    )
-    velocity = dopp_hz * (cfg.wavelength_m / 2.0)
-    return range_m, velocity
-
-
 def virtualize_cube(cube: torch.Tensor, cfg: RadarConfig) -> torch.Tensor:
     """TDM-MIMO de-multiplex (twin of golden.virtual_cube):
     (..., rx, chirps, samples) -> (..., tx*rx, chirps_per_tx, samples)."""
@@ -140,39 +149,6 @@ def virtualize_cube(cube: torch.Tensor, cfg: RadarConfig) -> torch.Tensor:
         return cube
     return torch.cat([cube[..., :, tx::cfg.num_tx, :]
                       for tx in range(cfg.num_tx)], dim=-3)
-
-
-def apply_rx_cal(
-    x: torch.Tensor, cfg: RadarConfig, axis: int = -1
-) -> torch.Tensor:
-    """Multiply the per-virtual-channel calibration correction
-    (``cfg.rx_cal``) along ``axis``; identity when none is configured."""
-    cal = cfg.rx_cal_vector()
-    if cal is None:
-        return x
-    shape = [1] * x.ndim
-    shape[axis] = -1
-    return x * torch.as_tensor(cal, dtype=torch.complex64,
-                               device=x.device).reshape(shape)
-
-
-def mimo_compensate(
-    snaps: torch.Tensor, d_bin: torch.Tensor, cfg: RadarConfig
-) -> torch.Tensor:
-    """Remove the TDM time-offset Doppler phase from virtual snapshots
-    (twin of golden.mimo_doppler_compensate).
-
-    Args:
-      snaps: complex64 (..., K, V); d_bin: int32 (..., K).
-    """
-    if cfg.num_tx == 1:
-        return snaps
-    d = cfg.doppler_fft_size
-    fd = (d_bin - d // 2).to(torch.float32) / (d * cfg.slow_time_interval_s)
-    tx_idx = (torch.arange(cfg.num_virtual_rx, device=snaps.device)
-              // cfg.num_rx).to(torch.float32)
-    phase = (-2.0 * math.pi * cfg.chirp_interval_s) * fd[..., None] * tx_idx
-    return snaps * torch.complex(torch.cos(phase), torch.sin(phase))
 
 
 def gather_snapshots(rd: torch.Tensor, top_idx: torch.Tensor) -> torch.Tensor:
@@ -414,6 +390,10 @@ class RDPipeline(nn.Module):
         base = pipe.prepare_base(frames[0])     # empty-scene frame(s)
         out = pipe.detect(frames[1:], base)      # RDResult, batched
         nci = pipe.detect_integrated(frames[1:], base, 4)  # per 4 frames
+        out, clusters = pipe.detect_objects(frames[1:], base)
+        out, m = pipe.detect_cmap(frames[1:], base)  # m: next call's m0
+        vel, az, hyp = pipe.disambiguate(frames[1:], base, out.doppler_bin,
+                                         out.range_bin)
 
     Attributes:
       rd_impl: 'auto'/'mega' (kernel 1, the detect op, for CA, GO and
@@ -423,6 +403,10 @@ class RDPipeline(nn.Module):
         end whose RD planes feed the CFAR and top-K: 'fused-pallas'
         (kernel 8; raises for CPU tensors), 'fused', 'planar', 'mxu' and
         'fft' (plain torch).
+      keystone: the keystone range-migration transform on the
+        virtualized cube before the FFTs; it needs the complex-cube
+        front end, so 'auto' runs 'fft', and only 'fft' / 'mxu' may be
+        pinned (``ValueError`` otherwise, as in the JAX package).
       use_base_frame: False ignores the base cube every method is given
         (clutter then follows ``cfg.effective_clutter`` without one).
       cfar_impl: 'auto' (under 'mega'/'mega-maps' the CA / GO / SO
@@ -449,12 +433,14 @@ class RDPipeline(nn.Module):
             if impl not in impls:
                 raise NotImplementedError(
                     f"{name} {impl!r} has no counterpart in the port (it "
-                    f"takes {', '.join(impls)}; the plain versions stand "
-                    "for Pallas interpret mode: ROADMAP.md queue 1 item 8)"
+                    f"takes {', '.join(impls)}; CPU tensors take the plain "
+                    "versions, which stand for Pallas interpret mode: "
+                    "ROADMAP.md queue 1, 'Not to port')"
                 )
-        if keystone:
-            raise NotImplementedError(
-                "keystone is not ported yet (ROADMAP.md queue 1 item 10)"
+        if keystone and rd_impl not in ("auto", "fft", "mxu"):
+            raise ValueError(
+                f"keystone=True needs the complex-cube front-end "
+                f"(rd_impl 'auto'/'fft'/'mxu'), got {rd_impl!r}"
             )
         self.cfg = cfg
         self.max_detections = int(max_detections)
@@ -462,6 +448,7 @@ class RDPipeline(nn.Module):
         self.cfar_impl = cfar_impl
         self.rd_impl = rd_impl
         self.topk_impl = topk_impl
+        self.keystone = bool(keystone)
         device = resolve_device(device)
         for name, t in mega_constants(cfg).items():
             self.register_buffer(name, t.to(device), persistent=False)
@@ -483,10 +470,17 @@ class RDPipeline(nn.Module):
     def _detect_kernel(self) -> bool:
         """Whether :meth:`detect` runs the detect op (kernel 1): the
         JAX package's condition."""
-        return (self.rd_impl in ("auto", "mega")
+        return (self._rd_impl() in ("auto", "mega")
                 and self.cfg.cfar_kind in ("ca", "goca", "soca")
                 and self.cfar_impl == "auto"
                 and self.max_detections <= K_MAX)
+
+    def _rd_impl(self) -> str:
+        """The front end that runs: under ``keystone`` the complex cube
+        ('fft' for 'auto'), as in the JAX package."""
+        if self.keystone and self.rd_impl == "auto":
+            return "fft"
+        return self.rd_impl
 
     @staticmethod
     def _resolve(impl: str, t: torch.Tensor) -> str:
@@ -523,11 +517,14 @@ class RDPipeline(nn.Module):
     @torch.no_grad()
     def rd_cube(self, shorts, base_cube=None) -> torch.Tensor:
         """(..., TX*V, D, R) complex64 range-Doppler maps of the
-        complex-cube front end: decode, clutter removal, TDM demux, then
-        DFT products ('mxu') or ``torch.fft`` (every other rd_impl)."""
+        complex-cube front end: decode, clutter removal, TDM demux, the
+        keystone transform when ``keystone``, then DFT products ('mxu')
+        or ``torch.fft`` (every other rd_impl)."""
         cube = decode_to_cube(self._as_tensor(shorts), self.cfg)
         cube = virtualize_cube(_declutter(cube, self._base(base_cube),
                                           self.cfg), self.cfg)
+        if self.keystone:
+            cube = keystone_cube(cube, self.cfg)
         if self.rd_impl == "mxu":
             return range_doppler_mxu(cube, self.cfg)
         return range_doppler(cube, self.cfg)
@@ -598,12 +595,113 @@ class RDPipeline(nn.Module):
             self.cfg, cfar_n_pulses=n * self.cfg.cfar_pulses_effective)
         hits = self._cfar(p_int, cfg_int)
         last = shorts.reshape((-1, n) + shorts.shape[1:])[:, -1]
-        if self.rd_impl in ("auto", "mega", "mega-maps"):
+        if self._rd_impl() in ("auto", "mega", "mega-maps"):
             def snaps_fn(top_idx):
                 return snapshots_from_shorts(last, base, top_idx, self.cfg)
         else:
             snaps_fn = self._maps(last, base, want_hits=False)[2]
         return self._tail(p_int, hits, snaps_fn)
+
+    @torch.no_grad()
+    def detect_objects(self, shorts, base_cube=None
+                       ) -> tuple[RDResult, ClusterResult]:
+        """:meth:`detect` plus object-level clustering of the CFAR hit
+        map (``ops.cluster``): returns ``(RDResult, ClusterResult)``.
+        Clustering needs the whole power and hit maps, which the detect
+        op never writes, so 'auto'/'mega' take the maps op here (kernel
+        2, then top-K), as JAX swaps 'mega' for 'mega-maps'."""
+        shorts = self._as_tensor(shorts)
+        power, hits, snaps_fn = self._maps(shorts, self._base(base_cube))
+        out = self._tail(power, hits, snaps_fn)
+        clusters = cluster_detections(power, hits, out.doppler_bin,
+                                      out.range_bin, out.valid, self.cfg)
+        return out, clusters
+
+    @torch.no_grad()
+    def detect_cmap(self, shorts, base_cube=None, beta: float = 0.25,
+                    m0=None, block: int = 16
+                    ) -> tuple[RDResult, torch.Tensor]:
+        """Detection with the clutter-map detector instead of spatial
+        CFAR (``ops.cmap.clutter_map_cfar``): each cell's threshold comes
+        from its own recursive background over frames.  Pass the
+        previous call's returned map as ``m0`` to continue a stream (one
+        block per call); without it the first ``block`` frames seed the
+        map and emit no hits.  The front end runs power only (kernel 2
+        without its threshold under 'auto'/'mega').
+
+        Returns ``(RDResult, m_out)``."""
+        cfg = self.cfg
+        shorts = self._as_tensor(shorts)
+        power, _, snaps_fn = self._maps(shorts, self._base(base_cube),
+                                        want_hits=False)
+        if m0 is not None:
+            m0 = self._as_tensor(m0)
+        hits, m_out = clutter_map_cfar(
+            power, cfg.cfar_pfa, beta, m0, block=block,
+            n_pulses=cfg.cfar_pulses_effective)
+        return self._tail(power, hits, snaps_fn), m_out
+
+    @torch.no_grad()
+    def cell_snapshots(self, shorts, base_cube, d_bin, r_bin
+                       ) -> torch.Tensor:
+        """Calibrated (B, K, TX*V) snapshots of detected cells, before
+        MIMO compensation, recomputed from the raw frames: the DFT cells
+        of those detections and nothing else (the JAX package gathers
+        them from the whole fused RD planes), their range-row products
+        in float64 so no TF32 switch reaches the refiners."""
+        d_bin = self._as_tensor(d_bin)
+        top_idx = d_bin * self.cfg.range_fft_size + self._as_tensor(r_bin)
+        snaps = snapshots_from_shorts(self._as_tensor(shorts),
+                                      self._base(base_cube), top_idx,
+                                      self.cfg, exact=True)
+        return apply_rx_cal(snaps, self.cfg)
+
+    @torch.no_grad()
+    def disambiguate(self, shorts, base_cube, d_bin, r_bin):
+        """(velocity_mps, azimuth_deg, hypothesis) (B, K) of detected
+        cells over the EXTENDED velocity span: TDM-MIMO divides the
+        unambiguous velocity by ``num_tx``, and the hypothesis test
+        (``ops.aoa.disambiguate_velocity``) picks the TDM compensation
+        that keeps the virtual array coherent; the azimuth is re-estimated
+        from the winner's snapshots."""
+        snaps = self.cell_snapshots(shorts, base_cube, d_bin, r_bin)
+        vel, hyp, comp = disambiguate_velocity(
+            snaps, self._as_tensor(d_bin), self.cfg)
+        azimuth, _ = aoa_from_snapshots(comp, self.cfg)
+        return vel, azimuth, hyp
+
+    @torch.no_grad()
+    def refine_2d(self, shorts, base_cube, d_bin, r_bin):
+        """(azimuth_deg, elevation_deg) (B, K) of detected cells by the
+        planar grid scan (``ops.aoa.aoa_2d_from_snapshots``); elevation
+        needs an elevated TX (``cfg.tx_positions_wl``)."""
+        snaps = self.cell_snapshots(shorts, base_cube, d_bin, r_bin)
+        return aoa_2d_from_snapshots(
+            mimo_compensate(snaps, self._as_tensor(d_bin), self.cfg),
+            self.cfg)
+
+    @torch.no_grad()
+    def capon_refine(self, shorts, base_cube, d_bin, r_bin) -> torch.Tensor:
+        """MVDR azimuth (B, K) of detected cells, from chirp-domain
+        snapshots at each detection's range bin (the chirps give the
+        covariance its snapshots), with TDM phase compensation."""
+        return capon_aoa_at_cells(self.range_cube(shorts, base_cube),
+                                  self._as_tensor(d_bin),
+                                  self._as_tensor(r_bin), self.cfg)
+
+    @torch.no_grad()
+    def range_cube(self, shorts, base_cube=None) -> torch.Tensor:
+        """(B, TX*V, chirps_per_tx, R) complex64 calibrated range FFT per
+        virtual channel, before the Doppler FFT: the input of
+        :meth:`capon_refine` (decode, clutter removal, TDM demux, the
+        window and ``torch.fft``)."""
+        cfg = self.cfg
+        cube = decode_to_cube(self._as_tensor(shorts), cfg)
+        cube = _declutter(cube, self._base(base_cube), cfg)
+        cube = apply_rx_cal(virtualize_cube(cube, cfg), cfg, axis=-3)
+        x = cube * make_window(cube.shape[-1], cfg.window_kind,
+                               torch.float32, cube.device)
+        return torch.fft.fft(x, n=cfg.range_fft_size, dim=-1)
 
     def _maps(self, shorts, base, want_hits: bool = True):
         """The front end up to its (power, hits) maps: the maps op for
@@ -613,7 +711,7 @@ class RDPipeline(nn.Module):
         complex snapshots; ``want_hits=False`` skips the CFAR (``hits``
         None).  ``base`` is already resolved (:meth:`_base`)."""
         cfg = self.cfg
-        impl = self.rd_impl
+        impl = self._rd_impl()
         if impl in ("fft", "mxu"):
             rd = self.rd_cube(shorts, base)
             power = integrate_power(rd)

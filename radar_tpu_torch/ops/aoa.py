@@ -1,14 +1,27 @@
-"""Angle-FFT angle of arrival (port of ``radar_tpu.ops.aoa``, the
-estimator on the detection path)."""
+"""Angle of arrival (port of ``radar_tpu.ops.aoa``): the angle FFT on
+the detection path, the TDM velocity hypothesis test, and the two
+refiners, Capon (MVDR) and the planar (azimuth, elevation) scan.
+
+The refiners' contractions are tiny (the virtual array has 4-12
+elements) but MVDR is ill-conditioned by design, so they must not run
+at reduced precision: the JAX package pins them to HIGHEST.  Here they
+are elementwise sums over the array axis, which no global TF32 switch
+(``torch.backends.cuda.matmul.allow_tf32``) reaches.
+"""
 
 from __future__ import annotations
 
 import functools
+import math
 
 import numpy as np
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.ops.physics import doppler_hz, mimo_compensate, tdm_rotate
+
+# Capon's diagonal loading, times the covariance's mean eigenvalue
+DIAGONAL_LOADING = 1e-3
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,3 +57,208 @@ def angle_fft_spectrum(
     v = min(rx_snapshot.shape[-1], n)
     w = _angle_rows(v, n, rx_snapshot.device)
     return sum(rx_snapshot[..., i : i + 1] * w[i] for i in range(v))
+
+
+def disambiguate_velocity(
+    snaps: torch.Tensor,
+    d_bin: torch.Tensor,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """TDM Doppler-ambiguity hypothesis test (twin of
+    ``golden.disambiguate_velocity``): a static unroll over the
+    ``num_tx`` hypotheses, each a phase ramp on the snapshots scored by
+    the peak of their angle spectrum.
+
+    Args:
+      snaps: complex64 (..., K, V) UNCOMPENSATED virtual snapshots.
+      d_bin: int (..., K) fftshifted Doppler bin.
+
+    Returns:
+      (velocity_mps, hypothesis, snaps_comp): float32 (..., K) radial
+      velocity over the extended span, int32 (..., K) winning
+      hypothesis, complex64 (..., K, V) the winner's compensated
+      snapshots.
+    """
+    ts = cfg.slow_time_interval_s
+    fd0 = doppler_hz(d_bin, cfg)
+    if cfg.num_tx == 1:
+        return (fd0 * (cfg.wavelength_m / 2.0),
+                torch.zeros_like(d_bin, dtype=torch.int32), snaps)
+    best_score = torch.full(fd0.shape, -math.inf, device=snaps.device)
+    best_h = torch.zeros(d_bin.shape, dtype=torch.int32, device=snaps.device)
+    best_fd = fd0
+    best_snaps = snaps
+    for h in range(cfg.num_tx):
+        # hypothesis h: the true Doppler is h / Ts past the aliased one
+        fd_h = fd0 + h / ts
+        comp = tdm_rotate(snaps, fd_h, cfg)
+        spec = angle_fft_spectrum(comp, cfg)
+        score = (torch.abs(spec) ** 2).amax(dim=-1)
+        take = score > best_score
+        best_score = torch.where(take, score, best_score)
+        best_h = torch.where(take, h, best_h)
+        best_fd = torch.where(take, fd_h, best_fd)
+        best_snaps = torch.where(take[..., None], comp, best_snaps)
+    lim = 1.0 / (2.0 * cfg.chirp_interval_s)
+    # a floor mod, as jnp.mod: torch.fmod would keep the dividend's sign
+    best_fd = torch.remainder(best_fd + lim, 2.0 * lim) - lim
+    return best_fd * (cfg.wavelength_m / 2.0), best_h, best_snaps
+
+
+def angle_bins_deg(cfg: RadarConfig = DEFAULT_CONFIG) -> np.ndarray:
+    """Degrees for each (fftshifted) angle-FFT bin."""
+    n = cfg.num_angle_bins
+    sin_theta = (np.arange(n) - n // 2) / (n * cfg.rx_spacing_wavelengths)
+    return np.rad2deg(np.arcsin(np.clip(sin_theta, -1.0, 1.0)))
+
+
+def _steering_matrix(n_rx: int, cfg: RadarConfig) -> np.ndarray:
+    """(angles_deg (n_angles,), steering complex64 (n_angles, n_rx)) on
+    ``cfg.angle_grid_deg``; NumPy copy of
+    ``radar_tpu.ops.aoa._steering_matrix``."""
+    lo, hi, n = cfg.angle_grid_deg
+    angles = np.linspace(lo, hi, int(n))
+    k = 2.0 * np.pi * cfg.rx_spacing_wavelengths
+    return angles, np.exp(
+        1j * k * np.sin(np.deg2rad(angles))[:, None] * np.arange(n_rx)[None, :]
+    ).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=16)
+def _steering_rows(n_rx: int, cfg: RadarConfig, device: torch.device):
+    """(angles_deg np (n_angles,), the same in f32 and steering c64
+    (n_angles, n_rx) on ``device``) of :func:`_steering_matrix`, built
+    once per (n_rx, cfg, device)."""
+    angles, steering = _steering_matrix(n_rx, cfg)
+    return (angles,
+            torch.as_tensor(angles, dtype=torch.float32, device=device),
+            torch.from_numpy(steering).to(device))
+
+
+def capon_spectrum(
+    snapshots: torch.Tensor,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> tuple[np.ndarray, torch.Tensor]:
+    """Capon/MVDR angle spectrum P(theta) = 1 / (a^H R^-1 a), with the
+    covariance diagonally loaded by ``DIAGONAL_LOADING`` times its mean
+    eigenvalue.
+
+    Args:
+      snapshots: complex64 (..., n_snapshots, n_rx).
+
+    Returns:
+      (angles_deg np.ndarray (n_angles,), power (..., n_angles) f32).
+    """
+    x = snapshots
+    n_rx = x.shape[-1]
+    n_snap = x.shape[-2]
+    xc = x.conj()
+    # R[i, j] = sum_s x[s, i] conj(x[s, j]) / S, one row per array element
+    r = torch.stack([(x[..., i:i + 1] * xc).sum(dim=-2)
+                     for i in range(n_rx)], dim=-2) / n_snap
+    tr = torch.diagonal(r, dim1=-2, dim2=-1).real.sum(dim=-1) / n_rx
+    eye = torch.eye(n_rx, dtype=r.dtype, device=r.device)
+    r = r + (DIAGONAL_LOADING * tr)[..., None, None] * eye
+    # inv_ex: no error check, so no host sync; a singular covariance
+    # (all-zero snapshots) gives non-finite powers, as in JAX
+    r_inv = torch.linalg.inv_ex(r)[0]
+    angles, _, a = _steering_rows(n_rx, cfg, x.device)  # a: (n_angles, n_rx)
+    # t[..., a, i] = sum_j R^-1[i, j] a[a, j]; denom = sum_i conj(a_i) t_i
+    t = sum(r_inv[..., None, :, j] * a[:, j, None] for j in range(n_rx))
+    denom = (a.conj() * t).sum(dim=-1).real
+    return angles, 1.0 / torch.clamp_min(denom, 1e-30)
+
+
+def capon_aoa_at_cells(
+    range_cube: torch.Tensor,
+    d_bin: torch.Tensor,
+    r_bin: torch.Tensor,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> torch.Tensor:
+    """Capon azimuth per detected cell, from chirp-domain snapshots.
+
+    Args:
+      range_cube: complex64 (B, V, chirps_per_tx, R): the range FFT per
+        virtual channel, before the Doppler FFT (the chirp axis gives
+        the covariance its snapshots).
+      d_bin: int (B, K) fftshifted Doppler bin (for TDM compensation).
+      r_bin: int (B, K) range bin of each detection.
+
+    Returns:
+      float32 (B, K) azimuth in degrees, on ``cfg.angle_grid_deg``.
+    """
+    b_idx = torch.arange(range_cube.shape[0], device=range_cube.device)
+    # (B, K, V, CPT) -> (B, K, CPT, V)
+    snaps = range_cube[b_idx[:, None], :, :, r_bin.to(torch.int64)]
+    # the TDM phase is constant over the chirps: one Doppler per cell
+    snaps = mimo_compensate(snaps.transpose(-2, -1), d_bin[..., None], cfg)
+    _, power = capon_spectrum(snaps, cfg)
+    angles = _steering_rows(snaps.shape[-1], cfg, snaps.device)[1]
+    return angles[torch.argmax(power, dim=-1)]
+
+
+def _steering_grid_2d(cfg: RadarConfig) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(az_deg, el_deg, conj-steering (n_az, n_el, V) c64) for the planar
+    virtual array (twin of the scan in golden.aoa_2d); NumPy copy of
+    ``radar_tpu.ops.aoa._steering_grid_2d``."""
+    pos = cfg.virtual_positions_wl()
+    az = np.linspace(*cfg.angle_grid_deg[:2], int(cfg.angle_grid_deg[2]))
+    el = np.linspace(
+        *cfg.elevation_grid_deg[:2], int(cfg.elevation_grid_deg[2])
+    )
+    saz, cel = np.sin(np.deg2rad(az)), np.cos(np.deg2rad(el))
+    sel = np.sin(np.deg2rad(el))
+    phase = 2 * np.pi * (
+        pos[None, None, :, 0] * saz[:, None, None] * cel[None, :, None]
+        + pos[None, None, :, 1] * sel[None, :, None]
+    )
+    return az, el, np.exp(-1j * phase).astype(np.complex64)
+
+
+@functools.lru_cache(maxsize=16)
+def _steering_grid_rows(cfg: RadarConfig, device: torch.device):
+    """(az f32 (n_az,), el f32 (n_el,), conj-steering c64 (n_az, n_el, V))
+    of :func:`_steering_grid_2d`, on ``device`` once per cfg."""
+    az, el, steer = _steering_grid_2d(cfg)
+    return (torch.as_tensor(az, dtype=torch.float32, device=device),
+            torch.as_tensor(el, dtype=torch.float32, device=device),
+            torch.from_numpy(steer).to(device))
+
+
+def aoa_2d_from_snapshots(
+    snaps: torch.Tensor, cfg: RadarConfig = DEFAULT_CONFIG
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Joint (azimuth, elevation) per detection from planar-array
+    snapshots: matched-filter scan of the (az, el) grid, twin of
+    golden.aoa_2d.
+
+    The azimuth axis is scanned in chunks of 24 rows, so only a (..., K,
+    24 * n_el) slab of the spectrum is live at once (the whole grid is
+    ~720 MB at B = 512, K = 16); a strict ``>`` across chunks and
+    ``torch.argmax`` (the first maximum) within one keep the global
+    argmax's first-occurrence tie-breaking.
+
+    Args:
+      snaps: complex64 (..., K, V), TDM-compensated.
+
+    Returns:
+      (azimuth_deg, elevation_deg) float32 (..., K).
+    """
+    az_t, el_t, steer_t = _steering_grid_rows(cfg, snaps.device)
+    n_el = el_t.shape[0]
+    v = snaps.shape[-1]
+    az_chunk = 24
+    best_p = best_i = None
+    for s in range(0, steer_t.shape[0], az_chunk):
+        a = steer_t[s:s + az_chunk].reshape(-1, v)       # (chunk*n_el, V)
+        spec = sum(snaps[..., j:j + 1] * a[:, j] for j in range(v))
+        p = spec.real * spec.real + spec.imag * spec.imag
+        pm = p.amax(dim=-1)
+        pi = p.argmax(dim=-1) + s * n_el
+        if best_p is None:
+            best_p, best_i = pm, pi
+        else:
+            take = pm > best_p
+            best_i = torch.where(take, pi, best_i)
+            best_p = torch.where(take, pm, best_p)
+    return az_t[best_i // n_el], el_t[best_i % n_el]

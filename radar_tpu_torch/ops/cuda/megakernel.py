@@ -497,7 +497,7 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
 
 def snapshots_from_shorts(shorts, base_cube, top_idx,
                           cfg: RadarConfig = DEFAULT_CONFIG,
-                          window=True) -> torch.Tensor:
+                          window=True, exact: bool = False) -> torch.Tensor:
     """Per-detection virtual-RX snapshots recomputed from the raw frames
     (port of the JAX function of this name, plain PyTorch on any device):
 
@@ -513,6 +513,9 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
     Args:
       shorts: int16 (..., shorts_per_frame); top_idx: int (..., K) flat
         D*R cell index.
+      exact: run the range-row products in float64 (the int16 frames
+        convert exactly), so no TF32 switch reaches them: the angle
+        refiners, which the JAX package holds at HIGHEST, ask for it.
 
     Returns:
       complex64 (..., K, TX*V), in the order of gathering from
@@ -524,16 +527,17 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
     kc, tx, r_size = cfg.chirps_per_tx, cfg.num_tx, cfg.range_fft_size
     lead = shorts.shape[:-1]
     k = top_idx.shape[-1]
-    raw = shorts.reshape(-1, c * v, s2).to(torch.float32)
+    work = torch.float64 if exact else torch.float32
+    raw = shorts.reshape(-1, c * v, s2).to(work)
     if mode == "base":
-        raw -= base_raw_interleave(base_cube).reshape(c * v, s2)
+        raw -= base_raw_interleave(base_cube).reshape(c * v, s2).to(work)
     top_idx = top_idx.reshape(-1, k).to(torch.int64)
     d_bin, r_bin = top_idx // r_size, top_idx % r_size
-    a_re, a_im = interleaved_range_matrices(cfg.num_samples, r_size, window,
-                                            raw.device)
+    a_re, a_im = (a.to(work) for a in interleaved_range_matrices(
+        cfg.num_samples, r_size, window, raw.device))
     # range planes at the detected bins: (B, K, C*V)
-    g_re = torch.einsum("bkj,bmj->bkm", a_re[r_bin], raw)
-    g_im = torch.einsum("bkj,bmj->bkm", a_im[r_bin], raw)
+    g_re = torch.einsum("bkj,bmj->bkm", a_re[r_bin], raw).to(torch.float32)
+    g_im = torch.einsum("bkj,bmj->bkm", a_im[r_bin], raw).to(torch.float32)
     b = raw.shape[0]
     g_re = g_re.reshape(b, k, c, v)
     g_im = g_im.reshape(b, k, c, v)

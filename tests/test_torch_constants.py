@@ -395,3 +395,139 @@ def test_mega_constants_fold_matches_jax_plan(overrides):
     got = megakernel.mega_constants(config_from_jax(cfg))
     np.testing.assert_array_equal(got["ft_re"].numpy(), np.asarray(fr).T)
     np.testing.assert_array_equal(got["ft_im"].numpy(), np.asarray(fi).T)
+
+
+# -- the object-level slice: golden copies and host constants --------------
+
+OBJECT_CONFIGS = [
+    dict(num_tx=2),
+    dict(num_tx=2, tx_positions_wl=((0.0, 0.0), (0.0, 0.5)),
+         rx_cal=tuple(np.exp(1j * np.arange(8) * 0.3) * 1.1)),
+    dict(num_tx=3, num_chirps=96, rx_spacing_wavelengths=0.45,
+         angle_grid_deg=(-60.0, 60.0, 97), elevation_grid_deg=(-20.0, 20.0,
+                                                               21),
+         tx_positions_wl=((0.0, 0.0), (2.0, 0.0), (1.0, 0.5))),
+    dict(num_angle_bins=16),
+]
+
+
+def _complex(rng, shape):
+    return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+
+@pytest.mark.parametrize("overrides", OBJECT_CONFIGS, ids=str)
+@pytest.mark.parametrize("name", [
+    "mimo_doppler_compensate", "apply_rx_cal", "disambiguate_velocity",
+    "angle_fft", "aoa_2d", "capon_spectrum",
+])
+def test_golden_angle_copies(name, overrides):
+    """The copied golden angle stages, bit-equal outputs on seeded
+    inputs."""
+    cfg = RadarConfig(**overrides)
+    mine = config_from_jax(cfg)
+    rng = np.random.default_rng(81)
+    v = cfg.num_virtual_rx
+    snaps = _complex(rng, (3, 5, v))
+    d_bin = rng.integers(0, cfg.doppler_fft_size, (3, 5))
+    args = {
+        "mimo_doppler_compensate": (snaps, d_bin),
+        "apply_rx_cal": (_complex(rng, (2, v, 6)),),
+        "disambiguate_velocity": (snaps, d_bin),
+        "angle_fft": (snaps, cfg.num_angle_bins),
+        "aoa_2d": (snaps[0, 0],),
+        "capon_spectrum": (_complex(rng, (2, 3, 40, v)),),
+    }[name]
+    kw = {"axis": -2} if name == "apply_rx_cal" else {}
+    got = getattr(golden, name)(*args, mine, **kw)
+    want = getattr(jax_golden, name)(*args, cfg, **kw)
+    for g, w in zip(*((got, want) if isinstance(want, tuple)
+                      else ((got,), (want,)))):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(num_chirps=64, num_samples=24),
+    dict(num_chirps=64, num_samples=24, num_tx=2),
+    dict(num_chirps=96, num_samples=16, num_tx=3, slope_hz_per_s=2.4e13),
+], ids=str)
+def test_golden_keystone_and_matrices(overrides):
+    from radar_tpu.ops import keystone as jax_keystone
+    from radar_tpu_torch.ops import keystone
+
+    cfg = RadarConfig(**overrides)
+    mine = config_from_jax(cfg)
+    cube = _complex(np.random.default_rng(82),
+                    (2, cfg.num_virtual_rx, cfg.chirps_per_tx,
+                     cfg.num_samples))
+    np.testing.assert_array_equal(golden.keystone_transform(cube, mine),
+                                  jax_golden.keystone_transform(cube, cfg))
+    got = keystone.keystone_matrices(mine)
+    want = jax_keystone.keystone_matrices(cfg)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("density", [0.05, 0.3])
+def test_golden_cluster_hits(density):
+    hits = np.random.default_rng(83).random((2, 24, 40)) < density
+    np.testing.assert_array_equal(golden.cluster_hits(hits),
+                                  jax_golden.cluster_hits(hits))
+
+
+@pytest.mark.parametrize("pfa", [1e-4, 1e-3])
+@pytest.mark.parametrize("beta", [0.1, 0.25, 0.5])
+@pytest.mark.parametrize("block", [1, 4, 16])
+@pytest.mark.parametrize("n_pulses", [1, 2, 4, 8])
+def test_golden_clutter_map_alpha(pfa, beta, block, n_pulses):
+    """Equal to the last bit over the (pfa, beta, block, n_pulses)
+    grid, and the port's cached ``_alpha`` is the same number."""
+    from radar_tpu_torch.ops import cmap
+
+    want = jax_golden.clutter_map_alpha(pfa, beta, block, n_pulses)
+    assert golden.clutter_map_alpha(pfa, beta, block, n_pulses) == want
+    assert cmap._alpha(pfa, beta, block, n_pulses) == want
+
+
+@pytest.mark.parametrize("m0,block", [(False, 4), (True, 3), (False, 16)])
+def test_golden_clutter_map_cfar(m0, block):
+    rng = np.random.default_rng(84)
+    power = rng.exponential(size=(11, 8, 12))
+    power[:, 3, 5] *= 100.0
+    start = power[:4].mean(axis=0) if m0 else None
+    got = golden.clutter_map_cfar(power, 1e-3, 0.25, start, block, 2)
+    want = jax_golden.clutter_map_cfar(power, 1e-3, 0.25, start, block, 2)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("overrides", OBJECT_CONFIGS, ids=str)
+def test_steering_constants(overrides):
+    """The host steering grids of Capon and the planar scan, and the
+    angle-FFT bin angles, bit-equal (ROADMAP "Constants copied")."""
+    cfg = RadarConfig(**overrides)
+    mine = config_from_jax(cfg)
+    for n_rx in (4, cfg.num_virtual_rx):
+        for g, w in zip(aoa._steering_matrix(n_rx, mine),
+                        jax_aoa._steering_matrix(n_rx, cfg)):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    for g, w in zip(aoa._steering_grid_2d(mine),
+                    jax_aoa._steering_grid_2d(cfg)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(aoa.angle_bins_deg(mine),
+                                  jax_aoa.angle_bins_deg(cfg))
+
+
+def test_points_copy():
+    from radar_tpu.utils import points as jax_points
+    from radar_tpu_torch.utils import points
+
+    rng = np.random.default_rng(85)
+    r, az, el = rng.uniform(1, 10, 7), rng.uniform(-60, 60, 7), \
+        rng.uniform(-20, 20, 7)
+    for elev in (None, el):
+        for g, w in zip(points.detections_to_xyz(r, az, elev),
+                        jax_points.detections_to_xyz(r, az, elev)):
+            np.testing.assert_array_equal(g, w)
+    assert points.FIELDS == jax_points.FIELDS

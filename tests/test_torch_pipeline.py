@@ -178,7 +178,7 @@ def test_records_copy_matches_jax_records():
     ({}, dict(rd_impl="fused-pallas-interpret")),
     ({}, dict(cfar_impl="pallas-interpret")),
     ({"clutter_mode": "mti2"}, dict(topk_impl="pallas-interpret")),
-    ({}, dict(keystone=True)),
+    ({}, dict(rd_impl="mega-maps-interpret")),
 ])
 def test_unported_options_raise(cfg_kw, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
