@@ -21,7 +21,13 @@ front ends; ``python -m radar_tpu_torch.cli detect --full [--integrate
 ``detect_objects`` and ``detect_cmap`` (kernel 2, then kernel 3),
 ``disambiguate``, ``capon_refine``, ``refine_2d``, ``RDPipeline(
 keystone=True)`` (kernels 4 and 3 on the keystone cube's maps) and the
-CLI's object-level flags.  Phases, each printing one line or more:
+CLI's object-level flags; the scene products, ``ops.aoa``'s
+range-azimuth (angle FFT, Capon) and angle-Doppler maps, MUSIC, and
+``ops.mdoppler``'s spectrogram, automatic gate and RTI (kernel 8 as
+their range stage), ``blank_interference``, ``estimate_ego_motion`` and
+``python -m radar_tpu_torch.cli azmap / admap / mdoppler / rti / bev``
+and ``detect --ego --blank-interference``.  Phases, each printing one
+line or more:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
@@ -96,7 +102,23 @@ CLI's object-level flags.  Phases, each printing one line or more:
     the CLI with ``--cluster``, ``--cmap``, ``--num-tx 2
     --disambiguate``, ``--refine capon``, ``--elevated-tx --refine
     2d``, ``--keystone`` and ``--points``; host-inclusive times and a
-    profile line of each method.
+    profile line of each method;
+20. the scene products at B=512, at 1 TX on the main scene and at 2 TX
+    on a -25 deg mover (its peak at -25 deg): each map, RTI, the
+    spectrogram (windows of 8 frames) and the automatic gate with one
+    kernel-8 launch a call, against the same product with the plain
+    range stage (16 tier units of the batch's peak; Capon plus 4 f32
+    eps times its covariances' condition number), the float64 golden on
+    4 frames (within 1e-3 of each map's peak, peak bins equal) and bit
+    for bit with TF32 on; MUSIC against the golden; interference
+    blanking bit for bit against its NumPy twin on 513 jammed frames,
+    ``detect`` on its frames against ``detect`` on the twin's, a no-op
+    on the clean scene; the ego fit on a moving-platform scene (32
+    frames tiled to 512: the statics close at 5-8 m/s) within 0.1 m/s
+    of the platform on average and one Doppler bin a frame, within
+    1e-4 m/s of the float64 golden on the same detections, ``is_static``
+    equal; the scene subcommands; host-inclusive times and profile
+    lines with peak memory.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -109,7 +131,9 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import math
 import os
@@ -2434,6 +2458,7 @@ def geometry_phase(gpu, targets, dev) -> None:
 # ---------------------------------------------------------------------------
 
 OBJECTS_KEYSTONE_BATCH = 64   # phase 19's keystone batch (512 chirps)
+SCENE_CLI_FRAMES = 9          # frames of phase 20's CLI captures
 
 
 def _cmap_golden_check(power, hits, cfg, beta: float, block: int) -> int:
@@ -2837,6 +2862,374 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
                      f"keystone detect B={bk}"))
 
 
+SCENE_EGO_TILE = 32   # phase 20's moving-platform scene, tiled to BATCH
+
+
+@contextlib.contextmanager
+def plain_range_stage():
+    """The scene products with their range stage swapped for its plain
+    version (``ops.fuseddft.fused_range_planes``, f32 under the products'
+    ``tf32_off``) on the same tensors: what the kernel-8 path is held
+    against."""
+    from radar_tpu_torch.ops import aoa, mdoppler
+    from radar_tpu_torch.ops.fuseddft import fused_range_planes
+
+    saved = aoa.range_planes, mdoppler.range_planes
+
+    aoa.range_planes = mdoppler.range_planes = fused_range_planes
+    try:
+        yield
+    finally:
+        aoa.range_planes, mdoppler.range_planes = saved
+
+
+def capon_condition(cfg, frames, base) -> torch.Tensor:
+    """Per frame, the largest condition number of the diagonally loaded
+    covariances the Capon map inverts (one per range bin), from the plain
+    compensated planes in float64: MVDR multiplies f32 rounding in the
+    covariance by about this much."""
+    from radar_tpu_torch.ops.aoa import DIAGONAL_LOADING, _tdm_compensated_rd
+
+    with plain_range_stage():
+        cr, ci = _tdm_compensated_rd(frames, base, cfg)
+    x = torch.complex(cr, ci).movedim(-1, -3).transpose(-1, -2)
+    x = x.to(torch.complex128)                          # (B, R, D, V')
+    v = x.shape[-1]
+    r = torch.einsum("...si,...sj->...ij", x, x.conj()) / x.shape[-2]
+    tr = torch.diagonal(r, dim1=-2, dim2=-1).real.sum(-1) / v
+    r = r + (DIAGONAL_LOADING * tr)[..., None, None] * torch.eye(
+        v, dtype=r.dtype, device=r.device)
+    # on the host: cuSOLVER's batched complex128 eigvalsh refuses 65,536
+    # matrices (CUSOLVER_STATUS_INVALID_VALUE on the H100, torch 2.11)
+    ev = np.linalg.eigvalsh(r.cpu().numpy())
+    return torch.from_numpy(
+        (ev[..., -1] / np.maximum(ev[..., 0], 1e-300)).max(axis=-1))
+
+
+def golden_scene(name, capture, cfg, n: int, gate: int) -> np.ndarray:
+    """The float64 golden of scene product ``name`` on frames 1..n of
+    ``capture`` (frame 0 the base)."""
+    from radar_tpu_torch import golden
+    from radar_tpu_torch.io.capture import decode_shorts
+
+    base = decode_shorts(capture[0], cfg).astype(np.complex128)
+    fr = capture[1:n + 1]
+    if name == "range_azimuth":
+        return golden.range_azimuth_map(fr, base, cfg)
+    if name == "range_azimuth_capon":
+        return golden.range_azimuth_capon_map(fr, base, cfg)[1]
+    if name == "angle_doppler":
+        return golden.angle_doppler_map(fr, base, cfg, range_bin=gate)[0]
+    if name == "micro_doppler":
+        return golden.micro_doppler(fr, base, cfg, range_bin=gate)
+    rd = golden.range_doppler_map(
+        golden.virtual_cube(decode_shorts(fr, cfg) - base, cfg), cfg)
+    return (rd.real ** 2 + rd.imag ** 2).sum(axis=(-3, -2))   # rti
+
+
+def scene_products(cfg, capture, frames, base, gpu) -> dict:
+    """Phase 20's maps on one scene: each product against itself with
+    the plain range stage (16 ``TIER_UNIT`` of the peak over the batch;
+    Capon plus 4 f32 eps times its covariances' largest condition
+    number), against the
+    float64 golden on 4 frames (10 for the spectrogram: 3 windows of 8)
+    within 1e-3 of each map's peak with the peak bins equal, bit for bit
+    with ``allow_tf32`` on and off, one kernel-8 launch a call.  Returns
+    {name: (call, the kernel path's output)} and prints a line."""
+    from radar_tpu_torch.ops import aoa, mdoppler
+    from radar_tpu_torch.ops.cuda import fused_dft
+
+    fused_dft.launches = 0
+    gate = mdoppler.auto_range_bin(frames, base, cfg)
+    torch.cuda.synchronize()
+    assert fused_dft.launches == 1, f"auto_range_bin: {fused_dft.launches}"
+    with plain_range_stage():
+        plain_gate = mdoppler.auto_range_bin(frames, base, cfg)
+    assert gate == plain_gate, (gate, plain_gate)
+    calls = {
+        "range_azimuth": lambda fr: aoa.range_azimuth_from_shorts(
+            fr, base, cfg),
+        "range_azimuth_capon": lambda fr: aoa.range_azimuth_capon_from_shorts(
+            fr, base, cfg),
+        "angle_doppler": lambda fr: aoa.angle_doppler_from_shorts(
+            fr, base, cfg, gate),
+        "rti": lambda fr: mdoppler.range_time_intensity(fr, base, cfg),
+        "micro_doppler": lambda fr: mdoppler.micro_doppler_spectrogram(
+            fr, base, cfg, gate, win_frames=8, hop_frames=1),
+    }
+    unit = tier_unit(cfg)
+    kappa = capon_condition(cfg, frames, base)
+    out, notes = {}, []
+    for name, call in calls.items():
+        fused_dft.launches = 0
+        got = call(frames)
+        torch.cuda.synchronize()
+        assert fused_dft.launches == 1, (name, fused_dft.launches)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            got_tf32 = call(frames)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        assert torch.equal(got, got_tf32), f"{name} depends on the TF32 flag"
+        with plain_range_stage():
+            plain = call(frames)
+        # over the batch's peak: the targets cross the fixed gate, so
+        # some frames' angle-Doppler maps and windows hold only noise
+        rel = float((got.double() - plain.double()).abs().max()
+                    / plain.double().abs().max())
+        tol = 16 * unit + (4 * float(kappa.max()) * F32_EPS
+                           if name.endswith("capon") else 0.0)
+        assert rel <= tol, (f"{name}: {rel / tol:.3g}x its tolerance vs the "
+                            "plain range stage")
+        n_g = 10 if name == "micro_doppler" else 4
+        want = golden_scene(name, capture, cfg, n_g, gate)
+        mine = (call(frames[:n_g]) if name == "micro_doppler"
+                else got[:n_g]).cpu().numpy()
+        # one row a map (a frame's, or a spectrogram window's)
+        mine, want = mine.reshape(len(want), -1), want.reshape(len(want), -1)
+        g_err = (np.abs(mine - want).max(-1) / np.abs(want).max(-1)).max()
+        assert g_err <= 1e-3, f"{name}: {g_err:.2e} of the peak from golden"
+        np.testing.assert_array_equal(mine.argmax(-1), want.argmax(-1),
+                                      err_msg=f"{name}: golden peak bins")
+        out[name] = (call, got)
+        notes.append(f"{name} {tuple(got.shape)} plain {rel:.2e} (tol "
+                     f"{tol:.2e}), golden {g_err:.2e}")
+    # MUSIC (one source) over each frame's Doppler rows at the first 4
+    # frames' gate: a source there keeps the noise subspace behind an
+    # eigenvalue gap in the frames held to the golden
+    from radar_tpu_torch import golden
+
+    gate4 = mdoppler.auto_range_bin(frames[:4], base, cfg)
+    cr, ci = aoa._tdm_compensated_rd(frames, base, cfg)
+    snaps = torch.complex(cr[..., gate4], ci[..., gate4]).transpose(-1, -2)
+    _, music = aoa.music_spectrum(snaps, 1, cfg)
+    base64 = golden.decode_shorts(capture[0], cfg).astype(np.complex128)
+    rd4 = golden._compensated_rd_map(capture[1:5], base64, cfg, True)
+    _, want = golden.music_spectrum(np.swapaxes(rd4[..., gate4], -1, -2), 1,
+                                    cfg)
+    mine = music[:4].cpu().numpy()
+    # P = 1 / ||E_n^H a||^2: an eigenvector error of ~eps moves E_n^H a
+    # by ~eps |a| sqrt(n_noise), so P by ~2 eps sqrt(V' n_noise P) of
+    # itself; the peak, near a null of the noise subspace, most
+    v = snaps.shape[-1]
+    m_rel = np.abs(mine - want).max(-1) / want.max(-1)
+    m_tol = 8 * F32_EPS * np.sqrt(v * (v - 1) * want.max(-1))
+    assert (m_rel <= m_tol).all(), f"music_spectrum: {m_rel} > {m_tol}"
+    m_err = m_rel.max()
+    np.testing.assert_array_equal(mine.argmax(-1), want.argmax(-1))
+    notes.append(f"music_spectrum {tuple(music.shape)} at gate {gate4} "
+                 f"golden {m_err:.2e} (tol {m_tol.min():.2e}-"
+                 f"{m_tol.max():.2e})")
+    say(f"scene products on {gpu}, {cfg.num_tx} TX B={len(frames)} auto "
+        f"gate {gate} (kernel 8 launches 1 a call, each product "
+        "bit-identical with TF32 on; golden peak bins equal): "
+        + "; ".join(notes)
+        + f"; Capon covariance condition up to {float(kappa.max()):.3g}")
+    return out
+
+
+def scene_phase(cfg, capture, frames, base, gpu, dev) -> None:
+    """Phase 20, the scene products at B=512 (see :func:`scene_products`)
+    at 1 TX on the main scene and at 2 TX on a -25 deg mover; interference
+    blanking bit-identical to the NumPy twin and ``detect`` on its frames;
+    the ego-motion fit against the float64 golden; the scene CLI; times,
+    profiles and peak memory."""
+    import dataclasses
+
+    from radar_tpu_torch import cli, golden
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.io.synthetic import (
+        SceneTarget,
+        static_scene_targets,
+        synthesize_capture,
+    )
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.ops.egomotion import estimate_ego_motion
+    from radar_tpu_torch.ops.interference import (
+        blank_interference,
+        golden_blank_interference,
+    )
+
+    one = scene_products(cfg, capture, frames, base, gpu)
+
+    # -- 2 TX: a mover at -25 deg, placed there by the TDM compensation ---
+    cfg_t = dataclasses.replace(cfg, num_tx=2)
+    cap_t = synthesize_capture([SceneTarget(6.0, 3.0, -25.0, 2500.0)],
+                               BATCH + 1, cfg_t, noise_std=5.0, seed=20)
+    pipe_t = RDPipeline(cfg_t, K_DET, device=dev)
+    base_t = pipe_t.prepare_base(cap_t[0])
+    fr_t = torch.from_numpy(cap_t[1:]).to(dev)
+    two = scene_products(cfg_t, cap_t, fr_t, base_t, gpu)
+    az_map = two["range_azimuth"][1].mean(dim=0).cpu().numpy()
+    a_bin = np.unravel_index(az_map.argmax(), az_map.shape)[0]
+    az_deg = float(golden.angle_bin_to_deg(a_bin, az_map.shape[0], cfg_t))
+    cap_map = two["range_azimuth_capon"][1].mean(dim=0).cpu().numpy()
+    grid = np.linspace(*cfg_t.angle_grid_deg[:2],
+                       int(cfg_t.angle_grid_deg[2]))
+    capon_deg = float(grid[np.unravel_index(cap_map.argmax(),
+                                            cap_map.shape)[0]])
+    assert abs(az_deg + 25.0) <= 1.5 and abs(capon_deg + 25.0) <= 1.0, (
+        az_deg, capon_deg)
+    say(f"2 TX mover at -25 deg: range-azimuth peak {az_deg:.2f} deg (angle "
+        f"FFT bin {a_bin}), Capon {capon_deg:.1f} deg")
+
+    # -- interference blanking ---------------------------------------------
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    targets = [SceneTarget(*t) for t in TARGETS]
+    jam = synthesize_capture(targets, BATCH + 1, cfg, noise_std=5.0, seed=0,
+                             interference_bursts=30,
+                             interference_amplitude=25000.0)
+    jam_d = torch.from_numpy(jam).to(dev)
+    blanked, n_bl = blank_interference(jam_d)
+    want_bl, want_n = golden_blank_interference(jam)
+    np.testing.assert_array_equal(blanked.cpu().numpy(), want_bl)
+    np.testing.assert_array_equal(n_bl.cpu().numpy(), want_n)
+    megakernel.launches = 0
+    base_b = pipe.prepare_base(blanked[0])
+    det_b = result_to_numpy(pipe.detect(blanked[1:], base_b))
+    launches_b = megakernel.launches
+    twin = torch.from_numpy(want_bl).to(dev)
+    det_w = result_to_numpy(pipe.detect(twin[1:], pipe.prepare_base(twin[0])))
+    for k in det_b:
+        np.testing.assert_array_equal(det_b[k], det_w[k], err_msg=k)
+    clean, n_clean = blank_interference(frames)
+    assert torch.equal(clean, frames) and not n_clean.any()
+    say(f"blank_interference B={BATCH + 1}, 30 bursts of 25000 a frame: "
+        f"frames and counts bit-identical to the NumPy twin "
+        f"({int(want_n.sum())} samples zeroed in "
+        f"{int((want_n > 0).sum())} frames); detect on them (kernel 1, "
+        f"launches {launches_b}) bit-identical to detect on the twin's "
+        f"frames; on the clean scene a no-op")
+
+    # -- ego motion --------------------------------------------------------
+    v_true = (1.5, 8.0)
+    scene = static_scene_targets(v_true, [3, 5, 7, 9], [-40, -15, 10, 35],
+                                 2500.0)
+    scene.append(SceneTarget(8.0, 5.0, -10.0, 2500.0))
+    drive = synthesize_capture(scene, SCENE_EGO_TILE + 1, cfg, noise_std=5.0,
+                               seed=7)
+    # the statics close at 5-8 m/s: a 32-frame scene (0.26 s) tiled to
+    # BATCH keeps them in view
+    tiled = np.tile(drive[1:], (BATCH // SCENE_EGO_TILE, 1))
+    fr_e = torch.from_numpy(tiled).to(dev)
+    base_e = pipe.prepare_base(drive[0])
+    megakernel.launches = 0
+    rd = pipe.detect(fr_e, base_e)
+    em = estimate_ego_motion(rd.azimuth_deg, rd.velocity_mps, rd.valid)
+    launches_e = megakernel.launches
+    r = result_to_numpy(rd)
+    e = result_to_numpy(em)
+    ok = e["ok"]
+    assert ok.sum() >= BATCH // 2, f"ego fit ok on {ok.sum()} frames"
+    err = np.abs(e["velocity"][ok] - np.asarray(v_true))
+    bin_v = cfg.wavelength_m / (2 * cfg.doppler_fft_size
+                                * cfg.slow_time_interval_s)
+    assert (err.mean(axis=0) <= 0.1).all() and (err <= bin_v).all(), err.max(0)
+    g_err, near, n_ok_g = 0.0, 0, 0
+    for f in range(BATCH):
+        gv, gs, gok = golden.estimate_ego_motion(
+            r["azimuth_deg"][f], r["velocity_mps"][f], r["valid"][f])
+        assert bool(gok) == bool(ok[f]), f"frame {f}: ok differs"
+        n_ok_g += bool(gok)
+        if not gok:
+            continue
+        g_err = max(g_err, float(np.abs(e["velocity"][f] - gv).max()))
+        resid = np.abs(-r["velocity_mps"][f].astype(np.float64)
+                       - np.stack([np.sin(np.deg2rad(r["azimuth_deg"][f])),
+                                   np.cos(np.deg2rad(r["azimuth_deg"][f]))],
+                                  -1) @ gv)
+        edge = r["valid"][f] & (np.abs(resid - 0.5) <= 1e-4)
+        near += int(edge.sum())
+        differ = (e["is_static"][f] != gs) & ~edge
+        assert not differ.any(), f"frame {f}: is_static differs"
+    assert g_err <= 1e-4, f"ego fit {g_err:.2e} m/s from the golden"
+    say(f"ego-motion B={BATCH} (the {SCENE_EGO_TILE}-frame moving-platform "
+        f"scene tiled; detect launches kernel 1 {launches_e}x): fit ok on "
+        f"{int(ok.sum())} frames (golden {n_ok_g}), mean |v - (1.5, 8.0)| "
+        f"({err.mean(0)[0]:.4f}, {err.mean(0)[1]:.4f}) m/s, worst frame "
+        f"({err.max(0)[0]:.4f}, {err.max(0)[1]:.4f}) (a Doppler bin is "
+        f"{bin_v:.4f}); {g_err:.2e} m/s from the float64 golden on the same "
+        f"detections; is_static equal to the golden but {near} within 1e-4 "
+        "m/s of the gate")
+
+    # -- the CLI -----------------------------------------------------------
+    cases = []
+    with tempfile.TemporaryDirectory() as tmp:
+        def cap(name, c, frames_np):
+            path = os.path.join(tmp, f"{name}.bin")
+            write_capture(path, frames_np, c)
+            return path
+
+        p_def = cap("default", cfg, capture[:SCENE_CLI_FRAMES])
+        p_drive = cap("drive", cfg, drive[:SCENE_CLI_FRAMES])
+        p_jam = cap("drive_jam", cfg, synthesize_capture(
+            scene, SCENE_CLI_FRAMES, cfg, noise_std=5.0, seed=7,
+            interference_bursts=30, interference_amplitude=25000.0))
+        paths = []
+        mounts = [(0.6, 0.8, -20.0), (-0.6, 0.8, 20.0)]
+        for i, (mx, my, yaw) in enumerate(mounts):
+            v_k = golden.mount_rotation(yaw).T @ (
+                np.array([1.0, 6.0]) + 0.15 * np.array([-my, mx]))
+            paths.append(cap(f"s{i}", cfg, synthesize_capture(
+                static_scene_targets(tuple(v_k), [4, 6, 8, 10],
+                                     [-35, -10, 15, 40], 2500.0),
+                6, cfg, noise_std=5.0, seed=21 + i,
+                platform_velocity=tuple(v_k))))
+        runs = {
+            "azmap": ["azmap", p_def],
+            "azmap --method capon": ["azmap", p_def, "--method", "capon"],
+            "admap": ["admap", p_def],
+            "mdoppler": ["mdoppler", p_def, "--win-frames", "4"],
+            "rti": ["rti", p_def],
+            "bev": ["bev", p_drive],
+            "bev --second": ["bev", paths[0], "--second", paths[1],
+                             "--mount=0.6,0.8,-20", "--mount2=-0.6,0.8,20"],
+        }
+        for label, argv in runs.items():
+            out_path = os.path.join(tmp, "out.npy" if argv[0] != "bev"
+                                    else "out.csv")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(argv + ["--device", "cuda", "--out", out_path])
+            assert rc == 0, f"cli {label}: rc {rc}"
+            event = json.loads(buf.getvalue().strip().splitlines()[-1])
+            assert os.path.exists(out_path), label
+            cases.append(f"{label} {event['event']}")
+            if label == "bev --second":
+                assert event["yaw_fit_ok_frames"] > 0, event
+        out_path = os.path.join(tmp, "ego.jsonl")
+        rc = cli.main(["detect", p_jam, "--full", "--ego",
+                       "--blank-interference", "--device", "cuda", "--out",
+                       out_path])
+        assert rc == 0, f"cli detect --ego: rc {rc}"
+        with open(out_path) as f:
+            recs = [json.loads(ln) for ln in f if ln.strip()]
+        assert all(rec["ego"]["ok"] for rec in recs) and all(
+            "is_static" in d for rec in recs for d in rec["detections"])
+        cases.append(f"detect --full --ego --blank-interference "
+                     f"{len(recs)} records")
+    say("cli on the card: " + "; ".join(cases))
+
+    # -- times, profiles, peak memory ---------------------------------------
+    from radar_tpu_torch.ops.mdoppler import auto_range_bin
+
+    fns = {f"{name} (1 TX)": (lambda x, c=call: c(frames))
+           for name, (call, _) in one.items()}
+    fns["range_azimuth_capon (2 TX)"] = (
+        lambda x, c=two["range_azimuth_capon"][0]: c(fr_t))
+    fns["auto_range_bin"] = lambda x: auto_range_bin(frames, base, cfg)
+    fns["blank_interference"] = lambda x: blank_interference(jam_d)
+    fns["estimate_ego_motion"] = lambda x: estimate_ego_motion(
+        rd.azimuth_deg, rd.velocity_mps, rd.valid)
+    e2e = alternate(fns, None)
+    say(f"scene times on {gpu} B={BATCH} (host-inclusive, median of 10 in "
+        "turns): " + ", ".join(f"{k} {v:.4f} ms" for k, v in e2e.items()))
+    for name, fn in fns.items():
+        say(profile_line(lambda f=fn: f(None), f"{name} B={BATCH} on {gpu}"))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3024,6 +3417,7 @@ def main() -> int:
     kernels += tiers_phase(cfg, capture, frames, base, consts, gpu)
     geometry_phase(gpu, targets, dev)
     objects_phase(cfg, capture, frames, base, consts, gpu, dev)
+    scene_phase(cfg, capture, frames, base, gpu, dev)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -7,10 +7,11 @@ windows, the TDM virtual cube, the MTI filter, the range-Doppler map,
 the CA, GO/SO and OS CFAR detectors with their Erlang-matched alphas,
 and the object-level stages (TDM compensation, velocity disambiguation,
 calibration, keystone, the angle FFT, the planar scan, Capon, the
-cluster labels and the clutter map), copied as they are;
+cluster labels and the clutter map), and the scene products
+(micro-Doppler, the range-azimuth and angle-Doppler maps, MUSIC,
+ego-motion and the two-radar yaw fit), copied as they are;
 ``tests/test_torch_constants.py`` holds each copy's output equal to the
-original's.  The rest of the golden model (MUSIC, the scene maps,
-ego-motion) comes with the slices that need it.
+original's.
 """
 
 from __future__ import annotations
@@ -1048,3 +1049,354 @@ def clutter_map_cfar(
         m = (1.0 - beta) * m + beta * blk.mean(axis=0)
         f += block
     return hits, m
+
+
+# --------------------------------------------------------------------------
+# Scene products: micro-Doppler, the range-azimuth and angle-Doppler maps,
+# MUSIC, and ego-motion (copied from radar_tpu.golden)
+# --------------------------------------------------------------------------
+
+def micro_doppler(
+    frames_shorts: np.ndarray,
+    base_cube: np.ndarray | None,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    range_bin: int = 0,
+    win_frames: int = 8,
+    hop_frames: int = 1,
+    n_fft: int | None = None,
+    window: bool | str = True,
+) -> np.ndarray:
+    """Micro-Doppler spectrogram: slow-time STFT at one range gate.
+
+    Per frame: windowed range DFT per chirp, clutter removal (base
+    range-plane subtraction, or per-frame chirp mean when ``base_cube``
+    is None), gate at ``range_bin``, keep the TX0 chirps (uniform PRI =
+    ``cfg.slow_time_interval_s`` under TDM), average over RX.  The
+    gated series is then short-time-Fourier-transformed with a
+    ``win_frames * chirps_per_tx``-sample window hopped by
+    ``hop_frames`` frames.
+
+    Returns:
+      float64 (n_windows, n_fft) power, Doppler axis fftshifted (zero
+      velocity centered); n_fft defaults to the window length.
+    """
+    kind = cfg.window_kind if window is True else window
+    cube = decode_shorts(frames_shorts, cfg)   # (n, rx, chirps, samples)
+    x = np.asarray(cube, np.complex128)
+    if kind:
+        x = x * window_fn(cfg.num_samples, kind)
+    rng = np.fft.fft(x, n=cfg.range_fft_size, axis=-1)
+    if base_cube is not None:
+        b = np.asarray(base_cube, np.complex128)
+        if kind:
+            b = b * window_fn(cfg.num_samples, kind)
+        rng = rng - np.fft.fft(b, n=cfg.range_fft_size, axis=-1)
+    else:
+        rng = rng - rng.mean(axis=-2, keepdims=True)
+    g = rng[..., range_bin]                    # (n, rx, chirps)
+    g = g[..., 0 :: cfg.num_tx]                # TX0 chirps: uniform PRI
+    series = g.mean(axis=-2).reshape(-1)       # RX mean -> (n * Kc,)
+
+    kc = cfg.chirps_per_tx
+    length = win_frames * kc
+    hop = hop_frames * kc
+    if n_fft is None:
+        n_fft = length
+    if n_fft < length:
+        raise ValueError(
+            f"n_fft ({n_fft}) must be >= the window length ({length}): "
+            "the STFT zero-pads, it does not truncate windowed segments"
+        )
+    if len(series) < length:
+        raise ValueError(
+            f"capture too short: {len(series)} slow-time samples < "
+            f"window {length} ({win_frames} frames x {kc})"
+        )
+    n_win = (len(series) - length) // hop + 1
+    w = window_fn(length, kind) if kind else np.ones(length)
+    spec = np.empty((n_win, n_fft))
+    for i in range(n_win):
+        seg = series[i * hop : i * hop + length] * w
+        s = np.fft.fftshift(np.fft.fft(seg, n=n_fft))
+        spec[i] = (s.real * s.real + s.imag * s.imag)
+    return spec
+
+
+def micro_doppler_velocity_axis(
+    n_fft: int, cfg: RadarConfig = DEFAULT_CONFIG
+) -> np.ndarray:
+    """Radial velocity (m/s) per fftshifted spectrogram bin."""
+    fd = (np.arange(n_fft) - n_fft // 2) / (n_fft * cfg.slow_time_interval_s)
+    return fd * cfg.wavelength_m / 2.0
+
+
+def _compensated_rd_map(frames_shorts, base_cube, cfg, window):
+    """(..., V', D, R) complex RD planes, clutter-removed and
+    per-Doppler-row TDM-compensated (shared by the range-azimuth maps)."""
+    cube = decode_shorts(frames_shorts, cfg)
+    if base_cube is not None:
+        cube = cube - np.asarray(base_cube, np.complex128)
+    else:
+        cube = cube - cube.mean(axis=-2, keepdims=True)
+    rd = range_doppler_map(virtual_cube(cube, cfg), cfg, window)
+    rd = apply_rx_cal(rd, cfg, axis=-3)
+    # apply the per-detection TDM compensation to every Doppler row at
+    # once — same helper, broadcast doppler_bin
+    d = cfg.doppler_fft_size
+    return np.moveaxis(
+        mimo_doppler_compensate(
+            np.moveaxis(rd, -3, -1), np.arange(d)[:, None], cfg
+        ),
+        -1, -3,
+    )
+
+
+def range_azimuth_capon_map(
+    frames_shorts: np.ndarray,
+    base_cube: np.ndarray | None,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    window: bool | str = True,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Capon/MVDR range-azimuth map: per range bin, the D
+    TDM-compensated Doppler rows are the snapshots for the MVDR
+    spectrum over the virtual array.
+
+    Returns:
+      (angles_deg (n_angles,), power (..., n_angles, range_fft)).
+    """
+    rd = _compensated_rd_map(frames_shorts, base_cube, cfg, window)
+    x = np.swapaxes(np.moveaxis(rd, -1, -3), -1, -2)    # (..., R, D, V')
+    angles, p = capon_spectrum(x, cfg)
+    return angles, np.swapaxes(p, -1, -2)
+
+
+def range_azimuth_map(
+    frames_shorts: np.ndarray,
+    base_cube: np.ndarray | None,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    window: bool | str = True,
+) -> np.ndarray:
+    """Range-azimuth power map: beamform EVERY RD cell, integrate Doppler.
+
+    Per frame: RD planes per virtual element (TDM demux), per-Doppler-row
+    MIMO time-offset compensation, zero-padded angle DFT across the
+    virtual elements at every (doppler, range) cell, then noncoherent
+    integration over Doppler.
+
+    Returns:
+      float64 (..., num_angle_bins, range_fft): angle axis fftshifted
+      (map bins to degrees with :func:`angle_bin_to_deg`).
+    """
+    rd = _compensated_rd_map(frames_shorts, base_cube, cfg, window)
+    a = cfg.num_angle_bins
+    v = min(cfg.num_virtual_rx, a)
+    w = np.exp(-2j * np.pi * np.outer(np.arange(v), np.arange(a)) / a)
+    w = np.fft.fftshift(w, axes=-1)                    # (v, A)
+    s = np.einsum("va,...vdr->...adr", w, rd[..., :v, :, :])
+    return (s.real * s.real + s.imag * s.imag).sum(axis=-2)
+
+
+def angle_doppler_map(
+    frames_shorts: np.ndarray,
+    base_cube: np.ndarray | None,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    range_bin: int | None = None,
+    window: bool | str = True,
+) -> tuple[np.ndarray, int]:
+    """Angle-Doppler power map at one range gate: at a range gate,
+    beamform each Doppler bin's virtual-array snapshot, so movers
+    separate by both their radial velocity and their bearing.
+    Per-Doppler-row TDM compensation and calibration as in
+    :func:`range_azimuth_map`.
+
+    Args:
+      range_bin: gate, or None for the strongest gate (argmax of total
+        RD power over the range axis).
+
+    Returns:
+      (power float64 (..., doppler_fft, num_angle_bins), gate used);
+      angle axis fftshifted (:func:`angle_bin_to_deg`).
+    """
+    rd = _compensated_rd_map(frames_shorts, base_cube, cfg, window)
+    if range_bin is None:
+        p_r = (rd.real**2 + rd.imag**2).sum(
+            axis=tuple(range(rd.ndim - 1))
+        )
+        range_bin = int(np.argmax(p_r))
+    a = cfg.num_angle_bins
+    v = min(cfg.num_virtual_rx, a)
+    snap = np.moveaxis(rd[..., :v, :, range_bin], -2, -1)  # (..., D, v)
+    spec = angle_fft(snap, a, cfg)
+    return (spec.real**2 + spec.imag**2), range_bin
+
+
+def angle_bin_to_deg(bin_idx: np.ndarray, num_bins: int, cfg: RadarConfig) -> np.ndarray:
+    sin_theta = (np.asarray(bin_idx) - num_bins // 2) / (
+        num_bins * cfg.rx_spacing_wavelengths
+    )
+    return np.rad2deg(np.arcsin(np.clip(sin_theta, -1.0, 1.0)))
+
+
+def music_spectrum(
+    snapshots: np.ndarray,
+    num_sources: int,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> tuple[np.ndarray, np.ndarray]:
+    """MUSIC pseudospectrum from RX-array snapshots.
+
+    Eigendecompose the spatial covariance, project steering vectors onto
+    the noise subspace: P(theta) = 1 / ||E_n^H a(theta)||^2.
+
+    Args:
+      snapshots: complex (..., n_snapshots, n_rx).
+      num_sources: assumed signal-subspace dimension (< n_rx).
+
+    Returns:
+      (angles_deg (n_angles,), pseudospectrum (..., n_angles)).
+    """
+    x = np.asarray(snapshots, dtype=np.complex128)
+    n_rx = x.shape[-1]
+    if not 0 < num_sources < n_rx:
+        raise ValueError(f"num_sources must be in (0, {n_rx})")
+    r = np.einsum("...si,...sj->...ij", x, x.conj()) / x.shape[-2]
+    # eigh returns ascending eigenvalues: noise subspace = first n_rx - M
+    _, vecs = np.linalg.eigh(r)
+    noise = vecs[..., :, : n_rx - num_sources]  # (..., n_rx, n_noise)
+
+    lo, hi, n = cfg.angle_grid_deg
+    angles = np.linspace(lo, hi, int(n))
+    k = 2.0 * np.pi * cfg.rx_spacing_wavelengths
+    steering = np.exp(
+        1j * k * np.sin(np.deg2rad(angles))[:, None] * np.arange(n_rx)[None, :]
+    )  # (n_angles, n_rx)
+    # proj[..., a, i] = (E_n^H a(theta))_i = sum_j conj(E_n[j, i]) a_j
+    proj = np.einsum(
+        "...ij,aj->...ai", np.swapaxes(noise, -2, -1).conj(), steering
+    )
+    denom = np.sum(np.abs(proj) ** 2, axis=-1)
+    return angles, 1.0 / np.maximum(denom, 1e-30)
+
+
+def estimate_ego_motion(
+    azimuth_deg: np.ndarray,
+    radial_velocity: np.ndarray,
+    valid: np.ndarray | None = None,
+    n_iters: int = 5,
+    inlier_mps: float = 0.5,
+) -> tuple[np.ndarray, np.ndarray, bool]:
+    """Instantaneous platform (ego) velocity from one frame's detections
+    (float64 golden).
+
+    Every STATIC scatterer at azimuth ``az`` seen from a platform moving
+    with velocity ``(vx lateral, vy forward)`` has radial velocity
+    ``vr = -(vx sin az + vy cos az)``: the static world lies on one
+    sinusoid whose two coefficients are the ego velocity.  Solved by
+    iteratively reweighted least squares with CAUCHY weights
+    ``w = 1 / (1 + (resid / inlier_mps)^2)`` (a hard gate after the
+    mover-contaminated initial fit can shed every static point); the
+    final static/moving label is the hard gate ``|resid| <= inlier_mps``
+    on the converged fit.
+
+    Args:
+      azimuth_deg: (K,) detection azimuths.
+      radial_velocity: (K,) measured radial velocities (positive =
+        receding).
+      valid: optional (K,) bool mask of usable detections.
+      n_iters: IRLS refinement iterations.
+      inlier_mps: residual gate for the static-scatterer set.
+
+    Returns:
+      (v, is_static, ok): ``v`` float64 (2,) = (vx, vy); ``is_static``
+      bool (K,); ``ok`` False when the fit is degenerate (fewer than 3
+      inliers, or the normal matrix singular) — then ``v`` is zero and
+      ``is_static`` all False.
+    """
+    az = np.deg2rad(np.asarray(azimuth_deg, np.float64))
+    vr = np.asarray(radial_velocity, np.float64)
+    a = np.stack([np.sin(az), np.cos(az)], axis=-1)  # (K, 2)
+    b = -vr
+    base = (np.ones(vr.shape, bool) if valid is None
+            else np.asarray(valid, bool))
+    w = base.astype(np.float64)
+    v = np.zeros(2)
+    resid = b.copy()
+    for _ in range(max(1, int(n_iters))):
+        aw = a * w[:, None]
+        ata = aw.T @ a  # (2, 2)
+        det = ata[0, 0] * ata[1, 1] - ata[0, 1] * ata[1, 0]
+        if base.sum() < 3 or det < 1e-9:
+            return np.zeros(2), np.zeros(vr.shape, bool), False
+        v = np.linalg.solve(ata, aw.T @ b)
+        resid = b - a @ v
+        # Cauchy reweight over the BASE set (soft: a detection shed by
+        # the mover-contaminated initial fit re-enters as the fit lands)
+        w = base / (1.0 + (resid / inlier_mps) ** 2)
+    is_static = (np.abs(resid) <= inlier_mps) & base
+    if is_static.sum() < 3:
+        return np.zeros(2), np.zeros(vr.shape, bool), False
+    return v, is_static, True
+
+
+def mount_rotation(yaw_deg: float) -> np.ndarray:
+    """(2, 2) sensor->body rotation for a sensor whose boresight points
+    at body azimuth ``yaw_deg`` (positive toward +x, x lateral-right /
+    y forward).  Sensor-frame (0, 1) maps to body (sin yaw, cos yaw)."""
+    t = np.deg2rad(float(yaw_deg))
+    return np.array([[np.cos(t), np.sin(t)], [-np.sin(t), np.cos(t)]])
+
+
+def estimate_ego_motion_yaw(
+    sensor_velocities: np.ndarray,
+    mounts: np.ndarray,
+) -> tuple[np.ndarray, float, bool]:
+    """Platform (vx, vy, yaw rate) from MULTIPLE radars' ego fits.
+
+    With radars mounted at different body positions, each sensor's
+    translational velocity picks up the lever-arm term
+    ``omega x r_k``:
+
+        R(yaw_k) @ v_k_sensor = v_body + omega * perp(r_k),
+        perp(r) = (-r_y, r_x)
+
+    — 2 equations per sensor on the 3 unknowns ``(vx, vy, omega)``,
+    solved by least squares (rank-deficient for equal positions, then
+    ``ok`` is False).
+
+    Args:
+      sensor_velocities: (S, 2) per-sensor ``(vx, vy)`` SENSOR-frame
+        fits from :func:`estimate_ego_motion`.
+      mounts: (S, 3) per-sensor body pose ``(x_m, y_m, yaw_deg)``.
+
+    Returns:
+      (v_body (2,), omega_rad_s, ok); zeros and False when fewer than
+      two sensors or the lever-arm geometry is degenerate.
+    """
+    vs = np.asarray(sensor_velocities, np.float64).reshape(-1, 2)
+    ms = np.asarray(mounts, np.float64).reshape(-1, 3)
+    if vs.shape[0] != ms.shape[0] or vs.shape[0] < 2:
+        return np.zeros(2), 0.0, False
+    rows, rhs = [], []
+    for (vx, vy), (mx, my, yaw) in zip(vs, ms):
+        rows.append([1.0, 0.0, -my])
+        rows.append([0.0, 1.0, mx])
+        rhs.extend(mount_rotation(yaw) @ (vx, vy))
+    a = np.asarray(rows)
+    b = np.asarray(rhs)
+    if np.linalg.matrix_rank(a) < 3:
+        return np.zeros(2), 0.0, False
+    p, *_ = np.linalg.lstsq(a, b, rcond=None)
+    return p[:2], float(p[2]), True
+
+
+def ego_compensated_velocity(
+    azimuth_deg: np.ndarray,
+    radial_velocity: np.ndarray,
+    v_ego: np.ndarray,
+) -> np.ndarray:
+    """Ground-frame radial velocity: measured vr plus the ego
+    projection ``vx sin az + vy cos az`` (zero for static scatterers
+    when ``v_ego`` is the :func:`estimate_ego_motion` fit)."""
+    az = np.deg2rad(np.asarray(azimuth_deg, np.float64))
+    v = np.asarray(v_ego, np.float64)
+    return (np.asarray(radial_velocity, np.float64)
+            + v[..., 0] * np.sin(az) + v[..., 1] * np.cos(az))

@@ -259,3 +259,30 @@ def synthesize_capture(
     )
     return encode_frame(cube, cfg)
 
+
+def static_scene_targets(
+    platform_velocity: tuple[float, float],
+    ranges_m: list[float],
+    azimuths_deg: list[float],
+    amplitude: float = 2000.0,
+) -> list[SceneTarget]:
+    """Static world scatterers as seen from a MOVING platform.
+
+    The generator's :class:`SceneTarget` velocity is radial (sensor
+    frame); a static object at azimuth ``az`` seen from a platform
+    moving at ``(vx lateral, vy forward)`` recedes at
+    ``vr = -(vx sin az + vy cos az)`` — the sinusoid
+    ``ops.egomotion.estimate_ego_motion`` fits.  Zips ``ranges_m``
+    with ``azimuths_deg``.
+    """
+    vx, vy = platform_velocity
+    out = []
+    for r, az in zip(ranges_m, azimuths_deg):
+        a = np.deg2rad(az)
+        out.append(SceneTarget(
+            range_m=r,
+            velocity_mps=-(vx * np.sin(a) + vy * np.cos(a)),
+            azimuth_deg=az,
+            amplitude=amplitude,
+        ))
+    return out

@@ -1,12 +1,20 @@
 """Angle of arrival (port of ``radar_tpu.ops.aoa``): the angle FFT on
-the detection path, the TDM velocity hypothesis test, and the two
-refiners, Capon (MVDR) and the planar (azimuth, elevation) scan.
+the detection path, the TDM velocity hypothesis test, the two
+refiners, Capon (MVDR) and the planar (azimuth, elevation) scan, MUSIC,
+and the scene maps: range-azimuth (angle FFT or Capon) and
+angle-Doppler.
 
 The refiners' contractions are tiny (the virtual array has 4-12
 elements) but MVDR is ill-conditioned by design, so they must not run
 at reduced precision: the JAX package pins them to HIGHEST.  Here they
 are elementwise sums over the array axis, which no global TF32 switch
 (``torch.backends.cuda.matmul.allow_tf32``) reaches.
+
+The scene maps take their range stage from kernel 8 for CUDA tensors
+(``ops/cuda/fused_dft.range_planes``, one launch a call) and the plain
+version for CPU tensors; the Doppler DFT (``doppler_from_range_planes``)
+runs under ``tf32_off``, and the rest is elementwise, so each map has
+the same bits whatever the caller set that switch to.
 """
 
 from __future__ import annotations
@@ -18,7 +26,10 @@ import numpy as np
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.ops.cuda.fused_dft import range_planes
+from radar_tpu_torch.ops.fuseddft import doppler_from_range_planes
 from radar_tpu_torch.ops.physics import doppler_hz, mimo_compensate, tdm_rotate
+from radar_tpu_torch.ops.tf32 import tf32_off
 
 # Capon's diagonal loading, times the covariance's mean eigenvalue
 DIAGONAL_LOADING = 1e-3
@@ -135,6 +146,15 @@ def _steering_rows(n_rx: int, cfg: RadarConfig, device: torch.device):
             torch.from_numpy(steering).to(device))
 
 
+def _covariance(x: torch.Tensor) -> torch.Tensor:
+    """(..., n, n) sum over the snapshots of x (..., S, n):
+    ``c[i, j] = sum_s x[s, i] conj(x[s, j])``, one row per array element
+    (elementwise, so no TF32 switch reaches it)."""
+    xc = x.conj()
+    return torch.stack([(x[..., i:i + 1] * xc).sum(dim=-2)
+                        for i in range(x.shape[-1])], dim=-2)
+
+
 def capon_spectrum(
     snapshots: torch.Tensor,
     cfg: RadarConfig = DEFAULT_CONFIG,
@@ -151,11 +171,7 @@ def capon_spectrum(
     """
     x = snapshots
     n_rx = x.shape[-1]
-    n_snap = x.shape[-2]
-    xc = x.conj()
-    # R[i, j] = sum_s x[s, i] conj(x[s, j]) / S, one row per array element
-    r = torch.stack([(x[..., i:i + 1] * xc).sum(dim=-2)
-                     for i in range(n_rx)], dim=-2) / n_snap
+    r = _covariance(x) / x.shape[-2]
     tr = torch.diagonal(r, dim1=-2, dim2=-1).real.sum(dim=-1) / n_rx
     eye = torch.eye(n_rx, dtype=r.dtype, device=r.device)
     r = r + (DIAGONAL_LOADING * tr)[..., None, None] * eye
@@ -262,3 +278,144 @@ def aoa_2d_from_snapshots(
             best_i = torch.where(take, pi, best_i)
             best_p = torch.where(take, pm, best_p)
     return az_t[best_i // n_el], el_t[best_i % n_el]
+
+
+def music_spectrum(
+    snapshots: torch.Tensor,
+    num_sources: int,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> tuple[np.ndarray, torch.Tensor]:
+    """MUSIC pseudospectrum P(theta) = 1 / ||E_n^H a(theta)||^2, E_n the
+    noise subspace of the spatial covariance (twin of
+    ``golden.music_spectrum``).  The covariance and the projection are
+    elementwise sums over the array axis; the eigendecomposition is a
+    batched ``torch.linalg.eigh`` of the (n_rx, n_rx) covariances.
+
+    Args:
+      snapshots: complex64 (..., n_snapshots, n_rx).
+      num_sources: assumed signal-subspace dimension (< n_rx).
+
+    Returns:
+      (angles_deg np.ndarray (n_angles,), power (..., n_angles) f32).
+    """
+    x = snapshots
+    n_rx = x.shape[-1]
+    if not 0 < num_sources < n_rx:
+        raise ValueError(f"num_sources must be in (0, {n_rx})")
+    _, vecs = torch.linalg.eigh(_covariance(x) / x.shape[-2])  # ascending
+    noise_h = vecs[..., :, :n_rx - num_sources].conj()   # (..., j, i)
+    angles, _, a = _steering_rows(n_rx, cfg, x.device)  # a: (n_angles, n_rx)
+    # proj[..., a, i] = sum_j conj(E_n[j, i]) a[a, j]
+    proj = sum(noise_h[..., None, j, :] * a[:, j, None] for j in range(n_rx))
+    denom = (proj.real * proj.real + proj.imag * proj.imag).sum(dim=-1)
+    return angles, 1.0 / torch.clamp_min(denom, 1e-30)
+
+
+@functools.lru_cache(maxsize=16)
+def _tdm_rows(cfg: RadarConfig, device: torch.device):
+    """(re, im) f32 (V', D, 1): the TDM time-offset phase of every
+    Doppler row (``golden.mimo_doppler_compensate`` broadcast over the
+    rows) times the RX calibration, one complex constant built in
+    float64 once per (cfg, device)."""
+    d = cfg.doppler_fft_size
+    fd = (np.arange(d) - d // 2) / (d * cfg.slow_time_interval_s)
+    tx_idx = np.arange(cfg.num_virtual_rx) // cfg.num_rx
+    ph = -2.0 * np.pi * fd[None, :] * tx_idx[:, None] * cfg.chirp_interval_s
+    comb = np.exp(1j * ph)
+    cal = cfg.rx_cal_vector()
+    if cal is not None:
+        comb = comb * cal[:, None]
+    return tuple(torch.as_tensor(part, dtype=torch.float32,
+                                 device=device)[..., None]
+                 for part in (comb.real, comb.imag))
+
+
+@tf32_off()
+def _tdm_compensated_rd(shorts, base_cube, cfg: RadarConfig):
+    """(re, im) f32 (..., V', D, R) RD planes, clutter-removed, with the
+    per-Doppler-row TDM compensation and the calibration applied: the
+    range stage of ``range_planes`` (kernel 8 for CUDA tensors), the
+    Doppler DFT, then one complex multiply by :func:`_tdm_rows`."""
+    dr, di = doppler_from_range_planes(
+        *range_planes(shorts, base_cube, cfg), cfg)
+    pr, pi = _tdm_rows(cfg, dr.device)
+    return dr * pr - di * pi, dr * pi + di * pr
+
+
+@tf32_off()
+def range_azimuth_from_shorts(
+    shorts: torch.Tensor,
+    base_cube: torch.Tensor | None,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> torch.Tensor:
+    """Raw int16 frames -> range-azimuth power maps (twin of
+    ``golden.range_azimuth_map``): the zero-padded angle DFT over the
+    first min(V', A) virtual elements at every (Doppler, range) cell of
+    :func:`_tdm_compensated_rd`, integrated over Doppler.
+
+    By sum_d |w_a . x_d|^2 = w_a^H C w_a, with C the (v, v) covariance
+    of a range bin's Doppler rows, the map is formed from C: the (...,
+    A, D, R) spectrum (2.1 GB a tensor at B = 512) is never built, and
+    every sum is elementwise.  The window is ``cfg.window_kind``
+    ('rect' for none).
+
+    Returns:
+      float32 (..., num_angle_bins, range_fft), angle axis fftshifted
+      (``golden.angle_bin_to_deg`` maps bins to degrees).
+    """
+    cr, ci = _tdm_compensated_rd(shorts, base_cube, cfg)
+    a = cfg.num_angle_bins
+    v = min(cfg.num_virtual_rx, a)
+    x = torch.complex(cr[..., :v, :, :], ci[..., :v, :, :])   # (..., v, D, R)
+    c = _covariance(x.transpose(-1, -3))                       # (..., R, v, v)
+    w = _angle_rows(v, a, x.device)                            # (v, A)
+    # t[..., r, a, j] = sum_i w[i, a] c[r, i, j]; P = Re sum_j t conj(w[j])
+    t = sum(c[..., i, None, :] * w[i, :, None] for i in range(v))
+    p = sum((t[..., j] * w[j].conj()).real for j in range(v))  # (..., R, A)
+    return p.transpose(-1, -2)
+
+
+@tf32_off()
+def angle_doppler_from_shorts(
+    shorts: torch.Tensor,
+    base_cube: torch.Tensor | None,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+    range_bin: int = 0,
+) -> torch.Tensor:
+    """Raw int16 frames -> angle-Doppler power map at one range gate
+    (twin of ``golden.angle_doppler_map`` at a given gate): the angle
+    FFT (:func:`angle_fft_spectrum`) of each Doppler row's snapshot of
+    :func:`_tdm_compensated_rd`.  Resolve an automatic gate with
+    ``ops.mdoppler.auto_range_bin``.
+
+    Returns:
+      float32 (..., doppler_fft, num_angle_bins), angle axis fftshifted.
+    """
+    cr, ci = _tdm_compensated_rd(shorts, base_cube, cfg)
+    v = min(cfg.num_virtual_rx, cfg.num_angle_bins)
+    snap = torch.complex(cr[..., :v, :, range_bin], ci[..., :v, :, range_bin])
+    spec = angle_fft_spectrum(snap.transpose(-1, -2), cfg)    # (..., D, A)
+    return spec.real * spec.real + spec.imag * spec.imag
+
+
+@tf32_off()
+def range_azimuth_capon_from_shorts(
+    shorts: torch.Tensor,
+    base_cube: torch.Tensor | None,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> torch.Tensor:
+    """Capon/MVDR range-azimuth map (twin of
+    ``golden.range_azimuth_capon_map``): per range bin, the D
+    TDM-compensated Doppler rows of :func:`_tdm_compensated_rd` are the
+    snapshots of :func:`capon_spectrum` over the virtual array (a batched
+    (V', V') inverse per frame and range bin).
+
+    Returns:
+      float32 (..., n_angles, range_fft) on the uniform degree grid of
+      ``cfg.angle_grid_deg``.
+    """
+    cr, ci = _tdm_compensated_rd(shorts, base_cube, cfg)
+    # (..., V', D, R) -> (..., R, D, V')
+    x = torch.complex(cr, ci).movedim(-1, -3).transpose(-1, -2)
+    _, p = capon_spectrum(x, cfg)             # (..., R, n_angles)
+    return p.transpose(-1, -2)

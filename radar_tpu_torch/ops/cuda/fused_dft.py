@@ -23,6 +23,8 @@ There is no fallback from the kernel to the plain version.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
@@ -55,6 +57,15 @@ def fused_range_supported(cfg: RadarConfig) -> bool:
     return (2 * cfg.num_samples) % 8 == 0 and cfg.range_fft_size % 4 == 0
 
 
+@lru_cache(maxsize=16)
+def range_constants(cfg: RadarConfig, device: torch.device) -> dict:
+    """``a2`` and ``a2_split`` of ``megakernel.mega_constants(cfg)`` on
+    ``device``, built once per (cfg, device): the constants the kernel
+    reads (callers must not modify them)."""
+    consts = mega_constants(cfg)
+    return {n: consts[n].to(device) for n in ("a2", "a2_split")}
+
+
 def range_planes(shorts: torch.Tensor, base_cube: torch.Tensor | None,
                  cfg: RadarConfig = DEFAULT_CONFIG, consts=None):
     """Raw int16 frames (..., shorts_per_frame) -> clutter-removed range
@@ -70,7 +81,7 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
                             cfg: RadarConfig = DEFAULT_CONFIG, consts=None):
     """:func:`range_planes` through the CUDA kernel.  ``consts`` holds
     ``megakernel.mega_constants``'s ``a2`` and ``a2_split`` on the
-    frames' device (built when None).
+    frames' device (:func:`range_constants` when None).
     Returns the planes as views of the kernel's (B*C*V, 2R) output; no
     frames launch nothing; non-contiguous frames are copied first.
     Raises for a tensor that is not on a CUDA device, for a geometry the
@@ -95,7 +106,7 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
     check("shorts", x, torch.int16, (x.shape[0], cfg.shorts_per_frame), dev)
     check_aligned("shorts", x)
     if consts is None:
-        consts = {n: t.to(dev) for n, t in mega_constants(cfg).items()}
+        consts = range_constants(cfg, dev)
     check_range_consts(consts, cfg, dev)
     passes = dft_passes(cfg)
     base_raw = None

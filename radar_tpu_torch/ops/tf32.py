@@ -17,9 +17,15 @@ These functions emulate that arithmetic in f32 for the tests and
 ``chip_smoke.py``: a product of two TF32 values (11 + 11 significant
 bits) is exact in f32, so the emulation differs from the tensor cores
 only in the order of the sums.  The main path never calls them.
+
+:func:`tf32_off` pins the other way: the plain products of the scene
+products (``ops/aoa``, ``ops/mdoppler``) run under it, so no global
+TF32 switch changes their bits.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -60,3 +66,18 @@ def split_matmul(x: torch.Tensor, a: torch.Tensor, passes: int) -> torch.Tensor:
     if passes == 1:
         return big
     return (xh @ al + xl @ ah) + big
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """Pin ``torch.backends.cuda.matmul.allow_tf32`` off for the block
+    (or the decorated function) and restore the caller's setting after:
+    the f32 products inside then run as f32 SGEMM, with the same bits
+    whatever the caller chose.  The flag is process-wide, so a thread
+    that multiplies meanwhile sees it off too."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -531,3 +531,96 @@ def test_points_copy():
                         jax_points.detections_to_xyz(r, az, elev)):
             np.testing.assert_array_equal(g, w)
     assert points.FIELDS == jax_points.FIELDS
+
+
+# -- the scene slice: golden copies and the static scene ---------------------
+
+SCENE_CONFIGS = [
+    dict(),
+    dict(num_tx=2, rx_cal=tuple(np.exp(1j * np.arange(8) * 0.3) * 1.1)),
+    dict(num_samples=40, num_chirps=96, num_tx=3, num_angle_bins=8,
+         window_kind="blackman", angle_grid_deg=(-60.0, 60.0, 61)),
+]
+
+
+@pytest.mark.parametrize("overrides", SCENE_CONFIGS, ids=str)
+@pytest.mark.parametrize("name,kw", [
+    ("_compensated_rd_map", dict(window=True)),
+    ("range_azimuth_map", {}),
+    ("range_azimuth_capon_map", {}),
+    ("angle_doppler_map", {}),
+    ("angle_doppler_map", dict(range_bin=9)),
+    ("micro_doppler", dict(range_bin=9, win_frames=2)),
+    ("micro_doppler", dict(range_bin=3, win_frames=1, hop_frames=2,
+                           n_fft=300, window="hamming")),
+], ids=str)
+@pytest.mark.parametrize("with_base", [True, False])
+def test_golden_scene_copies(name, kw, overrides, with_base):
+    """The copied scene goldens, bit-equal outputs on seeded frames."""
+    cfg = RadarConfig(**overrides)
+    mine = config_from_jax(cfg)
+    rng = np.random.default_rng(86)
+    frames = rng.integers(-3000, 3000, (3, cfg.shorts_per_frame),
+                          dtype=np.int16)
+    base = (_complex(rng, (cfg.num_rx, cfg.num_chirps, cfg.num_samples))
+            if with_base else None)
+    got = getattr(golden, name)(frames, base, mine, **kw)
+    want = getattr(jax_golden, name)(frames, base, cfg, **kw)
+    for g, w in zip(*((got, want) if isinstance(want, tuple)
+                      else ((got,), (want,)))):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("overrides", SCENE_CONFIGS, ids=str)
+def test_golden_scene_helpers(overrides):
+    cfg = RadarConfig(**overrides)
+    mine = config_from_jax(cfg)
+    bins = np.arange(cfg.num_angle_bins)
+    np.testing.assert_array_equal(
+        golden.angle_bin_to_deg(bins, cfg.num_angle_bins, mine),
+        jax_golden.angle_bin_to_deg(bins, cfg.num_angle_bins, cfg))
+    for n_fft in (64, 1000):
+        np.testing.assert_array_equal(
+            golden.micro_doppler_velocity_axis(n_fft, mine),
+            jax_golden.micro_doppler_velocity_axis(n_fft, cfg))
+    x = _complex(np.random.default_rng(87), (2, 3, 20, 6))
+    for m in (1, 3):
+        for g, w in zip(golden.music_spectrum(x, m, mine),
+                        jax_golden.music_spectrum(x, m, cfg)):
+            np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_golden_ego_copies(seed):
+    rng = np.random.default_rng(88 + seed)
+    az = rng.uniform(-60, 60, 12)
+    vr = -(1.5 * np.sin(np.deg2rad(az)) + 8.0 * np.cos(np.deg2rad(az)))
+    vr[:2] += 4.0
+    valid = rng.random(12) < 0.8
+    for args in ((az, vr), (az, vr, valid), (az[:2], vr[:2]),
+                 (np.full(5, 10.0), vr[:5])):
+        for kw in ({}, dict(n_iters=2, inlier_mps=0.3)):
+            for g, w in zip(golden.estimate_ego_motion(*args, **kw),
+                            jax_golden.estimate_ego_motion(*args, **kw)):
+                np.testing.assert_array_equal(g, w)
+    v = rng.normal(size=(4, 2))
+    np.testing.assert_array_equal(
+        golden.ego_compensated_velocity(az[:4], vr[:4], v),
+        jax_golden.ego_compensated_velocity(az[:4], vr[:4], v))
+    for yaw in (-20.0, 0.0, 33.3):
+        np.testing.assert_array_equal(golden.mount_rotation(yaw),
+                                      jax_golden.mount_rotation(yaw))
+    mounts = [(0.6, 0.8, -20.0), (-0.6, 0.8, 20.0)]
+    vs = rng.normal(size=(2, 2))
+    for g, w in zip(golden.estimate_ego_motion_yaw(vs, mounts),
+                    jax_golden.estimate_ego_motion_yaw(vs, mounts)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("platform", [(1.5, 8.0), (0.0, 0.0), (-2.0, 3.0)])
+def test_static_scene_targets(platform):
+    args = (platform, [3, 5, 7, 9], [-40, -15, 10, 35], 2500.0)
+    got = synthetic.static_scene_targets(*args)
+    want = jax_synthetic.static_scene_targets(*args)
+    assert [dataclasses.astuple(t) for t in got] == [
+        dataclasses.astuple(t) for t in want]
