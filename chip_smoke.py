@@ -26,8 +26,10 @@ range-azimuth (angle FFT, Capon) and angle-Doppler maps, MUSIC, and
 ``ops.mdoppler``'s spectrogram, automatic gate and RTI (kernel 8 as
 their range stage), ``blank_interference``, ``estimate_ego_motion`` and
 ``python -m radar_tpu_torch.cli azmap / admap / mdoppler / rti / bev``
-and ``detect --ego --blank-interference``.  Phases, each printing one
-line or more:
+and ``detect --ego --blank-interference``; the live slice, streamed
+``detect`` over pinned double-buffered uploads and ``python -m
+radar_tpu_torch.cli serve / replay / track / bench``.  Phases, each
+printing one line or more:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
@@ -118,7 +120,22 @@ line or more:
     of the platform on average and one Doppler bin a frame, within
     1e-4 m/s of the float64 golden on the same detections, ``is_static``
     equal; the scene subcommands; host-inclusive times and profile
-    lines with peak memory.
+    lines with peak memory;
+21. the live slice: ``parallel.FrameStreamer`` + ``stream_detect`` over
+    4,097 frames at B=512 (9 batches, the last of one frame; the capture
+    pinned, uploads on a copy stream into two device buffers ordered by
+    events) bit-identical to resident ``detect`` batch by batch, also
+    with a ~10 ms device spin queued before each detect so the uploads
+    race ahead, device memory flat across batches; streamed frames/s
+    against the same loop fenced after each upload and against frames
+    already on the card, in turns, and the H2D rate; ``python -m
+    radar_tpu_torch.cli serve --device cuda`` fed by ``... replay`` over
+    loopback at ``--serve-batch`` 1 and 8 (records against ``cli detect
+    --full``, tracks against the tracker fed them, kernel-1 launches,
+    the ``latency_stats`` line), with ``--integrate 4 --clutter mean``
+    (kernels 2, 4, 3 launched) and ``--cmap`` (kernels 2, 3); ``cli
+    track`` equal to ``track_capture`` over ``detect`` on the card, both
+    targets confirmed; ``cli bench --full --latency``.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -141,6 +158,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -3230,6 +3248,516 @@ def scene_phase(cfg, capture, frames, base, gpu, dev) -> None:
         say(profile_line(lambda f=fn: f(None), f"{name} B={BATCH} on {gpu}"))
 
 
+LIVE_BATCHES = 8          # phase 21 streams LIVE_BATCHES * BATCH + 1 frames
+LIVE_SLEEP_CYCLES = 20_000_000   # ~10 ms of device spin before each detect
+LIVE_SERVE_FRAMES = 2 * BATCH + 1   # phase 21's serve capture: 1,024 requests
+# phase 21's replay rates: under the default config's sensor maximum
+# (one frame of chirps, 8.192 ms: 122 frames/s), and above it
+LIVE_FPS, LIVE_STRESS_FPS = 100, 200
+LIVE_CLI_FRAMES = 65      # frames of phase 21's track capture
+
+
+class ReadyWatch(io.TextIOBase):
+    """stdout for ``cli serve``: keeps its lines and sets ``ready`` at
+    its ``{"event": "ready"}`` (shared with tests/test_torch_serve.py).
+    ``on_ready``, if given, runs there, in serve's thread, after the
+    warm-up's last launch and before the first receive."""
+
+    def __init__(self, on_ready=None):
+        self.lines = []
+        self.ready = threading.Event()
+        self.on_ready = on_ready
+        self._part = ""
+
+    def write(self, s):
+        self._part += s
+        *done, self._part = self._part.split("\n")
+        for ln in done:
+            self.lines.append(ln)
+            if ln.strip() == '{"event": "ready"}':
+                if self.on_ready is not None:
+                    self.on_ready()
+                self.ready.set()
+        return len(s)
+
+
+@contextlib.contextmanager
+def counted(module, name: str):
+    """Counts the calls of ``module.name`` while inside: yields a
+    one-item list holding the count (a caller may reset it)."""
+    orig = getattr(module, name)
+    calls = [0]
+
+    def wrapped(*args, **kwargs):
+        calls[0] += 1
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def received_frames():
+    """Collects, while inside, every frame that ``cli serve``'s packet
+    reassemblers complete, in order (zero-filled spans of lost
+    datagrams included), and the reassemblers themselves: yields
+    ``(frames, reassemblers)``."""
+    from radar_tpu_torch.io import live
+
+    orig = live.PacketReassembler
+    frames, made = [], []
+
+    class Recording(orig):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+        def _pop_frames(self):
+            out = super()._pop_frames()
+            frames.extend(out)
+            return out
+
+    live.PacketReassembler = Recording
+    try:
+        yield frames, made
+    finally:
+        live.PacketReassembler = orig
+
+
+def rcvbuf_bytes() -> int:
+    """The receive buffer, as ``getsockopt`` reports it, that a UDP
+    socket gets here when asked for serve's 8 MiB the way ``io.live``
+    asks (SO_RCVBUFFORCE, else SO_RCVBUF, which ``net.core.rmem_max``
+    caps)."""
+    import socket
+
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        try:
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUFFORCE, 8 << 20)
+        except (OSError, AttributeError):
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 8 << 20)
+        return sock.getsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF)
+    finally:
+        sock.close()
+
+
+def serve_replayed(cli, path: str, n_frames: int, argv: list, fps: int,
+                   on_ready=None) -> tuple:
+    """``cli serve --device cuda`` on a free loopback port, fed by ``cli
+    replay`` of ``path`` (paced at ``fps``) in a process of its own,
+    as a sensor would be, started at serve's ready event (serve waits up
+    to 30 s for the process to start sending; it ends after ``n_frames``
+    frames).
+    ``on_ready`` runs at the ready event (``ReadyWatch``).  The port is
+    free when picked; if another process binds it before serve does,
+    serve's bind fails and another port is tried.  Returns (JSON lines,
+    stderr lines)."""
+    import errno
+    import socket
+
+    for attempt in range(5):
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+        sock.close()
+        watch, err = ReadyWatch(on_ready), io.StringIO()
+        stop = threading.Event()
+        rcs = []
+
+        def replay():
+            t_end = time.monotonic() + 120.0
+            while not watch.ready.wait(0.05):
+                if stop.is_set() or time.monotonic() > t_end:
+                    return
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "radar_tpu_torch.cli", "replay", path,
+                 "--port", str(port), "--fps", str(fps)], cwd=ROOT,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            try:
+                rcs.append(proc.wait(timeout=60.0))
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+        t = threading.Thread(target=replay, daemon=True)
+        t.start()
+        try:
+            with contextlib.redirect_stdout(watch), \
+                    contextlib.redirect_stderr(err):
+                rc = cli.main(["serve", "--port", str(port), "--host",
+                               "127.0.0.1", "--max-frames", str(n_frames),
+                               "--timeout", "30", "--device", "cuda", *argv])
+        except OSError as e:
+            stop.set()
+            t.join(timeout=5.0)
+            if e.errno != errno.EADDRINUSE or attempt == 4:
+                raise
+            say(f"serve: port {port} taken before serve bound it; "
+                f"another port")
+            continue
+        finally:
+            stop.set()
+        t.join(timeout=70.0)
+        assert not t.is_alive(), "replay did not finish"
+        assert rc == 0 and rcs == [0], f"serve rc {rc}, replay {rcs}"
+        return ([json.loads(ln) for ln in watch.lines if ln.strip()],
+                err.getvalue().splitlines())
+
+
+def match_records(served: list, detected: list) -> int:
+    """Serve's records against ``cli detect --full``'s on the same
+    frames: the same frames and detection cells (serve groups peaks,
+    ``group_peaks`` of detect's), power within 1e-5 relative, azimuth
+    within 0.0101 deg, sub-bin estimates within 2e-4 (one batch size
+    against another may pick other cuBLAS kernels in the tail).  Returns
+    the number of detections equal in every field."""
+    from radar_tpu_torch.models.tracker import group_peaks
+
+    assert [r["frame"] for r in served] == [r["frame"] for r in detected]
+    exact = 0
+    for s, d in zip(served, detected):
+        want = {(x["range_m"], x["velocity_mps"]): x
+                for x in group_peaks(d["detections"])}
+        got = {(x["range_m"], x["velocity_mps"]): x for x in s["detections"]}
+        assert got.keys() == want.keys(), f"frame {s['frame']}: cells differ"
+        for cell, g in got.items():
+            w = want[cell]
+            assert abs(g["power"] - w["power"]) <= 1e-5 * w["power"], cell
+            assert abs(g["azimuth_deg"] - w["azimuth_deg"]) <= 0.0101, cell
+            for k in ("range_m_interp", "velocity_mps_interp"):
+                assert abs(g[k] - w[k]) <= 2e-4 + 1e-9, (cell, k)
+            exact += g == w
+    return exact
+
+
+def retrack(records: list, cfg) -> list:
+    """The tracks of each record from the port's tracker fed the
+    records' own detections, in record form."""
+    from radar_tpu_torch.models.tracker import Tracker
+
+    tracker = Tracker(cfg)
+    return [[{"id": t.track_id, "range_m": round(t.range_m, 4),
+              "velocity_mps": round(t.velocity_mps, 4),
+              "azimuth_deg": round(t.azimuth_deg, 2)}
+             for t in tracker.update(r["detections"])] for r in records]
+
+
+def live_phase(cfg, capture, gpu, dev) -> None:
+    """Phase 21, the live slice: ``FrameStreamer`` + ``stream_detect``
+    over LIVE_BATCHES * BATCH + 1 frames (the last batch partial) on the
+    pinned copy stream, bit-identical to resident ``detect`` batch by
+    batch, also with a ~10 ms device spin queued before each detect (the
+    uploads race ahead; a buffer overwritten before kernel 1 read it
+    would show), device memory flat across batches; streamed frames/s
+    against the same loop fenced after each upload and against resident
+    frames, in turns, and the H2D rate; ``cli serve`` fed by ``cli
+    replay`` over loopback with LIVE_SERVE_FRAMES - 1 requests at
+    ``--serve-batch`` 1 and 8, ``--integrate 4 --clutter mean`` and
+    ``--cmap`` at LIVE_FPS, and ``--serve-batch`` 8 at LIVE_STRESS_FPS
+    (the frames received, those with lost datagrams, latency stats, the
+    receive loop's launches, counted from the ready event, against its
+    dispatches; at ``--serve-batch`` the records against ``cli detect
+    --full`` on the frames received and tracks against the tracker);
+    ``cli track``
+    against ``track_capture``; three calls of ``cli bench --full
+    --latency``."""
+    from radar_tpu_torch import cli
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.models.tracker import track_capture
+    from radar_tpu_torch.ops.cuda import cfar as cfar_k
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.ops.cuda import topk as topk_k
+    from radar_tpu_torch.parallel import FrameStreamer, stream_detect
+
+    t_phase = time.perf_counter()
+    # -- (a) streamed against resident, bit for bit ------------------------
+    n_live = LIVE_BATCHES * BATCH + 1
+    stream = np.concatenate([capture[:1],
+                             np.tile(capture[1:], (LIVE_BATCHES, 1)),
+                             capture[1:2]])
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    t0 = time.perf_counter()
+    streamer = FrameStreamer(stream, BATCH, cfg, device=dev)
+    t_pin = time.perf_counter() - t0
+    assert streamer.pinned.is_pinned()
+    assert streamer.num_batches == LIVE_BATCHES + 1
+    base = pipe.prepare_base(streamer.base_frame)
+    resident = torch.from_numpy(stream[1:]).to(dev)
+
+    def resident_batch(i):
+        x = resident[i * BATCH:(i + 1) * BATCH]
+        if len(x) < BATCH:
+            x = torch.cat([x, x.new_zeros((BATCH - len(x), x.shape[1]))])
+        return x
+
+    want = [pipe.detect(resident_batch(i), base)
+            for i in range(streamer.num_batches)]
+
+    def spun(x):
+        torch.cuda._sleep(LIVE_SLEEP_CYCLES)
+        return pipe.detect_donated(x, base)
+
+    for label, fn in (("", lambda x: pipe.detect_donated(x, base)),
+                      (" with a ~10 ms spin before each detect", spun)):
+        got = stream_detect(streamer, fn)
+        torch.cuda.synchronize()
+        for i, (g, w) in enumerate(zip(got, want)):
+            for name in g._fields:
+                assert torch.equal(getattr(g, name), getattr(w, name)), (
+                    f"streamed batch {i}{label}: {name} differs")
+        say(f"stream_detect {n_live} frames, B={BATCH}, "
+            f"{streamer.num_batches} batches (last "
+            f"{streamer.valid_frames(LIVE_BATCHES)} frame){label}: "
+            f"bit-identical to "
+            f"resident detect, batch by batch")
+    del got
+    mem = []
+    for x in streamer:
+        pipe.detect_donated(x, base)
+        mem.append(torch.cuda.memory_allocated())
+    torch.cuda.synchronize()
+    assert len(set(mem)) == 1, f"device memory across batches: {mem}"
+    say(f"device memory across the {len(mem)} streamed batches: "
+        f"{mem[0] / 2**20:.1f} MiB allocated, flat; pinning the "
+        f"{streamer.pinned.numel() * 2 / 1e6:.1f} MB capture took "
+        f"{t_pin * 1e3:.1f} ms")
+
+    # -- (b) streamed against fenced and resident frames/s, H2D rate --------
+    buf = torch.empty((BATCH, cfg.shorts_per_frame), dtype=torch.int16,
+                      device=dev)
+
+    def upload(i, dst, non_blocking=True):
+        n = streamer.valid_frames(i)
+        dst[:n].copy_(streamer.pinned[i * BATCH:i * BATCH + n],
+                      non_blocking=non_blocking)
+        if n < BATCH:
+            dst[n:].zero_()
+
+    def streamed():
+        stream_detect(streamer, lambda x: pipe.detect_donated(x, base))
+
+    def fenced():
+        for i in range(streamer.num_batches):
+            upload(i, buf)
+            torch.cuda.synchronize()
+            pipe.detect_donated(buf, base)
+
+    def on_device():
+        for i in range(streamer.num_batches):
+            pipe.detect(resident_batch(i), base)
+
+    def uploads_only():
+        for i in range(streamer.num_batches):
+            upload(i, buf)
+
+    loops = {"streamed": streamed, "fenced": fenced,
+             "resident": on_device, "uploads": uploads_only}
+    secs = {k: [] for k in loops}
+    for order in (list(loops), list(loops)[::-1]) * 2:
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loops[name]()
+            torch.cuda.synchronize()
+            secs[name].append(time.perf_counter() - t0)
+    med = {k: statistics.median(v) for k, v in secs.items()}
+    up_bytes = n_live * cfg.shorts_per_frame * 2   # the frames copied
+    say(f"streamed detect on {gpu}, {n_live} frames B={BATCH} (wall time "
+        f"to the last result, median of 4 in turns): streamed "
+        f"{n_live / med['streamed']:.0f} frames/s ({med['streamed'] * 1e3:.2f}"
+        f" ms; its 4 passes "
+        f"{', '.join(f'{n_live / t:.0f}' for t in secs['streamed'])}), "
+        f"fenced after each upload "
+        f"{n_live / med['fenced']:.0f} frames/s ({med['fenced'] * 1e3:.2f} "
+        f"ms), frames already on the card {n_live / med['resident']:.0f} "
+        f"frames/s ({med['resident'] * 1e3:.2f} ms); the {up_bytes / 1e6:.1f}"
+        f" MB of uploads alone (pinned, non_blocking) "
+        f"{med['uploads'] * 1e3:.2f} ms = "
+        f"{up_bytes / med['uploads'] / 1e9:.2f} GB/s H2D")
+    say(profile_line(streamed, f"stream_detect {n_live} frames B={BATCH} "
+                               f"on {gpu}", calls=2))
+
+    # -- (c), (d), (e): the CLI ----------------------------------------------
+    # serve's requests are the first LIVE_SERVE_FRAMES of the streamed
+    # frames (the base, then the scene's 512 twice): ~10 s at LIVE_FPS,
+    # so that a p99 is not the largest of a few dozen
+    from radar_tpu_torch.models import rd_pipeline as rd_mod
+    from radar_tpu_torch.models.rd_pipeline import pack_detections
+
+    cli_cap = capture[:LIVE_CLI_FRAMES]
+
+    def loop_only():
+        # at serve's ready event: the launches counted from here on are
+        # the receive loop's, not the warm-up's
+        megakernel.launches = megakernel.maps_launches = 0
+        cfar_k.launches = topk_k.launches = 0
+
+    def loop_counts():
+        return {"mega_detect": megakernel.launches,
+                "mega_maps": megakernel.maps_launches,
+                "ca_cfar": cfar_k.launches, "topk": topk_k.launches}
+
+    def served(serve_path, argv, fps):
+        """One ``serve_replayed`` run of ``serve_path`` at ``fps``,
+        counting the receive loop's launches and dispatches, and the
+        frames serve's reassemblers completed: (records, latency_stats,
+        stderr lines, launches, dispatches, frames received, frames that
+        differ from the ones sent, bytes zero-filled for lost
+        datagrams)."""
+        with counted(rd_mod, "pack_detections") as calls, \
+                received_frames() as (got, reasm):
+            def at_ready():
+                loop_only()
+                calls[0] = 0
+
+            lines, err = serve_replayed(cli, serve_path, LIVE_SERVE_FRAMES,
+                                        argv, fps, on_ready=at_ready)
+            n_disp = calls[0]
+        # the trailing frame may be complete too; serve stops before it
+        rx = np.stack(got[:LIVE_SERVE_FRAMES])
+        sent = stream[:len(rx)]
+        damaged = int((rx != sent).any(axis=1).sum())
+        recs = [r for r in lines if "frame" in r]
+        stats = [r for r in lines if r.get("event") == "latency_stats"]
+        assert len(stats) == 1 and stats[0]["frames"] == len(rx) - 1, err
+        return (recs, stats[0], err, loop_counts(), n_disp, rx, damaged,
+                sum(r.dropped_bytes for r in reasm))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "live.bin")
+        write_capture(path, cli_cap, cfg)
+        serve_path = os.path.join(tmp, "serve.bin")
+        # one frame more than serve takes: its datagrams complete the
+        # frame before it where that one's last datagrams were lost (the
+        # reorder window zero-fills the gap), where serve would otherwise
+        # wait out its 30 s timeout for the flush
+        write_capture(serve_path, stream[:LIVE_SERVE_FRAMES + 1], cfg)
+
+        def detect_full(frames):
+            cap_path = os.path.join(tmp, "rx.bin")
+            write_capture(cap_path, frames, cfg)
+            det_path = os.path.join(tmp, "d.jsonl")
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert cli.main(["detect", cap_path, "--full", "--device",
+                                 "cuda", "--out", det_path]) == 0
+            with open(det_path) as f:
+                return [json.loads(ln) for ln in f if ln.strip()]
+
+        detected = detect_full(stream[:LIVE_SERVE_FRAMES])
+        say(f"a UDP socket asking for serve's 8 MiB receive buffer gets "
+            f"{rcvbuf_bytes()} bytes (SO_RCVBUF as getsockopt reports it)")
+        for nb in (1, 8):
+            # serve's dispatch alone: the stacked frames up, detect, the
+            # packed result down
+            stack = np.zeros((nb, cfg.shorts_per_frame), np.int16)
+            stack[:] = cli_cap[1:1 + nb]
+            lat = []
+            for _ in range(22):
+                t0 = time.perf_counter()
+                pack_detections(pipe.detect(torch.as_tensor(
+                    stack, device=dev), base)).cpu()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            lat = sorted(lat[2:])
+            say(f"serve's dispatch alone at --serve-batch {nb} on {gpu} "
+                f"(host ms, 20 reps): p50 {lat[9]:.3f}, p90 {lat[17]:.3f}, "
+                f"max {lat[-1]:.3f}")
+
+        for argv, fps, names in (
+                (["--serve-batch", "1"], LIVE_FPS, ("mega_detect",)),
+                (["--serve-batch", "8"], LIVE_FPS, ("mega_detect",)),
+                (["--integrate", "4", "--clutter", "mean"], LIVE_FPS,
+                 ("mega_maps", "ca_cfar", "topk")),
+                (["--cmap"], LIVE_FPS, ("mega_maps", "topk")),
+                # past the sensor's rate: where frames are lost, and a
+                # frame whose last datagrams are lost completes only at
+                # serve's 30 s timeout
+                (["--serve-batch", "8"], LIVE_STRESS_FPS, ("mega_detect",))):
+            (recs, stats, err, counts, n_disp, rx, damaged,
+             dropped) = served(serve_path, argv, fps)
+            nb = 8 if argv[0] != "--serve-batch" else int(argv[1])
+            n_rec = len(rx) - 1
+            # each of the path's kernels once a dispatch, no other
+            assert counts == {k: n_disp if k in names else 0
+                              for k in counts}, (counts, n_disp)
+            assert any(r["detections"] for r in recs)
+            assert any(r["tracks"] for r in recs), "serve confirmed no track"
+            checked = ""
+            if argv[0] == "--integrate":
+                assert [r["frame"] for r in recs] == list(
+                    range(4, len(rx), 4))
+                assert -(-len(recs) // 2) <= n_disp <= len(recs), n_disp
+            else:
+                assert len(recs) == n_rec, (len(recs), n_rec, err)
+                # one frame a dispatch at --serve-batch 1
+                assert (n_disp == n_rec if nb == 1
+                        else -(-n_rec // nb) <= n_disp <= n_rec), n_disp
+            if argv[0] == "--serve-batch":
+                # the records against detect --full on the frames serve
+                # got (the frames sent, unless datagrams were lost)
+                exact = match_records(recs, detected if damaged == 0 and len(
+                    rx) == LIVE_SERVE_FRAMES else detect_full(rx))
+                assert [r["tracks"] for r in recs] == retrack(recs, cfg)
+                if damaged == 0:
+                    assert recs[-1]["tracks"], "the last record has no track"
+                n_det = sum(len(r["detections"]) for r in recs)
+                checked = (f" equal to cli detect --full on the frames "
+                           f"received ({exact}/{n_det} detections in every "
+                           f"field), tracks equal to the tracker fed them")
+            say(f"cli serve {' '.join(argv)} --device cuda on {gpu}, fed by "
+                f"cli replay over loopback at {fps} frames/s: {len(rx)} of "
+                f"{LIVE_SERVE_FRAMES} frames received, {damaged} with lost "
+                f"datagrams ({dropped} bytes zero-filled); {len(recs)} "
+                f"records{checked}; the receive loop's {n_disp} dispatches "
+                f"({n_rec / n_disp:.2f} frames each) launched {counts} "
+                f"(warm-up not counted); {json.dumps(stats)}; {err[-1]}")
+
+        # (d) track against track_capture over detect on the card
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out), \
+                contextlib.redirect_stderr(io.StringIO()):
+            assert cli.main(["track", path, "--device", "cuda"]) == 0
+        tracks = [json.loads(ln) for ln in out.getvalue().splitlines()]
+        frames = torch.from_numpy(cli_cap[1:]).to(dev)
+        tracker = track_capture(pipe.detect(frames, pipe.prepare_base(
+            cli_cap[0])), cfg)
+        want_t = [{"track_id": t.track_id, "range_m": round(t.range_m, 4),
+                   "velocity_mps": round(t.velocity_mps, 4),
+                   "azimuth_deg": round(t.azimuth_deg, 2), "hits": t.hits}
+                  for t in tracker.tracks if t.confirmed]
+        assert tracks == want_t, (tracks, want_t)
+        frame_s = cfg.num_chirps * cfg.chirp_interval_s
+        n = len(cli_cap) - 1
+        for r0, v, _, _ in TARGETS:
+            assert any(abs(t["range_m"] - (r0 + v * n * frame_s)) < 1.0
+                       and abs(t["velocity_mps"] - v) < 0.5
+                       for t in tracks), (r0, v, tracks)
+        say(f"cli track --device cuda: {len(tracks)} confirmed tracks equal "
+            f"to track_capture over detect on the card, both targets "
+            f"confirmed: {json.dumps(tracks)}")
+
+        # (e) the streamed bench: each call times one pass, as the JAX
+        # package's bench does, so three calls show its spread
+        big = os.path.join(tmp, "stream.bin")
+        write_capture(big, stream, cfg)
+        for rep in range(3):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                assert cli.main(["bench", big, "--full", "--batch",
+                                 str(BATCH), "--latency", "--device",
+                                 "cuda"]) == 0
+            say(f"cli bench --full --batch {BATCH} --latency --device cuda "
+                f"on {gpu}, call {rep + 1} of 3: "
+                + " | ".join(out.getvalue().strip().splitlines()))
+    say(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3418,6 +3946,7 @@ def main() -> int:
     geometry_phase(gpu, targets, dev)
     objects_phase(cfg, capture, frames, base, consts, gpu, dev)
     scene_phase(cfg, capture, frames, base, gpu, dev)
+    live_phase(cfg, capture, gpu, dev)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

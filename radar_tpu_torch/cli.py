@@ -1,6 +1,6 @@
 """radar_tpu_torch command-line interface (``detect``, ``verify``,
-``selftest`` and the scene products of ``radar_tpu.cli``, on the
-PyTorch port):
+``selftest``, the scene products, ``serve``, ``replay``, ``track`` and
+the streamed ``bench`` of ``radar_tpu.cli``, on the PyTorch port):
 
   python -m radar_tpu_torch.cli detect cap.bin --full --device cuda \\
       [--max-detections 16] [--base-frames K] [--out dets.jsonl] \\
@@ -24,6 +24,25 @@ PyTorch port):
   python -m radar_tpu_torch.cli verify cap.bin --device cuda \\
       [--detect-impl auto|xla|pallas]
   python -m radar_tpu_torch.cli selftest --device cuda [--only SUBSTR]
+  python -m radar_tpu_torch.cli serve --port P [--port P2 ...] \\
+      --device cuda [--serve-batch 8] [--base-frames K] \\
+      [--tracker alpha-beta|ekf] [--confirm-hits M] [--max-misses N] \\
+      [--ego [INLIER_MPS]] [--cmap [BETA]] [--disambiguate] \\
+      [--refine capon|2d] [--integrate N [--walk]] \\
+      [--blank-interference [K]] [--max-frames N] [--timeout S]
+  python -m radar_tpu_torch.cli replay cap.bin --port P [--fps 100]
+  python -m radar_tpu_torch.cli track cap.bin --device cuda [--cluster] \\
+      [--ego [INLIER_MPS]] [--disambiguate] [--refine capon|2d] \\
+      [--tracker alpha-beta|ekf] [--out tracks.jsonl]
+  python -m radar_tpu_torch.cli bench cap.bin --device cuda [--full] \\
+      [--batch 64] [--latency]
+
+``serve`` reads DCA1000-style UDP streams (``io/live.py``; ``replay``
+is the sensor side) and prints one JSON record per frame (or per
+``--integrate`` group) with the detections and the confirmed tracks,
+then a ``latency_stats`` line, as ``radar_tpu.cli serve``; ``track``
+prints one JSON line per confirmed track; ``bench`` times streamed
+detection over a capture (``parallel/stream.py``).
 
 ``detect`` writes the same ``DetectionRecord`` JSONL as ``radar_tpu.cli
 detect``: one record per frame, or with ``--integrate N`` one per group
@@ -52,6 +71,8 @@ import argparse
 import dataclasses
 import json
 import sys
+import time
+from collections import deque
 
 import numpy as np
 import torch
@@ -62,6 +83,15 @@ from radar_tpu_torch.convert import result_to_numpy
 from radar_tpu_torch.io.capture import read_capture
 from radar_tpu_torch.models.range_detector import RangeDetector
 from radar_tpu_torch.models.rd_pipeline import RDPipeline
+from radar_tpu_torch.models.tracker import (
+    EKFConfig,
+    EKFTracker,
+    Tracker,
+    TrackerConfig,
+    group_peaks,
+    materialize_result,
+    track_capture,
+)
 from radar_tpu_torch.ops.decode import decode_to_cube
 from radar_tpu_torch.ops.egomotion import (
     ego_compensated_velocity,
@@ -214,6 +244,25 @@ def _usage_error(args) -> str | None:
     return None
 
 
+def _disambiguated(pipe, shorts, base, d_bin, r_bin):
+    """(velocity_mps, azimuth_deg, hypothesis) NumPy (B, K) of the cells
+    ``d_bin``, ``r_bin`` (int tensors on the pipeline's device) over the
+    TDM-extended velocity span."""
+    return tuple(t.cpu().numpy()
+                 for t in pipe.disambiguate(shorts, base, d_bin, r_bin))
+
+
+def _refined_azimuth(pipe, shorts, base, d_bin, r_bin, refine):
+    """(azimuth_deg, elevation_deg or None) NumPy (B, K) of the cells
+    ``d_bin``, ``r_bin``: Capon's MVDR azimuth, or the planar scan's
+    azimuth and elevation for '2d'."""
+    if refine == "capon":
+        return pipe.capon_refine(shorts, base, d_bin, r_bin).cpu().numpy(), \
+            None
+    az, el = pipe.refine_2d(shorts, base, d_bin, r_bin)
+    return az.cpu().numpy(), el.cpu().numpy()
+
+
 def _rd_detections(args, cfg, device, todo, base_frames, n_int):
     """The RD pipeline's detections of ``todo`` as NumPy dicts: (rd,
     clusters or None, hypotheses or None, elevations or None), by the
@@ -239,19 +288,15 @@ def _rd_detections(args, cfg, device, todo, base_frames, n_int):
     rd = result_to_numpy(out)
     hyp = elev = None
     if args.disambiguate:
-        vel, az, hyp = (t.cpu().numpy() for t in pipe.disambiguate(
-            shorts, base, out.doppler_bin, out.range_bin))
+        vel, az, hyp = _disambiguated(pipe, shorts, base, out.doppler_bin,
+                                      out.range_bin)
         # the interp estimate shifts by the same hypothesis offset
         rd["velocity_mps_interp"] = (rd["velocity_mps_interp"]
                                      + (vel - rd["velocity_mps"]))
         rd["velocity_mps"], rd["azimuth_deg"] = vel, az
-    if args.refine == "capon":
-        az = pipe.capon_refine(shorts, base, out.doppler_bin,
-                               out.range_bin).cpu().numpy()
-    elif args.refine == "2d":
-        az, elev = (t.cpu().numpy() for t in pipe.refine_2d(
-            shorts, base, out.doppler_bin, out.range_bin))
     if args.refine:
+        az, elev = _refined_azimuth(pipe, shorts, base, out.doppler_bin,
+                                    out.range_bin, args.refine)
         if hyp is not None:
             # wrapped targets: the refiner compensated with the ALIASED
             # Doppler, so the hypothesis azimuth stays there
@@ -763,10 +808,604 @@ def cmd_selftest(args) -> int:
     return 1 if run_selftests(args.only, resolve_device(args.device)) else 0
 
 
+def _tracker_params(args, params):
+    """``params`` (None: the tracker kind's defaults) with the
+    ``--confirm-hits`` / ``--max-misses`` overrides; 2 after printing
+    the usage error."""
+    ch = args.confirm_hits
+    mm = args.max_misses
+    if ch is None and mm is None:
+        return params
+    if (ch is not None and ch < 1) or (mm is not None and mm < 0):
+        print("error: --confirm-hits needs >= 1 and --max-misses >= 0",
+              file=sys.stderr)
+        return 2
+    if params is None:
+        params = EKFConfig() if args.tracker == "ekf" else TrackerConfig()
+    kw = {}
+    if ch is not None:
+        kw["confirm_hits"] = ch
+    if mm is not None:
+        kw["max_misses"] = mm
+    return dataclasses.replace(params, **kw)
+
+
+def _percentiles(xs, qs: tuple[int, ...]) -> list[float]:
+    """Nearest-rank percentiles, rounded for JSONL emission."""
+    s = sorted(xs)
+    return [
+        round(s[min(len(s) - 1, max(0, -(-q * len(s) // 100) - 1))], 3)
+        for q in qs
+    ]
+
+
+def _bins(col: np.ndarray, device) -> torch.Tensor:
+    """A packed result's bin column (f32 (B, K)) as int32 on ``device``."""
+    return torch.as_tensor(np.asarray(col, np.int32), device=device)
+
+
+def _serve_usage_error(args, n_int: int) -> str | None:
+    """The flag checks of ``radar_tpu.cli serve``: the message of the
+    first combination it refuses, or None."""
+    if args.integrate is not None and args.integrate < 2:
+        return f"--integrate needs a group size >= 2, got {args.integrate}"
+    if ((args.confirm_hits is not None and args.confirm_hits < 1)
+            or (args.max_misses is not None and args.max_misses < 0)):
+        return "--confirm-hits needs >= 1 and --max-misses >= 0"
+    if n_int > 1:
+        for bad, why in (
+            ("disambiguate", "re-tests per-frame snapshots"),
+            ("refine", "re-estimates per-frame angles"),
+            ("cmap", "the clutter map is itself a multi-frame detector"),
+        ):
+            if getattr(args, bad):
+                return (f"--integrate cannot be combined with --{bad} "
+                        f"({why})")
+    return None
+
+
+def cmd_serve(args) -> int:
+    """Live serving: DCA1000-style UDP streams -> JSONL detections and
+    tracks, as ``radar_tpu.cli serve``.
+
+    The first ``--base-frames`` frames of each source (default 1) make
+    its base.  Later frames are detected in micro-batches: every
+    dispatch takes ALL frames already received (up to ``--serve-batch``,
+    zero added wait), zero-padded to that static batch, through ONE
+    pipeline on ``--device``, and the results come back in one packed
+    transfer (``pack_detections``).  One JSONL record per frame, or per
+    ``--integrate`` group, the source's tracker updated in arrival order.
+    Before the first receive, ``on_bound`` launches everything the loop
+    will launch (the kernel build, cuBLAS handles, shared-memory
+    attributes), so no first launch stalls the receive loop into a
+    socket-buffer overflow; then it prints ``{"event": "ready"}``.
+    """
+    from radar_tpu_torch.io import live
+    from radar_tpu_torch.models.rd_pipeline import pack_detections
+
+    cfg = _build_cfg(args)
+    disambiguate = args.disambiguate
+    if disambiguate and cfg.num_tx == 1:
+        print("warning: --disambiguate is a no-op at num_tx=1 (no TDM "
+              "ambiguity; pass --num-tx to match the stream) -- skipping "
+              "it (a per-batch no-op dispatch would double serve latency)",
+              file=sys.stderr)
+        disambiguate = False
+    n_int = args.integrate or 1
+    msg = _serve_usage_error(args, n_int)
+    if msg:
+        print(f"error: {msg}", file=sys.stderr)
+        return 2
+    if n_int > 1 and cfg.effective_clutter(has_base=True) == "base":
+        print("warning: --integrate under base-frame subtraction "
+              "integrates the base's noise realization coherently "
+              "(Pd can drop below single-frame); pass --clutter "
+              "mean or --clutter mti2", file=sys.stderr)
+    n_base = args.base_frames or 1
+    device = resolve_device(args.device)
+    pipe = RDPipeline(cfg, max_detections=args.max_detections,
+                      rd_impl=args.rd_impl, device=device)
+    blank_k = args.blank_interference
+    if blank_k is not None:
+        from radar_tpu_torch.ops.interference import blank_interference
+    multi = len(args.port) > 1
+
+    def make_tracker():
+        params = None
+        if args.tracker == "ekf":
+            params = (EKFConfig(sigma_azimuth_deg=1.0) if args.refine
+                      else EKFConfig())
+        params = _tracker_params(args, params)
+        if args.tracker == "ekf":
+            return EKFTracker(cfg, params)
+        return Tracker(cfg) if params is None else Tracker(cfg, params)
+
+    nb = max(1, args.serve_batch)
+    # --integrate N: groups per dispatch (the dispatch shape stays
+    # static; the PENDING buffer below fixes group alignment)
+    ng = max(1, nb // n_int)
+
+    def warmup():
+        # launch everything the loop launches while the bound sockets
+        # buffer incoming packets
+        warm = torch.zeros((nb, cfg.shorts_per_frame), dtype=torch.int16,
+                           device=device)
+        if blank_k is not None:
+            blank_interference(warm, k=blank_k)
+            blank_interference(warm[0], k=blank_k)
+        b0 = pipe.prepare_base(warm[0])
+        if n_base > 1:
+            pipe.prepare_base(warm[:1].expand(n_base, -1))
+        if n_int > 1:
+            # the integrate loop never runs the per-frame detect
+            warm_g = torch.zeros((ng * n_int, cfg.shorts_per_frame),
+                                 dtype=torch.int16, device=device)
+            pack_detections(pipe.detect_integrated(warm_g, b0, n_int,
+                                                   args.walk)).cpu()
+            print(json.dumps({"event": "ready"}), flush=True)
+            return
+        packed = pack_detections(pipe.detect(warm, b0)).cpu().numpy()
+        if args.cmap is not None:
+            # both clutter-map variants: self-seeded, then carried
+            res, m_w = pipe.detect_cmap(warm, b0, beta=args.cmap, m0=None,
+                                        block=1)
+            pack_detections(res).cpu()
+            res, _ = pipe.detect_cmap(warm, b0, beta=args.cmap, m0=m_w,
+                                      block=1)
+            pack_detections(res).cpu()
+        d_bin, r_bin = (_bins(packed[..., c], device) for c in (7, 8))
+        if disambiguate:
+            _disambiguated(pipe, warm, b0, d_bin, r_bin)
+        if args.refine:
+            _refined_azimuth(pipe, warm, b0, d_bin, r_bin, args.refine)
+        print(json.dumps({"event": "ready"}), flush=True)
+
+    batches = live.udp_frame_batches_multi(
+        args.port, cfg, host=args.host,
+        max_frames=None if args.max_frames < 0 else args.max_frames,
+        timeout_s=args.timeout, max_batch=nb, on_bound=warmup,
+    )
+    bases: dict[int, torch.Tensor] = {}
+    base_acc: dict[int, list] = {}  # --base-frames accumulation per source
+    trackers: dict[int, object] = {}
+    cmap_state: dict[int, torch.Tensor] = {}  # per-source background map
+    frame_no: dict[int, int] = {}   # per-source frame sequence numbers
+    pending: dict[int, list] = {}   # --integrate: frames short of a group
+    n = 0
+    t_first = t_last = None
+    # bounded reservoirs: the most recent window is what the
+    # percentiles describe in a long-lived server
+    lat_ms: deque = deque(maxlen=65536)    # per-frame ingest->record
+    fetch_ms: deque = deque(maxlen=65536)  # per-dispatch detect+fetch
+    blank_acc = 0   # a device scalar once blanking runs; read at shutdown
+    n_emitted = 0   # records emitted in the CURRENT batch
+
+    def emit_record(src, row, elev_row=None, n_group=1):
+        """One JSONL record from one packed result row: detections ->
+        (optional) ego labelling -> tracker update -> print."""
+        nonlocal n, n_emitted
+        n += n_group
+        n_emitted += 1
+        frame_no[src] = frame_no.get(src, 0) + n_group
+        dets = [
+            {
+                "range_m": round(float(row[k, 0]), 4),
+                "velocity_mps": round(float(row[k, 1]), 4),
+                "azimuth_deg": round(float(row[k, 2]), 2),
+                "power": float(row[k, 3]),
+                "range_m_interp": round(float(row[k, 5]), 4),
+                "velocity_mps_interp": round(float(row[k, 6]), 4),
+                **(
+                    {"elevation_deg": round(float(elev_row[k]), 2)}
+                    if elev_row is not None else {}
+                ),
+            }
+            for k in range(row.shape[0]) if row[k, 4] > 0.5
+        ]
+        dets = group_peaks(dets)
+        ego_rec = None
+        track_in = dets
+        if args.ego is not None:
+            v_e, static, ok = golden.estimate_ego_motion(
+                np.array([d["azimuth_deg"] for d in dets]),
+                np.array([d["velocity_mps"] for d in dets]),
+                inlier_mps=args.ego,
+            )
+            for d, st in zip(dets, static):
+                d["is_static"] = bool(st)
+                d["velocity_ground_mps"] = round(float(
+                    golden.ego_compensated_velocity(
+                        d["azimuth_deg"], d["velocity_mps"], v_e)), 4)
+            ego_rec = {"vx_mps": round(float(v_e[0]), 3),
+                       "vy_mps": round(float(v_e[1]), 3),
+                       "ok": bool(ok),
+                       "n_static": int(static.sum())}
+            # the tracker sees movers only; records keep every detection
+            if ok:
+                track_in = [d for d, st in zip(dets, static) if not st]
+        confirmed = trackers[src].update(track_in)
+        rec = {
+            "frame": frame_no[src],
+            **({"integrated": n_group} if n_group > 1 else {}),
+            "detections": dets,
+            **({"ego": ego_rec} if ego_rec is not None else {}),
+            "tracks": [
+                {"id": t.track_id, "range_m": round(t.range_m, 4),
+                 "velocity_mps": round(t.velocity_mps, 4),
+                 "azimuth_deg": round(t.azimuth_deg, 2)}
+                for t in confirmed
+            ],
+        }
+        if multi:
+            rec["source"] = src
+        print(json.dumps(rec), flush=True)
+
+    def stacked(frames_src, rows):
+        """The frames as int16 (rows, shorts_per_frame) on the device,
+        zero-padded (one shape for every dispatch), blanked where asked;
+        the blanked count accumulates on the device."""
+        nonlocal blank_acc
+        stack = np.zeros((rows, cfg.shorts_per_frame), np.int16)
+        stack[: len(frames_src)] = np.stack(frames_src)
+        x = torch.as_tensor(stack, device=device)
+        if blank_k is not None:
+            x, nbl = blank_interference(x, k=blank_k)
+            blank_acc = blank_acc + nbl.sum()
+        return x
+
+    for got in batches:
+        t_recv = time.perf_counter()
+        todo: dict[int, list] = {}
+        for src, frame in got:
+            if src in bases:
+                todo.setdefault(src, []).append(frame)
+                continue
+            if blank_k is not None:
+                blanked, nbl0 = blank_interference(
+                    torch.as_tensor(frame, device=device), k=blank_k)
+                frame = blanked.cpu().numpy()
+                blank_acc = blank_acc + nbl0.sum()
+            # the first --base-frames frames per source, AVERAGED
+            acc = base_acc.setdefault(src, [])
+            acc.append(np.array(frame))   # a writable copy
+            if len(acc) < n_base:
+                continue
+            bases[src] = pipe.prepare_base(
+                acc[0] if n_base == 1 else np.stack(acc))
+            del base_acc[src]
+            trackers[src] = make_tracker()
+            ev = {"event": "base_frame"}
+            if n_base > 1:
+                ev["frames"] = n_base
+            if multi:
+                ev["source"] = src
+            print(json.dumps(ev), flush=True)
+        if not todo:
+            continue
+        n_emitted = 0
+        if n_int > 1:
+            # live non-coherent integration: groups of N consecutive
+            # frames per source in arrival order, whatever the stream's
+            # micro-batches; each pending frame keeps its arrival time
+            for src, frames_src in todo.items():
+                pend = pending.setdefault(src, [])
+                pend.extend((f, t_recv) for f in frames_src)
+                while len(pend) >= n_int:
+                    g = min(ng, len(pend) // n_int)
+                    group_frames = [f for f, _ in pend[: g * n_int]]
+                    t_oldest = [pend[j * n_int][1] for j in range(g)]
+                    del pend[: g * n_int]
+                    if t_first is None:
+                        t_first = time.perf_counter()
+                    t_x = time.perf_counter()
+                    x = stacked(group_frames, ng * n_int)
+                    out = pack_detections(pipe.detect_integrated(
+                        x, bases[src], n_int, args.walk)).cpu().numpy()
+                    fetch_ms.append(1e3 * (time.perf_counter() - t_x))
+                    for j in range(g):
+                        emit_record(src, out[j], n_group=n_int)
+                    t_last = time.perf_counter()
+                    lat_ms.extend(1e3 * (t_last - t0_g)
+                                  for t0_g in t_oldest)
+            continue
+        if t_first is None:
+            t_first = time.perf_counter()
+        for src, frames_src in todo.items():
+            # detect_fetch: the upload, the launches and the packed
+            # result's transfer, which waits for all of them
+            t_x = time.perf_counter()
+            x = stacked(frames_src, nb)
+            if args.cmap is not None:
+                # block=1 alpha: the map updates once per dispatch
+                res, cmap_state[src] = pipe.detect_cmap(
+                    x, bases[src], beta=args.cmap, m0=cmap_state.get(src),
+                    block=1)
+            else:
+                res = pipe.detect(x, bases[src])
+            out = pack_detections(res).cpu().numpy()
+            fetch_ms.append(1e3 * (time.perf_counter() - t_x))
+            elev = hyp = None
+            if disambiguate or args.refine:
+                d_bin, r_bin = (_bins(out[..., c], device) for c in (7, 8))
+            if disambiguate:
+                vel_x, az_x, hyp = _disambiguated(pipe, x, bases[src],
+                                                  d_bin, r_bin)
+                # the interp estimate shifts by the same hypothesis offset
+                out[..., 6] += vel_x - out[..., 1]
+                out[..., 1] = vel_x
+                out[..., 2] = az_x
+            if args.refine:
+                az, elev = _refined_azimuth(pipe, x, bases[src], d_bin,
+                                            r_bin, args.refine)
+                if hyp is not None:
+                    # wrapped targets keep the winning hypothesis' azimuth
+                    az = np.where(hyp != 0, out[..., 2], az)
+                out[..., 2] = az
+            for j in range(len(frames_src)):
+                emit_record(src, out[j], None if elev is None else elev[j])
+        t_last = time.perf_counter()
+        # every frame of this dispatch is a record now: latency from the
+        # batch's delivery
+        lat_ms.extend([1e3 * (t_last - t_recv)] * n_emitted)
+    n_drop = sum(len(v) for v in pending.values())
+    if n_drop:
+        print(f"# --integrate {n_int}: dropped {n_drop} trailing frame(s) "
+              f"short of a full group", file=sys.stderr)
+    if lat_ms:
+        q = _percentiles(lat_ms, (50, 90, 99))
+        qx = _percentiles(fetch_ms, (50, 99))
+        stats = {
+            "event": "latency_stats",
+            "frames": n,
+            "p50_ms": q[0], "p90_ms": q[1], "p99_ms": q[2],
+            "max_ms": round(max(lat_ms), 3),
+            "detect_fetch_p50_ms": qx[0], "detect_fetch_p99_ms": qx[1],
+        }
+        if blank_k is not None:
+            stats["blanked_samples"] = int(blank_acc)
+        print(json.dumps(stats), flush=True)
+    if t_first is not None and t_last is not None and t_last > t_first:
+        dt = t_last - t_first
+        print(f"# served {n} frames in {dt:.2f}s = {n/dt:.1f} fps "
+              f"(first dispatch to last record; excludes the trailing "
+              f"socket-timeout wait)", file=sys.stderr)
+    else:
+        print(f"# served {n} frames", file=sys.stderr)
+    return 0
+
+
+def cmd_replay(args) -> int:
+    """Stream a capture file as DCA1000 raw-mode UDP datagrams: the
+    sensor side of ``serve``.  Paced per frame at ``--fps``; frame 0 goes
+    first, so the receiver's base-frame convention holds."""
+    import socket
+
+    from radar_tpu_torch.io.live import make_packets
+
+    cfg = _build_cfg(args)
+    frames = read_capture(args.path, cfg)
+    n = len(frames) if args.max_frames < 0 else min(args.max_frames,
+                                                     len(frames))
+    packets = make_packets(frames[:n])
+    per_frame = -(-len(packets) // n)
+    interval = 1.0 / args.fps if args.fps > 0 else 0.0
+
+    tx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            for pkt in packets[i * per_frame : (i + 1) * per_frame]:
+                tx.sendto(pkt, (args.host, args.port))
+            if interval:
+                # pace against the wall clock (drift-free)
+                lag = t0 + (i + 1) * interval - time.perf_counter()
+                if lag > 0:
+                    time.sleep(lag)
+    finally:
+        tx.close()
+    dt = time.perf_counter() - t0
+    print(f"replayed {n} frames ({len(packets)} datagrams) to "
+          f"{args.host}:{args.port} in {dt:.2f}s = {n/max(dt,1e-9):.1f} fps",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_track(args) -> int:
+    """Detect + multi-frame tracking; prints the confirmed tracks, as
+    ``radar_tpu.cli track``."""
+    from radar_tpu_torch.ops.cluster import representatives
+
+    cfg = _build_cfg(args)
+    device = resolve_device(args.device)
+    capture = read_capture(args.path, cfg)
+    if args.blank_interference is not None:
+        from radar_tpu_torch.ops.interference import blank_interference
+
+        capture = blank_interference(
+            torch.as_tensor(capture, device=device),
+            k=args.blank_interference)[0].cpu().numpy()
+    pipe = RDPipeline(cfg, max_detections=args.max_detections,
+                      rd_impl=args.rd_impl, device=device)
+    n_base = args.base_frames or 1
+    if n_base >= len(capture):
+        print(f"error: --base-frames {n_base} leaves no frames to track "
+              f"(capture has {len(capture)})", file=sys.stderr)
+        return 2
+    base = pipe.prepare_base(capture[0] if n_base == 1
+                             else capture[:n_base])
+    capture = capture[n_base - 1:]   # keep the [0] slot semantics below
+    shorts = torch.as_tensor(capture[1:], device=device)
+    if args.cluster:
+        # one measurement per OBJECT: each hit blob's strongest detection
+        res, cl = pipe.detect_objects(shorts, base)
+        out = materialize_result(res)
+        out = out._replace(valid=representatives(
+            out.valid, cl.cluster_id.cpu().numpy()))
+    else:
+        out = materialize_result(pipe.detect(shorts, base))
+    disambiguate = args.disambiguate
+    if disambiguate and cfg.num_tx == 1:
+        print("warning: --disambiguate is a no-op at num_tx=1 (no TDM "
+              "ambiguity; pass --num-tx to match the capture) -- "
+              "skipping it", file=sys.stderr)
+        disambiguate = False
+    hyp = None
+    d_bin, r_bin = (torch.as_tensor(b, device=device)
+                    for b in (out.doppler_bin, out.range_bin))
+    if disambiguate:
+        vel_x, az_x, hyp = _disambiguated(pipe, shorts, base, d_bin, r_bin)
+        out = out._replace(velocity_mps=vel_x, azimuth_deg=az_x)
+    params = None
+    if args.refine:
+        az, _ = _refined_azimuth(pipe, shorts, base, d_bin, r_bin,
+                                 args.refine)
+        if hyp is not None:
+            # wrapped targets keep the winning hypothesis' azimuth
+            az = np.where(hyp != 0, out.azimuth_deg, az)
+        out = out._replace(azimuth_deg=az)
+        if args.tracker == "ekf":
+            # the refined azimuth is sharper than the angle-FFT grid
+            params = EKFConfig(sigma_azimuth_deg=1.0)
+    ego = None
+    if args.ego is not None:
+        # moving platform: drop the static world before tracking
+        em = estimate_ego_motion(
+            *(torch.as_tensor(a, device=device)
+              for a in (out.azimuth_deg, out.velocity_mps, out.valid)),
+            inlier_mps=args.ego)
+        ego = result_to_numpy(em)
+        n_drop = int((out.valid & ego["is_static"]).sum())
+        out = out._replace(valid=out.valid & ~ego["is_static"])
+        print(f"ego-motion: fit ok on {int(ego['ok'].sum())}/"
+              f"{len(ego['ok'])} frames, {n_drop} static detections "
+              f"dropped before tracking", file=sys.stderr)
+    params = _tracker_params(args, params)
+    if params == 2:
+        return 2
+    tracker = track_capture(out, cfg, kind=args.tracker, params=params)
+    tracks = [t for t in tracker.tracks if t.confirmed]
+    for t in tracks:
+        rec = {
+            "track_id": t.track_id,
+            "range_m": round(t.range_m, 4),
+            "velocity_mps": round(t.velocity_mps, 4),
+            "azimuth_deg": round(t.azimuth_deg, 2),
+            "hits": t.hits,
+        }
+        if ego is not None:
+            ok_v = ego["velocity"][ego["ok"]]
+            if len(ok_v):
+                vx, vy = float(ok_v[:, 0].mean()), float(ok_v[:, 1].mean())
+                az = np.deg2rad(t.azimuth_deg)
+                rec["velocity_ground_mps"] = round(
+                    t.velocity_mps + vx * float(np.sin(az))
+                    + vy * float(np.cos(az)), 4)
+        print(json.dumps(rec))
+    if args.out:
+        with open(args.out, "w") as f:
+            for t in tracks:
+                f.write(json.dumps({
+                    "track_id": t.track_id,
+                    "hits": t.hits,
+                    "history": [[round(r, 4), round(v, 4), round(a, 2)]
+                                for r, v, a in t.history],
+                }) + "\n")
+        print(f"wrote {len(tracks)} track histories to {args.out}",
+              file=sys.stderr)
+    print(f"# {len(tracks)} confirmed tracks over {len(capture)-1} frames",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_bench(args) -> int:
+    """Streamed throughput over a capture file, as ``radar_tpu.cli
+    bench`` without ``--stages`` / ``--compare`` / ``--native`` /
+    ``--profile``: the capture pinned, each batch uploaded on a copy
+    stream behind the detection of the batch before
+    (``parallel.stream``); ``--full`` times ``RDPipeline.detect_donated``
+    (the range-Doppler-CFAR-AoA pipeline), otherwise the range-parity
+    ``RangeDetector``.  ``--latency`` adds the dispatch -> packed-result
+    latency of one resident batch, the program ``serve`` runs."""
+    from radar_tpu_torch.models.rd_pipeline import pack_detections
+    from radar_tpu_torch.parallel.stream import FrameStreamer, stream_detect
+    from radar_tpu_torch.utils.timing import StageTimings, fence
+
+    cfg = _build_cfg(args)
+    device = resolve_device(args.device)
+    pipe = RDPipeline(cfg, max_detections=args.max_detections,
+                      rd_impl=args.rd_impl, device=device)
+    streamer = FrameStreamer(args.path, batch=args.batch, cfg=cfg,
+                             device=device)
+    base_cube = pipe.prepare_base(streamer.base_frame)
+    if args.full:
+        def fn(b):
+            return pipe.detect_donated(b, base_cube)
+    else:
+        det = RangeDetector(cfg, device=device)
+        base_rx0 = det.prepare_base(streamer.base_frame)
+
+        def fn(b):
+            return det.detect(b, base_rx0)
+    # warm up on a copy of the first batch (kept for --latency)
+    batches = iter(streamer)
+    first = next(batches).clone()
+    batches.close()
+    fence(fn(first))
+
+    t0 = time.perf_counter()
+    results = stream_detect(streamer, fn)
+    fence([r[0] for r in results])
+    total = time.perf_counter() - t0
+    n = len(streamer.frames)
+    mode = "range-Doppler-CFAR-AoA" if args.full else "range-parity"
+    where = (f"CUDA {torch.cuda.get_device_name(device)}"
+             if device.type == "cuda" else "CPU")
+    print(f"PyTorch {where} Timing ({mode}, batch={args.batch})")
+    # the reference report's first line; the stage buckets stay empty
+    print(StageTimings(total=total, frames=n).report().splitlines()[0])
+
+    if args.latency:
+        # dispatch -> fetched packed result, one resident batch: the
+        # program serve runs
+        lat = []
+        pack_detections(pipe.detect(first, base_cube)).cpu()   # warm
+        for _ in range(20):
+            t0 = time.perf_counter()
+            pack_detections(pipe.detect(first, base_cube)).cpu()
+            lat.append(1e3 * (time.perf_counter() - t0))
+        q = _percentiles(lat, (50, 90, 99))
+        print(f"dispatch latency over 20 reps (batch={args.batch}, "
+              f"packed transfer): p50 {q[0]} ms, p90 {q[1]} ms, "
+              f"p99 {q[2]} ms, max {max(lat):.3f} ms")
+    return 0
+
+
 _WINDOWS = ["hann", "hamming", "blackman", "blackmanharris", "rect"]
 _CLUTTER = ["auto", "base", "mean", "mti2", "mti3"]
 # the flags several subcommands share: dest -> (flag, add_argument kw)
 _FLAGS = {
+    "max_detections": ("--max-detections", dict(type=int, default=16)),
+    "refine": ("--refine", dict(
+        default=None, choices=["capon", "2d"],
+        help="high-resolution AoA on the detections: 'capon' replaces the "
+             "angle-FFT azimuth with the MVDR estimate; '2d' adds joint "
+             "azimuth/elevation (needs --elevated-tx for a non-degenerate "
+             "elevation)")),
+    "blank_interference": ("--blank-interference", dict(
+        type=float, default=None, metavar="K", nargs="?", const=8.0,
+        help="zero interference-burst samples before the pipeline (|x| > "
+             "K x frame median amplitude; default K=8; "
+             "ops/interference.py)")),
+    "tracker": ("--tracker", dict(
+        choices=["alpha-beta", "ekf"], default="alpha-beta",
+        help="'ekf' = Cartesian constant-velocity EKF (tracks crossing "
+             "targets)")),
+    "confirm_hits": ("--confirm-hits", dict(
+        type=int, default=None, metavar="M",
+        help="tracker M-hit confirmation (default 3)")),
+    "max_misses": ("--max-misses", dict(
+        type=int, default=None, metavar="N",
+        help="coasted misses before a track is dropped (default 3)")),
     "base_frames": ("--base-frames", dict(
         type=int, default=None, metavar="K",
         help="average the first K (empty-scene) frames into the base "
@@ -845,7 +1484,6 @@ def main(argv=None) -> int:
     d.add_argument("--out", default=None)
     d.add_argument("--full", action="store_true",
                    help="include range-Doppler-CFAR-AoA detections")
-    d.add_argument("--max-detections", type=int, default=16)
     d.add_argument("--integrate", type=int, default=None, metavar="N",
                    help="with --full: non-coherent integration — sum N "
                         "consecutive frames' RD power maps before CFAR "
@@ -872,11 +1510,6 @@ def main(argv=None) -> int:
                         "recover velocities over the full single-TX span "
                         "by the TDM phase-hypothesis test; records the "
                         "winning doppler_hypothesis per detection")
-    d.add_argument("--refine", default=None, choices=["capon", "2d"],
-                   help="with --full: 'capon' replaces the angle-FFT "
-                        "azimuth with the MVDR estimate; '2d' adds joint "
-                        "azimuth/elevation (needs --elevated-tx for a "
-                        "non-degenerate elevation)")
     d.add_argument("--keystone", action="store_true",
                    help="with --full: keystone range-migration "
                         "compensation before the FFTs (long-CPI / "
@@ -895,13 +1528,96 @@ def main(argv=None) -> int:
                         "frame and is_static / velocity_ground_mps per "
                         "detection (optional value = inlier gate in m/s, "
                         "default 0.5)")
-    d.add_argument("--blank-interference", type=float, default=None,
-                   metavar="K", nargs="?", const=8.0,
-                   help="zero interference-burst samples before the "
-                        "pipeline (|x| > K x frame median amplitude; "
-                        "default K=8; ops/interference.py)")
-    _add_flags(d, *_PIPELINE)
+    _add_flags(d, "max_detections", "refine", "blank_interference",
+               *_PIPELINE)
     d.set_defaults(fn=cmd_detect)
+
+    s = sub.add_parser("serve", help="live UDP stream -> JSONL detections")
+    s.add_argument("--port", type=int, required=True, action="append",
+                   help="UDP port (repeat for multiple DCA1000 sources; "
+                        "each source gets its own base frame and tracker)")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--max-frames", type=int, default=-1,
+                   help="stop after N frames (default: run until timeout)")
+    s.add_argument("--timeout", type=float, default=5.0,
+                   help="socket timeout in seconds")
+    s.add_argument("--serve-batch", type=int, default=8,
+                   help="max frames per detection dispatch (frames already "
+                        "received batch together with zero added wait)")
+    s.add_argument("--ego", type=float, default=None, nargs="?",
+                   const=0.5, metavar="INLIER_MPS",
+                   help="moving-platform serving: fit the ego velocity "
+                        "per frame (host-side), label detections "
+                        "static/moving with ground-frame velocities, and "
+                        "track movers only")
+    s.add_argument("--cmap", type=float, default=None, nargs="?",
+                   const=0.25, metavar="BETA",
+                   help="clutter-map detector instead of spatial CFAR: "
+                        "per-cell recursive background carried across "
+                        "micro-batches per source on the device (first "
+                        "served frame warms up)")
+    s.add_argument("--disambiguate", action="store_true",
+                   help="TDM phase-hypothesis velocity disambiguation per "
+                        "batch (num_tx > 1)")
+    s.add_argument("--integrate", type=int, default=None, metavar="N",
+                   help="live non-coherent integration: detect on the sum "
+                        "of N consecutive frames' RD power maps per source "
+                        "(one record per group; group alignment fixed by "
+                        "arrival order; pair with --clutter mean or mti2)")
+    s.add_argument("--walk", action="store_true",
+                   help="with --integrate: Doppler-conditioned range-walk "
+                        "alignment before the sum")
+    _add_flags(s, "max_detections", "tracker", "confirm_hits", "max_misses",
+               "refine", "blank_interference", *_PIPELINE)
+    s.set_defaults(fn=cmd_serve)
+
+    r = sub.add_parser("replay",
+                       help="stream a capture file as DCA1000 UDP packets "
+                            "(the sensor side of `serve`)")
+    r.add_argument("path")
+    r.add_argument("--host", default="127.0.0.1")
+    r.add_argument("--port", type=int, required=True)
+    r.add_argument("--fps", type=float, default=100.0,
+                   help="frame pacing (0 = as fast as possible)")
+    r.add_argument("--max-frames", type=int, default=-1)
+    r.set_defaults(fn=cmd_replay)
+
+    t = sub.add_parser("track", help="detect + multi-frame object tracking")
+    t.add_argument("path")
+    t.add_argument("--cluster", action="store_true",
+                   help="feed one measurement per hit-blob object "
+                        "(suppress same-cluster duplicates before "
+                        "tracking)")
+    t.add_argument("--ego", type=float, default=None, nargs="?",
+                   const=0.5, metavar="INLIER_MPS",
+                   help="moving-platform tracking: fit the ego velocity "
+                        "per frame, drop static-world detections before "
+                        "tracking, and report each track's ground-frame "
+                        "radial velocity (optional value = inlier gate "
+                        "in m/s, default 0.5)")
+    t.add_argument("--disambiguate", action="store_true",
+                   help="TDM phase-hypothesis velocity disambiguation "
+                        "before tracking (num_tx > 1)")
+    t.add_argument("--out", default=None, metavar="TRACKS.jsonl",
+                   help="also write one JSONL record per confirmed "
+                        "track, including its full (range, velocity, "
+                        "azimuth) state history")
+    _add_flags(t, "max_detections", "tracker", "confirm_hits", "max_misses",
+               "refine", "blank_interference", *_PIPELINE)
+    t.set_defaults(fn=cmd_track)
+
+    b = sub.add_parser("bench", help="streamed throughput over a capture "
+                                     "file")
+    b.add_argument("path")
+    b.add_argument("--full", action="store_true",
+                   help="time the range-Doppler-CFAR-AoA pipeline (else "
+                        "the range-parity detector)")
+    b.add_argument("--batch", type=int, default=64)
+    b.add_argument("--latency", action="store_true",
+                   help="report dispatch->result latency percentiles "
+                        "(p50/p90/p99) for the serving program")
+    _add_flags(b, "max_detections", *_PIPELINE)
+    b.set_defaults(fn=cmd_bench)
 
     v = sub.add_parser("verify", help="range pipeline vs float64 golden, "
                                       "frame by frame")
@@ -959,7 +1675,6 @@ def main(argv=None) -> int:
     bv.add_argument("path")
     bv.add_argument("--ego", type=float, default=0.5, metavar="INLIER_MPS",
                     help="ego-fit inlier gate in m/s (default 0.5)")
-    bv.add_argument("--max-detections", type=int, default=16)
     bv.add_argument("--out", default=None, help="write world points as CSV")
     bv.add_argument("--second", default=None, metavar="CAP2",
                     help="second radar's capture (synchronized frames): "
@@ -973,7 +1688,7 @@ def main(argv=None) -> int:
                     help="second radar's body pose (required with "
                          "--second; must differ in position from --mount "
                          "for yaw observability)")
-    _add_flags(bv, *_PIPELINE)
+    _add_flags(bv, "max_detections", *_PIPELINE)
     bv.set_defaults(fn=cmd_bev)
 
     rt = sub.add_parser(

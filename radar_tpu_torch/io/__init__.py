@@ -1,2 +1,3 @@
-"""Capture I/O and the synthetic scene generator (the port's copies of
-``radar_tpu.io.capture`` and ``radar_tpu.io.synthetic``)."""
+"""Capture I/O, the synthetic scene generator and live UDP ingest (the
+port's copies of ``radar_tpu.io.capture``, ``radar_tpu.io.synthetic``
+and ``radar_tpu.io.live``)."""

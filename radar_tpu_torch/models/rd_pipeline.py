@@ -547,6 +547,19 @@ class RDPipeline(nn.Module):
 
     forward = detect
 
+    def detect_donated(self, shorts, base_cube=None) -> RDResult:
+        """:meth:`detect`, with the contract of the JAX package's donated
+        input: the caller must not reuse ``shorts`` after the call.
+
+        JAX donates the frame buffer so that back-to-back upload and
+        compute accumulate no dead input buffers.  Here the streaming
+        ingest owns that purpose: ``parallel.stream.FrameStreamer``
+        uploads into a fixed pair of device buffers and refills one as
+        soon as the work enqueued on it is ordered before the copy, so
+        ``shorts`` may be overwritten once the next batch is asked for.
+        """
+        return self.detect(shorts, base_cube)
+
     @torch.no_grad()
     def integrated_power(self, shorts, base_cube=None, n_integrate: int = 2,
                          range_walk: bool = False) -> torch.Tensor:

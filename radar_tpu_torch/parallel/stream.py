@@ -1,0 +1,163 @@
+"""Double-buffered host-to-device frame streaming (the port of
+``radar_tpu.parallel.stream``).
+
+``FrameStreamer`` chunks a capture (file or array) into fixed-size frame
+batches; ``stream_detect`` drives a detection function over them while
+the next batch uploads.
+
+On a CUDA device the capture is pinned once, at construction (one
+page-locked tensor; no per-batch staging copy, which would cost more
+host memcpy than the upload itself), and the batches go into TWO
+preallocated device buffers of ``(batch, shorts_per_frame)`` int16.
+Batch i+1 uploads with ``copy_(..., non_blocking=True)`` on a side
+``torch.cuda.Stream`` while the caller's work on batch i runs on the
+current stream (the kernels launch on the current stream,
+``ops/cuda/_launch.launch``).  Two kinds of event order the streams,
+with no host synchronisation in the loop:
+
+* ``uploaded[j]``, recorded on the copy stream after buffer j is
+  filled: the current stream waits for it before batch i = j (mod 2) is
+  handed out;
+* ``consumed[j]``, recorded on the current stream after the caller has
+  enqueued its work on buffer j (when it asks for the next batch): the
+  copy stream waits for it before it overwrites buffer j with batch
+  i + 2.
+
+A batch handed out is therefore valid until the caller asks for the
+batch after the next one; work enqueued on another stream, or a
+reference kept past that point, sees the buffer overwritten (the
+counterpart of JAX's donated input buffers).  On the CPU the streamer
+yields plain tensors, one new tensor a batch, with no pinning and no
+streams.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.io.capture import read_capture
+from radar_tpu_torch.utils.device import resolve_device
+
+
+class FrameStreamer:
+    """Chunk a capture into device frame batches.
+
+    ``base_frame`` is ``frames[0]`` (NumPy); with ``skip_first`` the
+    batches start at frame 1.  The final partial batch is zero-padded to
+    the batch size (one shape for every launch) and
+    :meth:`valid_frames` reports how many of its rows are frames.
+    Iterate one pass at a time: the passes share the two buffers.
+    """
+
+    def __init__(
+        self,
+        frames: np.ndarray | str | os.PathLike,
+        batch: int = 32,
+        cfg: RadarConfig = DEFAULT_CONFIG,
+        *,
+        device,
+        skip_first: bool = True,
+    ):
+        if isinstance(frames, (str, bytes)) or hasattr(frames, "__fspath__"):
+            frames = read_capture(frames, cfg)
+        self.all_frames = np.asarray(frames)
+        self.base_frame = self.all_frames[0]
+        self.frames = self.all_frames[1:] if skip_first else self.all_frames
+        self.batch = int(batch)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if self.device.type != "cuda":
+            return
+        # the frames, page-locked once: every upload reads them in place
+        self.pinned = torch.from_numpy(
+            np.ascontiguousarray(self.frames)).pin_memory()
+        shape = (self.batch,) + self.frames.shape[1:]
+        self._bufs = [torch.empty(shape, dtype=self.pinned.dtype,
+                                  device=self.device) for _ in range(2)]
+        self._copy_stream = torch.cuda.Stream(self.device)
+        self._uploaded = [torch.cuda.Event() for _ in range(2)]
+        # recorded once here, so each upload has a last use to wait for
+        self._consumed = [torch.cuda.Event() for _ in range(2)]
+        for ev in self._consumed:
+            ev.record(torch.cuda.current_stream(self.device))
+
+    @property
+    def num_batches(self) -> int:
+        return -(-len(self.frames) // self.batch)
+
+    def valid_frames(self, batch_idx: int) -> int:
+        start = batch_idx * self.batch
+        return min(self.batch, len(self.frames) - start)
+
+    def _host_batch(self, batch_idx: int) -> torch.Tensor:
+        start = batch_idx * self.batch
+        chunk = self.frames[start : start + self.batch]
+        if len(chunk) < self.batch:
+            pad = np.zeros(
+                (self.batch - len(chunk),) + chunk.shape[1:], chunk.dtype
+            )
+            chunk = np.concatenate([chunk, pad], axis=0)
+        return torch.from_numpy(np.ascontiguousarray(chunk))
+
+    def _upload(self, batch_idx: int, j: int) -> None:
+        """Enqueue batch ``batch_idx`` into buffer ``j`` on the copy
+        stream, after the current stream's last use of that buffer."""
+        start = batch_idx * self.batch
+        n = self.valid_frames(batch_idx)
+        buf = self._bufs[j]
+        with torch.cuda.stream(self._copy_stream):
+            self._copy_stream.wait_event(self._consumed[j])
+            buf[:n].copy_(self.pinned[start : start + n], non_blocking=True)
+            if n < self.batch:
+                buf[n:].zero_()
+            self._uploaded[j].record(self._copy_stream)
+
+    def __iter__(self) -> Iterator[torch.Tensor]:
+        """Yield the batches with one batch of upload lookahead."""
+        n = self.num_batches
+        if self.device.type != "cuda":
+            for i in range(n):
+                yield self._host_batch(i)
+            return
+        if n == 0:
+            return
+        consumer = torch.cuda.current_stream(self.device)
+        self._upload(0, 0)
+        held = None
+        try:
+            for i in range(n):
+                j = i % 2
+                if i + 1 < n:
+                    self._upload(i + 1, 1 - j)   # H2D behind batch i's work
+                consumer.wait_event(self._uploaded[j])
+                held = j
+                yield self._bufs[j]
+                self._consumed[j].record(consumer)
+                held = None
+        finally:
+            # a pass left early: the batch handed out counts as consumed
+            # by what is enqueued so far, and no upload runs on past the
+            # current stream (the buffers' allocation stream)
+            if held is not None:
+                self._consumed[held].record(consumer)
+            for ev in self._uploaded:
+                consumer.wait_event(ev)
+
+
+def stream_detect(
+    streamer: FrameStreamer,
+    detect_fn: Callable[[torch.Tensor], object],
+) -> list[object]:
+    """Drive ``detect_fn`` over all batches with upload/compute overlap.
+
+    ``detect_fn`` must enqueue its work on the current stream and keep
+    no reference to its input (``RDPipeline.detect_donated``).  The
+    results are NOT synchronised: the caller fences them
+    (``utils.timing.fence``) before reading them on the host.
+    """
+    return [detect_fn(batch) for batch in streamer]

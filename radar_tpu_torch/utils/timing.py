@@ -1,4 +1,5 @@
-"""Device fences and CUDA-event timing (port of ``radar_tpu.utils.timing``).
+"""Device fences, CUDA-event timing and the reference-format stage
+report (port of ``radar_tpu.utils.timing``).
 
 The JAX version fences by materialising a value because
 ``block_until_ready`` did not fence on its remote transport.  Under
@@ -10,9 +11,44 @@ more slowly than the device runs (many small launches), the gaps count.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
+
+
+@dataclasses.dataclass
+class StageTimings:
+    """Reference-format 4-bucket accumulator (seconds)."""
+
+    preprocess: float = 0.0   # decode + reshape + clutter + pad
+    fft: float = 0.0          # range (+Doppler) transforms
+    detect: float = 0.0       # peak scan / CFAR / AoA
+    total: float = 0.0
+    frames: int = 0
+
+    @property
+    def fps(self) -> float:
+        return self.frames / self.total if self.total else 0.0
+
+    def per_frame_ms(self, bucket: str) -> float:
+        if not self.frames:
+            return 0.0
+        return 1000.0 * getattr(self, bucket) / self.frames
+
+    def report(self) -> str:
+        """Human-readable summary mirroring the reference's printfs
+        (cudaBenchMarking.cpp:328-331)."""
+        return (
+            f"Total Time for {self.frames} frames "
+            f"{1000.0 * self.total:.5f} ms averaged {self.fps:.5f} FPS\n"
+            f"Total FFT time {1000.0 * self.fft:.5f} ms averaged "
+            f"{self.per_frame_ms('fft'):.5f} ms/frame\n"
+            f"Total Reshape + Extension time {1000.0 * self.preprocess:.5f} ms "
+            f"averaged {self.per_frame_ms('preprocess'):.5f} ms/frame\n"
+            f"Total findMax time {1000.0 * self.detect:.5f} ms averaged "
+            f"{self.per_frame_ms('detect'):.5f} ms/frame"
+        )
 
 
 def _leaves(tree):
