@@ -28,8 +28,11 @@ their range stage), ``blank_interference``, ``estimate_ego_motion`` and
 ``python -m radar_tpu_torch.cli azmap / admap / mdoppler / rti / bev``
 and ``detect --ego --blank-interference``; the live slice, streamed
 ``detect`` over pinned double-buffered uploads and ``python -m
-radar_tpu_torch.cli serve / replay / track / bench``.  Phases, each
-printing one line or more:
+radar_tpu_torch.cli serve / replay / track / bench``; evaluation,
+``evaluate.measure_pfa``, ``pd_curve``, ``object_metrics`` and
+``track_metrics``, and ``python -m radar_tpu_torch.cli generate /
+calibrate / detect --full --cal / azmap --cal / admap --cal``.  Phases,
+each printing one line or more:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
@@ -135,7 +138,18 @@ printing one line or more:
     the ``latency_stats`` line), with ``--integrate 4 --clutter mean``
     (kernels 2, 4, 3 launched) and ``--cmap`` (kernels 2, 3); ``cli
     track`` equal to ``track_capture`` over ``detect`` on the card, both
-    targets confirmed; ``cli bench --full --latency``.
+    targets confirmed; ``cli bench --full --latency``;
+22. evaluation and calibration at B=512: the realized Pfa on noise-only
+    frames (CA, GO, SO, OS, x4 integration with 'mean' clutter and
+    'fused-pallas') and the Pd curve at 'highest' and 'high' against the
+    plain path on the CPU (hits exact at 'highest', within phase 17's
+    flip budget at 'high'; each Pfa within 20x of the configured one),
+    the object and track scores against the plain path, each call's
+    kernel launches (its kernels once a batch, no other), ``cli generate
+    --rx-imbalance``, ``calibrate`` and ``detect --full --cal`` (kernel 1
+    with the calibration against its plain version, the records against
+    ``--device cpu``'s, the azimuth error smaller with the calibration),
+    ``azmap`` / ``admap --cal``, and host-inclusive ms per call.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -3758,6 +3772,345 @@ def live_phase(cfg, capture, gpu, dev) -> None:
     say(f"phase 21 took {time.perf_counter() - t_phase:.1f} s")
 
 
+EVAL_FRAMES = BATCH     # phase 22's frames per measurement
+EVAL_SCENE = dict(velocities_mps=(2.0, -0.5))   # both targets in view
+EVAL_CAL_TARGETS = ((7.0, 1.5, 22.0, 2500.0), (4.0, 0.5, -30.0, 2000.0))
+EVAL_IMBALANCE = "1:0,1.2:35,0.8:-40,1.1:-18"
+
+
+def kernel_counts() -> dict:
+    """Launches of kernels 1-8 since :func:`reset_kernel_counts`, after
+    the device has finished."""
+    from radar_tpu_torch.ops.cuda import cfar, fused_dft, magargmax
+    from radar_tpu_torch.ops.cuda import megakernel, oscfar, topk
+
+    torch.cuda.synchronize()
+    return {1: megakernel.launches, 2: megakernel.maps_launches,
+            3: topk.launches, 4: cfar.launches,
+            5: oscfar.threshold_launches, 6: oscfar.hits_launches,
+            7: magargmax.launches, 8: fused_dft.launches}
+
+
+def reset_kernel_counts() -> None:
+    from radar_tpu_torch.ops.cuda import cfar, fused_dft, magargmax
+    from radar_tpu_torch.ops.cuda import megakernel, oscfar, topk
+
+    megakernel.launches = megakernel.maps_launches = 0
+    topk.launches = cfar.launches = magargmax.launches = 0
+    oscfar.threshold_launches = oscfar.hits_launches = fused_dft.launches = 0
+
+
+def counted_call(fn, *args, **kwargs):
+    """(``fn(...)``, host-inclusive ms, launches of kernels 1-8), the
+    counts set to 0 just before the call and read just after."""
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    counts = kernel_counts()
+    return out, 1e3 * (time.perf_counter() - t0), counts
+
+
+def once(*kernels) -> dict:
+    """The launch counts of a call that launches each of ``kernels`` once
+    and no other kernel."""
+    return {k: int(k in kernels) for k in range(1, 9)}
+
+
+def metrics_close(got: dict, want: dict, cfg) -> None:
+    """Object or track metrics held as ``tests/test_torch_evaluate.py``
+    holds them: counts, ids and switches exact; the range and velocity
+    RMSEs within 1e-5 of the larger of the RMSE and the largest truth
+    (|RMSE(a) - RMSE(b)| <= max |a - b|, each estimate within 1e-5
+    relative, phase 19's centroid gate); the azimuth RMSE within 1e-3 deg
+    (``compare``'s azimuth gate)."""
+    assert list(got) == list(want)
+    dt = cfg.num_chirps * cfg.chirp_interval_s
+    truth = {
+        "range_rmse_m": max(abs(r) + abs(v) * (want["frames"] + 1) * dt
+                            for r, v in zip(want["ranges_m"],
+                                            want["velocities_mps"])),
+        "velocity_rmse_mps": max(abs(v) for v in want["velocities_mps"]),
+    }
+    for k, w in want.items():
+        g = got[k]
+        if k == "azimuth_rmse_deg":
+            assert abs(g - w) <= 1e-3, (k, g, w)
+        elif k in truth:
+            assert abs(g - w) <= 1e-5 * max(abs(w), truth[k]), (k, g, w)
+        else:
+            assert g == w, (k, g, w)
+
+
+def record_flips(got: list, want: list) -> int:
+    """Detection-set differences between two runs' records, frame for
+    frame."""
+    assert [r["frame"] for r in got] == [r["frame"] for r in want]
+    cells = [[{(d["range_m"], d["velocity_mps"]) for d in r["detections"]}
+              for r in recs] for recs in (got, want)]
+    return sum(len(a ^ b) for a, b in zip(*cells))
+
+
+def azimuth_error(records, targets, cfg) -> float:
+    """Mean |azimuth error| of each record's strongest detection within
+    0.5 m of each target's range at that frame."""
+    frame_s = cfg.num_chirps * cfg.chirp_interval_s
+    errs = []
+    for rec in records:
+        for r0, v, az, _ in targets:
+            r = r0 + v * rec["frame"] * frame_s
+            near = [d for d in rec["detections"]
+                    if abs(d["range_m_interp"] - r) < 0.5]
+            if near:
+                best = max(near, key=lambda d: d["power"])
+                errs.append(abs(best["azimuth_deg"] - az))
+    assert errs, "no detection near a target"
+    return float(np.mean(errs))
+
+
+@contextlib.contextmanager
+def silenced():
+    """Drops what a CLI call prints (its results are read from files)."""
+    with contextlib.redirect_stdout(io.StringIO()), \
+            contextlib.redirect_stderr(io.StringIO()):
+        yield
+
+
+def eval_phase(gpu, dev) -> None:
+    """Phase 22, evaluation and calibration at ``RadarConfig()``, B =
+    EVAL_FRAMES: (a) ``evaluate.measure_pfa`` on noise-only frames for
+    CA, GO, SO (kernel 1), OS (kernels 2, 6, 3), x4 integration with
+    'mean' clutter (2, 4, 3) and 'fused-pallas' (8, 4, 3), at
+    'highest' and 'high', against the plain path (the port on the CPU):
+    hits and repeated cells exact at 'highest', within phase 17's flip
+    budget (2 at B = 512) at 'high'; each realized Pfa within 20x of
+    ``cfg.cfar_pfa``; (b) ``pd_curve`` at the default amplitudes, each
+    point equal to the plain path's at 'highest', within 2 / B at 'high',
+    Pd 1 at 320; (c) ``object_metrics`` and ``track_metrics`` (EKF over
+    cluster representatives; alpha-beta over grouped peaks) on a scene
+    whose targets stay in view for B frames, equal to the plain path's
+    at 'highest' (``metrics_close``) and printed beside it at 'high';
+    (d) each call's launches, counted from 0 just before it: its kernels
+    once per batch and no other; (e) ``cli generate --rx-imbalance``,
+    ``cli calibrate`` and ``cli detect --full --cal`` on the card: kernel
+    1 against its plain version with the calibration (``compare``, phase
+    2's gate), the records against ``--device cpu``'s (detection sets
+    within the flip budget), the azimuth error against the truth smaller
+    with ``--cal`` than without, and ``azmap --cal`` / ``admap --cal``
+    (one kernel-8 launch each) against the plain path within 16 tier
+    units of the map's peak (phase 20's gate); (f) host-inclusive ms per
+    call beside the synthesis of the call's frames."""
+    import dataclasses
+
+    from radar_tpu_torch import cli
+    from radar_tpu_torch import evaluate as ev
+    from radar_tpu_torch.config import RadarConfig
+    from radar_tpu_torch.io.capture import read_capture, write_capture
+    from radar_tpu_torch.io.synthetic import synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        detections_from_shorts_cuda,
+        detections_from_shorts_reference,
+    )
+
+    t_phase = time.perf_counter()
+    n = EVAL_FRAMES
+    cpu = torch.device("cpu")
+    cfg0 = RadarConfig()
+    tiers = ("highest", "high")
+    budget = 2      # phase 17: kernel 1 against its plain version, B = 512
+
+    def at(tier, **kw):
+        return dataclasses.replace(cfg0, dft_precision=tier, **kw)
+
+    # -- (a) the realized Pfa ------------------------------------------------
+    cases = {   # name: (config, measure_pfa keywords, plain rd_impl, kernels)
+        "ca": ({}, {}, "auto", (1,)),
+        "goca": ({"cfar_kind": "goca"}, {}, "auto", (1,)),
+        "soca": ({"cfar_kind": "soca"}, {}, "auto", (1,)),
+        "os": ({"cfar_kind": "os"}, {}, "auto", (2, 6, 3)),
+        "nci4-mean": ({"clutter_mode": "mean"}, {"n_integrate": 4}, "auto",
+                      (2, 4, 3)),
+        "fused-pallas": ({}, {"rd_impl": "fused-pallas"}, "fused", (8, 4, 3)),
+    }
+    guard = cfg0.range_edge_guard_effective
+    kept = (cfg0.range_fft_size - guard) / cfg0.range_fft_size
+    timing = {}
+    for name, (over, kw, plain_impl, kernels) in cases.items():
+        plain = ev.measure_pfa(at("highest", **over), frames=n, device=cpu,
+                               **{**kw, "rd_impl": plain_impl})
+        for tier in tiers:
+            cfg = at(tier, **over)
+            got, ms, counts = counted_call(ev.measure_pfa, cfg, frames=n,
+                                           device=dev, **kw)
+            assert counts == once(*kernels), (name, tier, counts)
+            if tier == "highest":
+                for k in ("hits", "repeat_cells"):
+                    assert got[k] == plain[k], (name, tier, k, got, plain)
+            else:
+                for k in ("hits", "repeat_cells"):
+                    assert abs(got[k] - plain[k]) <= budget, (
+                        name, tier, k, got, plain)
+            assert got["cells"] == (n // kw.get("n_integrate", 1)
+                                    * cfg.doppler_fft_size
+                                    * (cfg.range_fft_size - guard))
+            ratio = got["pfa_measured"] / cfg.cfar_pfa
+            assert 1 / 20 < ratio < 20, (name, tier, got)
+            if name == "ca" and tier == "high":
+                timing["measure_pfa"] = ms
+            say(f"measure_pfa {name} '{tier}' B={n} on {gpu}: hits "
+                f"{got['hits']} (plain {plain['hits']}), repeat_cells "
+                f"{got['repeat_cells']} (plain {plain['repeat_cells']}), "
+                f"cells {got['cells']}, pfa_measured {got['pfa_measured']!r}"
+                f" = {ratio:.4f} x cfg.cfar_pfa (over every range bin, as "
+                f"radar_tpu.evaluate: {got['pfa_measured'] * kept!r}, x "
+                f"{kept:.6f}); launches {counts}; {ms:.1f} ms host-inclusive")
+
+    # -- (b) Pd --------------------------------------------------------------
+    plain = ev.pd_curve(cfg0, frames=n, device=cpu)
+    amps = [p.amplitude for p in plain]
+    for tier in tiers:
+        got, ms, counts = counted_call(ev.pd_curve, at(tier), frames=n,
+                                       device=dev)
+        assert counts == {k: len(amps) * int(k == 1) for k in range(1, 9)}, (
+            tier, counts)
+        for g, p in zip(got, plain):
+            if tier == "highest":
+                assert g == p, (g, p)
+            else:
+                assert abs(g.pd - p.pd) <= 2 / n, (g, p)
+                assert abs(g.mean_hits - p.mean_hits) <= 2 / n, (g, p)
+        assert got[amps.index(320.0)].pd == 1.0, got
+        say(f"pd_curve '{tier}' B={n} on {gpu}: "
+            + ", ".join(f"amp {g.amplitude:g} Pd {g.pd!r} (plain {p.pd!r}) "
+                        f"mean_hits {g.mean_hits!r} (plain {p.mean_hits!r})"
+                        for g, p in zip(got, plain))
+            + f"; launches {counts}; {ms:.1f} ms host-inclusive for "
+            f"{len(amps)} points")
+    _, ms, _ = counted_call(ev.pd_curve, cfg0, amplitudes=(320.0,),
+                            frames=n, device=dev)
+    timing["pd point"] = ms
+
+    # -- (c) the object and track levels -------------------------------------
+    calls = {   # name: (function, keywords, kernels)
+        "object_metrics": (ev.object_metrics, {}, (2, 3)),
+        "track_metrics ekf": (ev.track_metrics, {}, (2, 3)),
+        "track_metrics alpha-beta peaks": (
+            ev.track_metrics, {"tracker_kind": "alpha-beta",
+                               "cluster": False}, (1,)),
+    }
+    for name, (fn, kw, kernels) in calls.items():
+        plain = fn(cfg0, frames=n, device=cpu, **EVAL_SCENE, **kw)
+        for tier in tiers:
+            got, ms, counts = counted_call(fn, at(tier), frames=n,
+                                           device=dev, **EVAL_SCENE, **kw)
+            assert counts == once(*kernels), (name, tier, counts)
+            if tier == "highest":
+                metrics_close(got, plain, cfg0)
+            elif "peaks" not in name:
+                timing[name.split()[0]] = ms
+            diff = {k: got[k] for k in got
+                    if k not in plain or got[k] != plain[k]}
+            say(f"{name} '{tier}' B={n} on {gpu}: {json.dumps(got)}; "
+                f"differing from the plain path's: "
+                f"{json.dumps({k: [v, plain[k]] for k, v in diff.items()})}"
+                f"; launches {counts}; {ms:.1f} ms host-inclusive")
+
+    # -- (e) calibration on the card -----------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        cal_cap, cal_json = (os.path.join(tmp, f) for f in ("cal.bin",
+                                                              "cal.json"))
+        with silenced():
+            assert cli.main(["generate", cal_cap, "--frames", str(n + 1),
+                             "--target", "6,0,0,3000", "--noise", "2",
+                             "--rx-imbalance", EVAL_IMBALANCE]) == 0
+            t0 = time.perf_counter()
+            assert cli.main(["calibrate", cal_cap, "--out", cal_json]) == 0
+            t_cal = time.perf_counter() - t0
+        with open(cal_json) as f:
+            cal = json.load(f)
+        cap_path = os.path.join(tmp, "scene.bin")
+        with silenced():
+            assert cli.main(
+                ["generate", cap_path, "--frames", str(n + 1), "--noise",
+                 "5", "--seed", "4", "--rx-imbalance", EVAL_IMBALANCE]
+                + [a for t in EVAL_CAL_TARGETS
+                   for a in ("--target", ",".join(map(str, t)))]) == 0
+        capture = read_capture(cap_path, cfg0)
+        cfg_cal = dataclasses.replace(cfg0, rx_cal=tuple(
+            complex(re, im) for re, im in cal["rx_cal"]))
+        frames = torch.from_numpy(capture[1:]).to(dev)
+        base = RDPipeline(cfg_cal, K_DET, device=dev).prepare_base(capture[0])
+        kern = run_detect(detections_from_shorts_cuda, frames, base, K_DET,
+                          cfg_cal)
+        ref = run_detect(detections_from_shorts_reference, frames, base,
+                         K_DET, cfg_cal)
+        flips, err = compare(kern, ref, cfg_cal, max_flips=budget,
+                             f32_floor=True, unit=tier_unit(cfg_cal))
+        recs = {}
+        for name, argv in (("card", ["--cal", cal_json, "--device", "cuda"]),
+                           ("plain", ["--cal", cal_json, "--device", "cpu"]),
+                           ("raw", ["--device", "cuda"])):
+            out = os.path.join(tmp, f"{name}.jsonl")
+            reset_kernel_counts()
+            with silenced():
+                assert cli.main(["detect", cap_path, "--full", "--out", out]
+                                + argv) == 0
+            counts = kernel_counts()
+            if argv[-1] == "cuda":
+                assert counts == once(1), (name, counts)
+            with open(out) as f:
+                recs[name] = [json.loads(ln) for ln in f if ln.strip()]
+        n_flip = record_flips(recs["card"], recs["plain"])
+        assert n_flip <= budget, n_flip
+        az = {k: azimuth_error(recs[k], EVAL_CAL_TARGETS, cfg0)
+              for k in ("card", "raw")}
+        assert az["card"] < az["raw"], az
+        say(f"calibration on {gpu}: cli calibrate on {n} frames of a "
+            f"boresight reflector in {t_cal:.1f} s (float64 golden on the "
+            f"host), phases {cal['phase_deg']} deg, gains {cal['gain_db']} "
+            f"dB; kernel 1 with the calibration against its plain version "
+            f"B={n}: {flips} flips, max |power err| {err:.4g}; cli detect "
+            f"--full --cal --device cuda: {len(recs['card'])} records, "
+            f"{n_flip} detection-set differences from --device cpu; mean "
+            f"|azimuth error| {az['card']:.4f} deg with --cal against "
+            f"{az['raw']:.4f} without")
+        # the scene maps with the calibration: kernel 8 as the range stage
+        short = os.path.join(tmp, "short.bin")
+        write_capture(short, capture[:SCENE_CLI_FRAMES], cfg0)
+        # launches of kernel 8: the map's range stage, and admap's
+        # automatic gate
+        for cmd, k8 in (("azmap", 1), ("admap", 2)):
+            maps = {}
+            for device in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"{cmd}-{device}.npy")
+                reset_kernel_counts()
+                with silenced():
+                    assert cli.main([cmd, short, "--cal", cal_json, "--out",
+                                     out, "--device", device]) == 0
+                counts = kernel_counts()
+                if device == "cuda":
+                    assert counts == {k: k8 * int(k == 8)
+                                      for k in range(1, 9)}, (cmd, counts)
+                maps[device] = np.load(out)
+            peak = np.abs(maps["cpu"]).max()
+            rel = float(np.abs(maps["cuda"] - maps["cpu"]).max() / peak)
+            assert rel <= 16 * tier_unit(cfg0), (cmd, rel)
+            assert np.argmax(maps["cuda"]) == np.argmax(maps["cpu"]), cmd
+            say(f"{cmd} --cal --device cuda, {SCENE_CLI_FRAMES - 1} frames: "
+                f"kernel-8 launches {k8}, within {rel:.3g} of the map's peak "
+                f"of the plain path, peak bins equal")
+
+    # -- (f) times -----------------------------------------------------------
+    t0 = time.perf_counter()
+    synthesize_capture([], n + 1, cfg0, noise_std=20.0, seed=0)
+    synth_ms = 1e3 * (time.perf_counter() - t0)
+    say(f"eval times at B={n}, 'high', on {gpu}, host-inclusive ms per call "
+        f"(each synthesizes its frames on the host; {n + 1} noise frames "
+        f"alone take {synth_ms:.1f} ms): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in timing.items()))
+    say(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -3947,6 +4300,7 @@ def main() -> int:
     objects_phase(cfg, capture, frames, base, consts, gpu, dev)
     scene_phase(cfg, capture, frames, base, gpu, dev)
     live_phase(cfg, capture, gpu, dev)
+    eval_phase(gpu, dev)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

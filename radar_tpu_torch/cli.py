@@ -1,21 +1,34 @@
-"""radar_tpu_torch command-line interface (``detect``, ``verify``,
-``selftest``, the scene products, ``serve``, ``replay``, ``track`` and
-the streamed ``bench`` of ``radar_tpu.cli``, on the PyTorch port):
+"""radar_tpu_torch command-line interface (``generate``, ``calibrate``,
+``info``, ``eval``, ``detect``, ``verify``, ``selftest``, the scene
+products, ``serve``, ``replay``, ``track`` and the streamed ``bench`` of
+``radar_tpu.cli``, on the PyTorch port):
 
+  python -m radar_tpu_torch.cli generate cap.bin [--frames 90] \\
+      [--target R,V,AZ[,AMP[,EL]] ...] [--noise 10] [--seed 0] \\
+      [--base-frames K] [--interference N] [--num-tx N] [--elevated-tx [WL]] \\
+      [--platform VX,VY] [--world-target X,Y[,AMP] ...] [--chirps N] \\
+      [--slope MHZ_US] [--chirp-motion] [--rx-imbalance G:DEG,...]
+  python -m radar_tpu_torch.cli calibrate cal.bin [--az DEG] [--el DEG] \\
+      [--frames N] [--out cal.json] [--num-tx N] [--elevated-tx [WL]]
+  python -m radar_tpu_torch.cli info [--num-tx N] [--elevated-tx [WL]]
+  python -m radar_tpu_torch.cli eval --device cuda [--frames 32] \\
+      [--amplitudes 20,40,80,160,320] [--noise 20] [--range 6] \\
+      [--velocity 2] [--seed 0] [--integrate N [--walk]] [--objects] \\
+      [--tracks [--tracker ekf|alpha-beta]] [pipeline flags, --cal]
   python -m radar_tpu_torch.cli detect cap.bin --full --device cuda \\
-      [--max-detections 16] [--base-frames K] [--out dets.jsonl] \\
+      [--max-detections 16] [--base-frames K] [--out dets.jsonl [--resume]] \\
       [--integrate N [--walk] | --cluster | --cmap [BETA] [--cmap-block B]] \\
       [--disambiguate] [--refine capon|2d] [--keystone] [--points PATH] \\
-      [--ego [INLIER_MPS]] [--blank-interference [K]] \\
+      [--ego [INLIER_MPS]] [--blank-interference [K]] [--cal CAL.json] \\
       [--rd-impl auto|mega|mega-maps|fused|fused-pallas|planar|mxu|fft] \\
       [--clutter auto|base|mean|mti2|mti3] [--cfar-kind ca|os|goca|soca] \\
       [--chirps N] [--slope MHZ_US] [--num-tx N] [--elevated-tx [WL]] \\
       [--window-kind KIND] [--dft-precision high|highest|default] \\
       [--range-edge-guard BINS] [--cfar-pulses N]
   python -m radar_tpu_torch.cli azmap cap.bin [--frame F] \\
-      [--method fft|capon] [--out map.npy] --device cuda
+      [--method fft|capon] [--cal CAL.json] [--out map.npy] --device cuda
   python -m radar_tpu_torch.cli admap cap.bin [--frame F] [--range-bin R] \\
-      [--out map.npy] --device cuda
+      [--cal CAL.json] [--out map.npy] --device cuda
   python -m radar_tpu_torch.cli mdoppler cap.bin [--range-bin R] \\
       [--win-frames 8] [--hop-frames 1] [--n-fft N] [--out spec.npy]
   python -m radar_tpu_torch.cli rti cap.bin [--out rti.npy]
@@ -37,6 +50,16 @@ the streamed ``bench`` of ``radar_tpu.cli``, on the PyTorch port):
   python -m radar_tpu_torch.cli bench cap.bin --device cuda [--full] \\
       [--batch 64] [--latency]
 
+``generate`` writes the capture ``radar_tpu.cli generate`` writes, byte
+for byte; ``calibrate`` estimates the per-channel correction from a
+capture of one reflector at a known angle on the float64 golden and
+writes the CAL.json that ``--cal`` reads on every subcommand with the
+pipeline flags and on ``azmap`` / ``admap`` (with the JAX package's
+geometry checks); ``info`` prints the configuration's derived
+parameters; ``eval`` prints the realized Pfa, the Pd curve and, with
+``--objects`` / ``--tracks``, the object and track scores as JSON event
+lines (``evaluate.py``).
+
 ``serve`` reads DCA1000-style UDP streams (``io/live.py``; ``replay``
 is the sensor side) and prints one JSON record per frame (or per
 ``--integrate`` group) with the detections and the confirmed tracks,
@@ -53,11 +76,12 @@ extent; ``--disambiguate`` the velocity over the TDM-extended span and
 its ``doppler_hypothesis``; ``--refine 2d`` the ``elevation_deg``;
 ``--ego`` the frame's ego fit and each detection's ``is_static`` and
 ``velocity_ground_mps``.  ``--blank-interference`` zeroes burst samples
-in the capture first.  ``--points`` writes one Cartesian point per
-detection (CSV, or PLY for a ``.ply`` path).  The scene subcommands
-print one JSON event line each and write the map (``.npy``) or, for
-``bev``, the world points (CSV); their event lines, arrays and exit
-codes are those of ``radar_tpu.cli``, except that ``bev --second``
+in the capture first.  ``--resume`` seeks past the frames ``--out``
+already holds and appends the rest.  ``--points`` writes one Cartesian
+point per detection (CSV, or PLY for a ``.ply`` path).  The scene
+subcommands print one JSON event line each and write the map (``.npy``)
+or, for ``bev``, the world points (CSV); their event lines, arrays and
+exit codes are those of ``radar_tpu.cli``, except that ``bev --second``
 takes the second capture's base from its first ``--base-frames``
 frames too.  ``verify`` holds the reference-parity range pipeline
 against the float64 golden frame by frame; ``selftest`` runs the 15
@@ -80,7 +104,8 @@ import torch
 from radar_tpu_torch import golden
 from radar_tpu_torch.config import LIGHT_SPEED, RadarConfig
 from radar_tpu_torch.convert import result_to_numpy
-from radar_tpu_torch.io.capture import read_capture
+from radar_tpu_torch.io.capture import read_capture, write_capture
+from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
 from radar_tpu_torch.models.range_detector import RangeDetector
 from radar_tpu_torch.models.rd_pipeline import RDPipeline
 from radar_tpu_torch.models.tracker import (
@@ -104,12 +129,53 @@ from radar_tpu_torch.utils.points import (
     world_points_yaw,
     write_point_cloud,
 )
-from radar_tpu_torch.utils.records import DetectionRecord, JsonlWriter
+from radar_tpu_torch.utils.records import (
+    DetectionRecord,
+    JsonlWriter,
+    last_frame_index,
+)
+
+
+def _load_cal(path: str, num_tx: int, elevated_wl) -> tuple[complex, ...]:
+    """The ``rx_cal`` correction of the calibration file ``path`` (written
+    by ``calibrate``), after checking that it was estimated under this
+    run's geometry: ``num_rx``, ``num_tx`` and, where the file records
+    them, the TX positions (``elevated_wl``: ``--elevated-tx``, or None
+    for the azimuth ULA).  A length-only check would accept a correction
+    whose embedded steering reference belongs to another array."""
+    with open(path) as f:
+        doc = json.load(f)
+    for field, have in (("num_rx", RadarConfig().num_rx),
+                        ("num_tx", num_tx)):
+        rec = doc.get(field)
+        if rec is not None and int(rec) != int(have):
+            raise ValueError(
+                f"calibration file {path} was estimated at "
+                f"{field}={rec}, but this run uses {field}={have}; "
+                "re-run `cli calibrate` under the matching geometry"
+            )
+    if "tx_positions_wl" in doc:   # absent in older files
+        rec_pos = doc["tx_positions_wl"]   # null = azimuth ULA
+        rec_pos = (None if rec_pos is None
+                   else [[float(x) for x in p] for p in rec_pos])
+        run_pos = None if elevated_wl is None else (
+            [[t * RadarConfig().num_rx * 0.5, 0.0]
+             for t in range(num_tx - 1)] + [[0.0, float(elevated_wl)]])
+        if rec_pos != run_pos:
+            raise ValueError(
+                f"calibration file {path} was estimated under TX "
+                f"geometry {rec_pos}, but this run uses {run_pos}; "
+                "the embedded steering reference would mis-correct "
+                "every angle — re-run `cli calibrate` under the "
+                "matching geometry"
+            )
+    return tuple(complex(re, im) for re, im in doc["rx_cal"])
 
 
 def _build_cfg(args) -> RadarConfig:
-    """RadarConfig from the shared pipeline flags (``radar_tpu.cli``'s
-    ``_build_cfg`` without ``--cal``)."""
+    """RadarConfig from the shared pipeline flags, ``--cal`` included
+    (``radar_tpu.cli``'s ``_build_cfg``); raises ``ValueError`` with its
+    texts."""
     kw = {}
     for flag, field in (("cfar_kind", "cfar_kind"),
                         ("dft_precision", "dft_precision"),
@@ -124,6 +190,9 @@ def _build_cfg(args) -> RadarConfig:
         kw["slope_hz_per_s"] = args.slope * 1e12
     if getattr(args, "range_edge_guard", None) is not None:
         kw["range_edge_guard"] = args.range_edge_guard
+    if getattr(args, "cal", None):
+        kw["rx_cal"] = _load_cal(args.cal, kw.get("num_tx", 1),
+                                 getattr(args, "elevated_tx", None))
     cfg = RadarConfig(**kw)
     wl = getattr(args, "elevated_tx", None)
     if wl is not None:
@@ -219,6 +288,9 @@ _NEEDS_FULL = (
 def _usage_error(args) -> str | None:
     """The flag checks of ``radar_tpu.cli detect``: the message of the
     first combination it refuses, or None."""
+    if args.resume and not args.out:
+        return ("--resume requires --out (records on stdout cannot be "
+                "resumed)")
     if not args.full:
         for flag, msg in _NEEDS_FULL:
             value = getattr(args, flag)
@@ -234,13 +306,19 @@ def _usage_error(args) -> str | None:
     if (args.integrate or 1) > 1:
         for bad, why in (("cluster", "clusters per-frame hit maps"),
                          ("disambiguate", "re-tests per-frame snapshots"),
-                         ("refine", "re-estimates per-frame angles")):
+                         ("refine", "re-estimates per-frame angles"),
+                         ("resume", "group alignment would drift across "
+                                    "runs")):
             if getattr(args, bad):
                 return (f"--integrate cannot be combined with --{bad} "
                         f"({why})")
     if args.keystone and args.rd_impl not in ("auto", "fft", "mxu"):
         return (f"--keystone needs the complex-cube front-end (--rd-impl "
                 f"auto/fft/mxu), got {args.rd_impl!r}")
+    if args.points and args.resume:
+        return ("--points cannot be combined with --resume (point files "
+                "are rewritten whole, so a resumed run would drop the "
+                "frames already covered)")
     return None
 
 
@@ -317,6 +395,10 @@ def _ego_fit(rd: dict, inlier_mps: float, device) -> tuple[dict, np.ndarray]:
 
 
 def cmd_detect(args) -> int:
+    """Detection records, one a frame (or an ``--integrate`` group),
+    as ``radar_tpu.cli detect``.  ``--resume`` seeks past the frames
+    ``--out`` already holds (the pipeline is stateless past the base
+    frames) and appends to it; when it holds none, it is rewritten."""
     msg = _usage_error(args)
     if msg is None:
         try:
@@ -348,7 +430,14 @@ def cmd_detect(args) -> int:
         print(f"error: --base-frames {n_base} leaves no frames to detect "
               f"(capture has {len(capture)})", file=sys.stderr)
         return 2
-    todo = capture[n_base:]
+    start = n_base
+    if args.resume:
+        start = max(n_base, last_frame_index(args.out) + 1)
+        if start >= len(capture):
+            print(f"{args.out} already covers all {len(capture) - n_base} "
+                  "frames")
+            return 0
+    todo = capture[start:]
     if n_int > 1:
         kept = (len(todo) // n_int) * n_int
         if kept == 0:
@@ -388,7 +477,7 @@ def cmd_detect(args) -> int:
         dets = (None if rd is None
                 else _detections(rd, j, hyp, elev, cl, ego))
         records.append(DetectionRecord(
-            frame=n_base + pj,
+            frame=start + pj,
             peak_bin=int(peaks["peak_bin"][pj]),
             distance_m=float(peaks["distance_m"][pj]),
             magnitude=float(peaks["peak_magnitude"][pj]),
@@ -401,8 +490,9 @@ def cmd_detect(args) -> int:
             },
         ))
         if args.points and dets:
-            points += point_rows(n_base + pj, dets)
-    sink = open(args.out, "w") if args.out else sys.stdout
+            points += point_rows(start + pj, dets)
+    sink = (open(args.out, "a" if start > n_base else "w") if args.out
+            else sys.stdout)
     JsonlWriter(sink).write_all(records)
     if args.out:
         sink.close()
@@ -1380,6 +1470,228 @@ def cmd_bench(args) -> int:
     return 0
 
 
+def _parse_target(spec: str) -> SceneTarget:
+    """``range_m,vel_mps,azimuth_deg[,amplitude[,elevation_deg]]``;
+    missing leading fields are 0, the amplitude 2000."""
+    parts = [float(x) for x in spec.split(",")]
+    while len(parts) < 3:
+        parts.append(0.0)
+    amp = parts[3] if len(parts) > 3 else 2000.0
+    elev = parts[4] if len(parts) > 4 else 0.0
+    return SceneTarget(
+        range_m=parts[0], velocity_mps=parts[1], azimuth_deg=parts[2],
+        amplitude=amp, elevation_deg=elev,
+    )
+
+
+def cmd_generate(args) -> int:
+    """Write a synthetic ADC capture (``io/synthetic``), byte for byte the
+    capture ``radar_tpu.cli generate`` writes for the same flags."""
+    cfg = _build_cfg(args)
+    targets = [_parse_target(t) for t in args.target]
+    plat = (0.0, 0.0)
+    if args.platform:
+        vx, vy = (float(v) for v in args.platform.split(","))
+        plat = (vx, vy)
+    for wt in args.world_target or []:
+        parts = [float(v) for v in wt.split(",")]
+        if len(parts) not in (2, 3):
+            print("error: --world-target takes x,y[,amplitude]",
+                  file=sys.stderr)
+            return 2
+        targets.append(SceneTarget(
+            range_m=0.0, amplitude=parts[2] if len(parts) == 3 else 2000.0,
+            world_xy=(parts[0], parts[1]),
+        ))
+    if not targets:
+        targets = [_parse_target("5.0,2.0,15")]
+    rx_response = None
+    if args.rx_imbalance:
+        pairs = [p.split(":") for p in args.rx_imbalance.split(",")]
+        if len(pairs) != cfg.num_rx or any(len(p) != 2 for p in pairs):
+            print(f"error: --rx-imbalance needs {cfg.num_rx} gain:deg "
+                  "pairs", file=sys.stderr)
+            return 2
+        rx_response = np.array([
+            float(g) * np.exp(1j * np.deg2rad(float(ph))) for g, ph in pairs
+        ])
+    frames = synthesize_capture(
+        targets, args.frames, cfg, noise_std=args.noise, seed=args.seed,
+        interference_bursts=args.interference, rx_response=rx_response,
+        platform_velocity=plat, chirp_level_motion=args.chirp_motion,
+        n_base=args.base_frames or 1,
+    )
+    write_capture(args.path, frames, cfg)
+    print(f"wrote {args.frames} frames ({frames.nbytes} bytes) to {args.path}")
+    return 0
+
+
+def cmd_calibrate(args) -> int:
+    """Estimate the per-channel correction from a capture of one reflector
+    at a known angle, on the float64 golden on the host (an offline,
+    once-per-array procedure: precision before speed), and write it as
+    the CAL.json that ``--cal`` reads."""
+    cfg = _build_cfg(args)
+    shorts = read_capture(args.path, cfg)
+    if shorts.shape[0] < 2:
+        print("error: calibration needs >= 2 frames (frame 0 is the "
+              "empty-scene base)", file=sys.stderr)
+        return 2
+    if args.frames:
+        shorts = shorts[: args.frames + 1]
+    base = golden.decode_shorts(shorts[0], cfg)
+    cube = golden.virtual_cube(
+        golden.decode_shorts(shorts[1:], cfg) - base[None], cfg)
+    rd = golden.range_doppler_map(cube, cfg)          # (N, V, D, R)
+    power = (np.abs(rd) ** 2).sum(axis=1)
+    snaps, dbins = [], []
+    for f in range(rd.shape[0]):
+        d, r = np.unravel_index(np.argmax(power[f]), power[f].shape)
+        snaps.append(rd[f, :, d, r])
+        dbins.append(d)
+    snaps = golden.mimo_doppler_compensate(np.asarray(snaps),
+                                           np.asarray(dbins), cfg)
+    cal = golden.estimate_rx_cal(snaps, azimuth_deg=args.az,
+                                 elevation_deg=args.el, cfg=cfg)
+    doc = {
+        "rx_cal": [[float(c.real), float(c.imag)] for c in cal],
+        "num_rx": cfg.num_rx,
+        "num_tx": cfg.num_tx,
+        "tx_positions_wl": (None if cfg.tx_positions_wl is None
+                            else [list(p) for p in cfg.tx_positions_wl]),
+        "reference_azimuth_deg": args.az,
+        "reference_elevation_deg": args.el,
+        "frames_used": int(rd.shape[0]),
+        "gain_db": [float(20 * np.log10(abs(c))) for c in cal],
+        "phase_deg": [float(np.rad2deg(np.angle(c))) for c in cal],
+    }
+    out = args.out or "cal.json"
+    with open(out, "w") as f:
+        json.dump(doc, f, indent=1)
+    print(f"wrote {out}: correction gains "
+          + ", ".join(f"{g:+.2f} dB" for g in doc["gain_db"])
+          + " | phases "
+          + ", ".join(f"{p:+.1f} deg" for p in doc["phase_deg"]))
+    return 0
+
+
+def cmd_info(args) -> int:
+    """Derived system parameters of a configuration: resolutions,
+    unambiguous spans, CPI, data rates, the detector's operating point."""
+    cfg = _build_cfg(args)
+    r_res = (cfg.sample_rate_hz / cfg.range_fft_size) * LIGHT_SPEED / (
+        2.0 * cfg.slope_hz_per_s)
+    ts = cfg.slow_time_interval_s
+    v_max = cfg.wavelength_m / (4.0 * ts)
+    v_res = cfg.wavelength_m / (2.0 * cfg.doppler_fft_size * ts)
+    cpi_s = cfg.num_chirps * cfg.chirp_interval_s
+    # 3-dB beamwidth of an N-element half-wavelength ULA ~ 102/N deg
+    n_v = cfg.num_virtual_rx
+    doc = {
+        "waveform": {
+            "carrier_ghz": cfg.carrier_hz / 1e9,
+            "slope_mhz_per_us": cfg.slope_hz_per_s / 1e12,
+            "sample_rate_mhz": cfg.sample_rate_hz / 1e6,
+            "chirp_interval_us": cfg.chirp_interval_s * 1e6,
+            "samples_per_chirp": cfg.num_samples,
+            "chirps_per_frame": cfg.num_chirps,
+            "cpi_ms": round(cpi_s * 1e3, 3),
+            "frame_rate_hz_max": round(1.0 / cpi_s, 1),
+        },
+        "array": {
+            "num_tx": cfg.num_tx,
+            "num_rx": cfg.num_rx,
+            "virtual_elements": n_v,
+            "approx_beamwidth_deg": round(102.0 / n_v, 1),
+            "angle_bins": cfg.num_angle_bins,
+        },
+        "range": {
+            "resolution_m": round(r_res, 4),
+            "max_m": round(r_res * cfg.range_fft_size, 2),
+            "fft_size": cfg.range_fft_size,
+            "parity_scan_max_m": round(cfg.max_range_m, 2),
+        },
+        "velocity": {
+            "resolution_mps": round(v_res, 4),
+            "unambiguous_span_mps": [round(-v_max, 3), round(v_max, 3)],
+            "tdm_note": (None if cfg.num_tx == 1 else
+                         "span divided by num_tx under TDM; "
+                         "--disambiguate recovers the full span"),
+            "fft_size": cfg.doppler_fft_size,
+        },
+        "data": {
+            "bytes_per_frame": cfg.bytes_per_frame,
+            "mb_per_s_at_1000fps": round(cfg.bytes_per_frame * 1e3 / 1e6, 1),
+        },
+        "detector": {
+            "cfar_kind": cfg.cfar_kind,
+            "cfar_pfa": cfg.cfar_pfa,
+            "cfar_pulses_effective": cfg.cfar_pulses_effective,
+            "range_edge_guard_bins": cfg.range_edge_guard_effective,
+            "detectable_range_max_m": round(
+                (cfg.range_fft_size - cfg.range_edge_guard_effective - 1)
+                * r_res, 2),
+        },
+    }
+    print(json.dumps(doc, indent=1))
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Pd / Pfa evaluation (``evaluate.py``) on ``--device``: the realized
+    false-alarm rate on target-free frames, then Pd over the target
+    amplitudes, with ``--objects`` and ``--tracks`` the object- and
+    track-level scores at the strongest amplitude.  One JSON event line
+    each, with ``radar_tpu.cli eval``'s keys and rounding; ``cells`` and
+    ``pfa_measured`` count only the range bins detection does not mask
+    (``evaluate.measure_pfa``)."""
+    from radar_tpu_torch.evaluate import (
+        measure_pfa,
+        object_metrics,
+        pd_curve,
+        track_metrics,
+    )
+
+    cfg = _build_cfg(args)
+    n_int = args.integrate or 1
+    if n_int > 1 and args.frames % n_int:
+        print(f"error: --frames {args.frames} must be a multiple of "
+              f"--integrate {n_int}", file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+    common = dict(seed=args.seed, rd_impl=args.rd_impl, device=device)
+    nci = {"n_integrate": n_int} if n_int > 1 else {}
+    pfa = measure_pfa(cfg, frames=args.frames, noise_std=args.noise,
+                      n_integrate=n_int, range_walk=args.walk,
+                      base_frames=args.base_frames or 1, **common)
+    print(json.dumps({"event": "pfa", "cfar_kind": cfg.cfar_kind, **nci,
+                      **pfa}), flush=True)
+    amps = tuple(float(a) for a in args.amplitudes.split(","))
+    for pt in pd_curve(cfg, amplitudes=amps, frames=args.frames,
+                       noise_std=args.noise, range_m=args.range,
+                       velocity_mps=args.velocity, n_integrate=n_int,
+                       range_walk=args.walk, **common):
+        print(json.dumps({
+            "event": "pd", "cfar_kind": cfg.cfar_kind, **nci,
+            "amplitude": pt.amplitude, "pd": round(pt.pd, 4),
+            "frames": pt.frames, "mean_hits": round(pt.mean_hits, 2),
+        }), flush=True)
+    # the object and track levels at the same operating point: the
+    # noise level and the strong end of the amplitude sweep
+    if args.objects:
+        om = object_metrics(cfg, frames=args.frames, noise_std=args.noise,
+                            amplitude=max(amps), **common)
+        print(json.dumps({"event": "objects", "cfar_kind": cfg.cfar_kind,
+                          **om}), flush=True)
+    if args.tracks:
+        tm = track_metrics(cfg, frames=args.frames, noise_std=args.noise,
+                           amplitude=max(amps), tracker_kind=args.tracker,
+                           **common)
+        print(json.dumps({"event": "tracks", "cfar_kind": cfg.cfar_kind,
+                          **tm}), flush=True)
+    return 0
+
+
 _WINDOWS = ["hann", "hamming", "blackman", "blackmanharris", "rect"]
 _CLUTTER = ["auto", "base", "mean", "mti2", "mti3"]
 # the flags several subcommands share: dest -> (flag, add_argument kw)
@@ -1438,6 +1750,11 @@ _FLAGS = {
         help="raise the last TX by WL wavelengths (default 0.5): planar "
              "virtual array, enables elevation via --refine 2d (needs "
              "--num-tx >= 2)")),
+    "cal": ("--cal", dict(
+        default=None, metavar="CAL.json",
+        help="per-channel calibration file written by `calibrate`: the "
+             "complex correction applied to every virtual-array snapshot "
+             "before angle estimation (cfg.rx_cal)")),
     "window_kind": ("--window-kind", dict(
         default=None, choices=_WINDOWS, help="FFT window (default hann)")),
     "dft_precision": ("--dft-precision", dict(
@@ -1464,7 +1781,7 @@ _FLAGS = {
              "path)")),
 }
 _PIPELINE = ("base_frames", "rd_impl", "clutter", "cfar_kind", "chirps",
-             "slope", "num_tx", "elevated_tx", "window_kind",
+             "slope", "num_tx", "elevated_tx", "cal", "window_kind",
              "dft_precision", "range_edge_guard", "cfar_pulses", "device")
 
 
@@ -1479,11 +1796,99 @@ def _add_flags(sp, *names, **overrides) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="radar_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    g = sub.add_parser("generate", help="write a synthetic ADC capture")
+    g.add_argument("path")
+    g.add_argument("--frames", type=int, default=90)
+    g.add_argument(
+        "--target", action="append", default=[],
+        help="range_m,vel_mps,azimuth_deg[,amplitude[,elevation_deg]] "
+             "(repeatable; elevation needs --elevated-tx)")
+    g.add_argument("--noise", type=float, default=10.0)
+    g.add_argument("--seed", type=int, default=0)
+    g.add_argument("--interference", type=int, default=0,
+                   help="mutual-FMCW interference bursts per frame (see "
+                        "detect --blank-interference)")
+    g.add_argument("--platform", default=None, metavar="VX,VY",
+                   help="platform (ego) velocity in m/s: world-fixed "
+                        "targets (--world-target) evolve range, azimuth "
+                        "and Doppler from the true geometry")
+    g.add_argument("--world-target", action="append", default=None,
+                   metavar="X,Y[,AMP]",
+                   help="world-fixed scatterer at (x right, y boresight) "
+                        "metres; repeatable (pairs with --platform)")
+    g.add_argument("--chirp-motion", action="store_true",
+                   help="evolve each target's range per chirp (the range "
+                        "walk that detect --keystone compensates); by "
+                        "default range is fixed within a frame")
+    g.add_argument("--rx-imbalance", default=None, metavar="G:DEG,...",
+                   help="per-RX channel response as gain:phase_deg pairs "
+                        "(one per RX, e.g. '1:0,1.2:35,0.8:-40,1.1:-18'): "
+                        "what `calibrate` measures and --cal undoes")
+    _add_flags(g, "base_frames", "num_tx", "elevated_tx", "chirps", "slope",
+               base_frames={"help": "emit K empty-scene base frames before "
+                                    "the target frames (default 1)"})
+    g.set_defaults(fn=cmd_generate)
+
+    c = sub.add_parser(
+        "calibrate",
+        help="estimate the per-channel gain/phase correction from a "
+             "capture of one reflector at a known angle (float64 golden "
+             "on the host); apply it with --cal")
+    c.add_argument("path", help="calibration capture (frame 0 = empty "
+                                "scene, then the reflector)")
+    c.add_argument("--az", type=float, default=0.0,
+                   help="reflector's true azimuth in degrees (default 0)")
+    c.add_argument("--el", type=float, default=0.0,
+                   help="reflector's true elevation in degrees")
+    c.add_argument("--frames", type=int, default=None,
+                   help="use at most this many target frames")
+    c.add_argument("--out", default=None, help="output path (cal.json)")
+    _add_flags(c, "num_tx", "elevated_tx", "window_kind")
+    c.set_defaults(fn=cmd_calibrate)
+
+    inf = sub.add_parser(
+        "info", help="derived system parameters (resolutions, unambiguous "
+                     "spans, CPI, data rates) of a configuration")
+    _add_flags(inf, "num_tx", "elevated_tx")
+    inf.set_defaults(fn=cmd_info)
+
+    e = sub.add_parser(
+        "eval", help="Pd/Pfa detection-performance evaluation (synthetic "
+                     "scenes)")
+    e.add_argument("--frames", type=int, default=32,
+                   help="frames per measurement point")
+    e.add_argument("--amplitudes", default="20,40,80,160,320",
+                   help="comma-separated target amplitudes for the Pd curve")
+    e.add_argument("--noise", type=float, default=20.0)
+    e.add_argument("--range", type=float, default=6.0,
+                   help="target range (m)")
+    e.add_argument("--velocity", type=float, default=2.0,
+                   help="target velocity (m/s)")
+    e.add_argument("--seed", type=int, default=0)
+    e.add_argument("--integrate", type=int, default=None, metavar="N",
+                   help="non-coherent integration depth for the Pfa and Pd "
+                        "metrics (one decision per N-frame group)")
+    e.add_argument("--walk", action="store_true",
+                   help="with --integrate: range-walk alignment before "
+                        "the sum")
+    e.add_argument("--objects", action="store_true",
+                   help="also score the object level: clustered "
+                        "representatives matched to the true targets")
+    e.add_argument("--tracks", action="store_true",
+                   help="also score the track level: the tracker against "
+                        "analytic moving-target trajectories")
+    _add_flags(e, *_PIPELINE, "tracker", tracker={
+        "default": "ekf", "help": "tracker kind for --tracks"})
+    e.set_defaults(fn=cmd_eval)
+
     d = sub.add_parser("detect", help="run detection, write JSONL records")
     d.add_argument("path")
     d.add_argument("--out", default=None)
     d.add_argument("--full", action="store_true",
                    help="include range-Doppler-CFAR-AoA detections")
+    d.add_argument("--resume", action="store_true",
+                   help="append records after the last frame already in "
+                        "--out")
     d.add_argument("--integrate", type=int, default=None, metavar="N",
                    help="with --full: non-coherent integration — sum N "
                         "consecutive frames' RD power maps before CFAR "
@@ -1654,7 +2059,7 @@ def main(argv=None) -> int:
                          "Capon/MVDR per range bin (sharper beams)")
     az.add_argument("--out", default=None,
                     help="write the (angle_bins, range_fft) map as .npy")
-    _add_flags(az, "base_frames", "frame", "num_tx", "elevated_tx",
+    _add_flags(az, "base_frames", "frame", "num_tx", "elevated_tx", "cal",
                "dft_precision", "clutter", "window_kind", "device")
     az.set_defaults(fn=cmd_azmap)
 
@@ -1664,7 +2069,7 @@ def main(argv=None) -> int:
     ad.add_argument("path")
     ad.add_argument("--out", default=None,
                     help="write the (doppler_fft, angle_bins) map as .npy")
-    _add_flags(ad, "base_frames", "frame", "range_bin", "num_tx",
+    _add_flags(ad, "base_frames", "frame", "range_bin", "num_tx", "cal",
                "dft_precision", "clutter", "window_kind", "device")
     ad.set_defaults(fn=cmd_admap)
 

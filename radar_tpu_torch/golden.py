@@ -6,8 +6,9 @@ FindAbsMax and per-frame detection, the truth of ``cli verify``),
 windows, the TDM virtual cube, the MTI filter, the range-Doppler map,
 the CA, GO/SO and OS CFAR detectors with their Erlang-matched alphas,
 and the object-level stages (TDM compensation, velocity disambiguation,
-calibration, keystone, the angle FFT, the planar scan, Capon, the
-cluster labels and the clutter map), and the scene products
+calibration and its estimate from a reflector at a known angle,
+keystone, the angle FFT, the planar scan, Capon, the cluster labels and
+the clutter map), and the scene products
 (micro-Doppler, the range-azimuth and angle-Doppler maps, MUSIC,
 ego-motion and the two-radar yaw fit), copied as they are;
 ``tests/test_torch_constants.py`` holds each copy's output equal to the
@@ -694,6 +695,50 @@ def apply_rx_cal(
     shape = [1] * x.ndim
     shape[axis] = -1
     return x * cal.reshape(shape)
+
+
+def estimate_rx_cal(
+    snaps: np.ndarray,
+    azimuth_deg: float = 0.0,
+    elevation_deg: float = 0.0,
+    cfg: RadarConfig = DEFAULT_CONFIG,
+) -> np.ndarray:
+    """Estimate the per-channel calibration correction from snapshots of
+    a single target at a KNOWN angle (the standard corner-reflector
+    calibration: park a strong reflector at boresight, record, solve).
+
+    The measured channel-v response of a lone target with unit signal s_n
+    is ``s_{n,v} = g_v * a_v(theta) * s_n`` where g_v is the unknown
+    hardware gain/phase of the chain and a_v the ideal steering phase.
+    The least-squares relative response vs channel 0 is
+    ``h_v = sum_n s_{n,v} conj(s_{n,0}) / sum_n |s_{n,0}|^2
+         = (g_v a_v) / (g_0 a_0)``,
+    so the correction ``c_v = (a_v / a_0) / h_v`` makes the calibrated
+    snapshots ``c_v s_{n,v} = g_0 a_v s_n / a_0`` — an ideally matched
+    array up to one common complex scalar (irrelevant to every angle
+    estimator).  c_0 == 1 by construction.
+
+    Args:
+      snaps: complex (N, V) TDM-compensated virtual snapshots of the
+        calibration target across N frames (gather at the detection
+        cell, ``mimo_doppler_compensate`` applied — for the standard
+        STATIC calibration target the compensation is identity anyway).
+      azimuth_deg / elevation_deg: the target's true angle.
+
+    Returns:
+      complex128 (V,) correction vector for ``cfg.rx_cal``.
+    """
+    snaps = np.asarray(snaps, dtype=np.complex128)
+    if snaps.ndim == 1:
+        snaps = snaps[None, :]
+    pos = cfg.virtual_positions_wl()                      # (V, 2)
+    sin_az = np.sin(np.deg2rad(azimuth_deg))
+    cos_el = np.cos(np.deg2rad(elevation_deg))
+    sin_el = np.sin(np.deg2rad(elevation_deg))
+    a = np.exp(2j * np.pi * (pos[:, 0] * sin_az * cos_el + pos[:, 1] * sin_el))
+    ref = snaps[:, :1]
+    h = (snaps * np.conj(ref)).sum(axis=0) / (np.abs(ref) ** 2).sum()
+    return (a / a[0]) / h
 
 
 def disambiguate_velocity(

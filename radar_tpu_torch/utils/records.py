@@ -42,3 +42,17 @@ class JsonlWriter:
         for r in recs:
             self.write(r)
         self.fp.flush()
+
+
+def last_frame_index(path: str) -> int:
+    """Resume helper: highest frame index already recorded, or -1."""
+    last = -1
+    try:
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line:
+                    last = max(last, json.loads(line).get("frame", -1))
+    except FileNotFoundError:
+        pass
+    return last

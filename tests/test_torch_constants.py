@@ -624,3 +624,46 @@ def test_static_scene_targets(platform):
     want = jax_synthetic.static_scene_targets(*args)
     assert [dataclasses.astuple(t) for t in got] == [
         dataclasses.astuple(t) for t in want]
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(),
+    dict(num_tx=2),
+    dict(num_tx=2, tx_positions_wl=((0.0, 0.0), (0.0, 0.5))),
+], ids=["1tx", "2tx", "2tx-elevated"])
+@pytest.mark.parametrize("az,el", [(0.0, 0.0), (14.0, 0.0), (-22.0, 9.0)])
+def test_golden_estimate_rx_cal(overrides, az, el):
+    cfg = RadarConfig(**overrides)
+    rng = np.random.default_rng(17)
+    v = cfg.num_virtual_rx
+    snaps = (rng.normal(size=(6, v)) + 1j * rng.normal(size=(6, v)))
+    want = jax_golden.estimate_rx_cal(snaps, azimuth_deg=az,
+                                      elevation_deg=el, cfg=cfg)
+    got = golden.estimate_rx_cal(snaps, azimuth_deg=az, elevation_deg=el,
+                                 cfg=config_from_jax(cfg))
+    assert got.dtype == want.dtype and got.shape == (v,)
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
+    # one snapshot (unbatched) too
+    np.testing.assert_allclose(
+        golden.estimate_rx_cal(snaps[0], az, el, config_from_jax(cfg)),
+        jax_golden.estimate_rx_cal(snaps[0], az, el, cfg), rtol=1e-12,
+        atol=0)
+
+
+@pytest.mark.parametrize("lines", [
+    None,                                   # no file
+    [],                                     # empty file
+    ['{"frame":3,"peak_bin":1}', '{"frame":7}', '', '{"frame":5}'],
+    ['{"peak_bin":1}', '  ', '{"frame":1}\n'],
+], ids=["missing", "empty", "unordered", "no-frame-key"])
+def test_last_frame_index(tmp_path, lines):
+    from radar_tpu.utils import records as jax_records
+    from radar_tpu_torch.utils import records
+
+    path = tmp_path / "dets.jsonl"
+    if lines is not None:
+        path.write_text("\n".join(lines))
+    assert records.last_frame_index(str(path)) \
+        == jax_records.last_frame_index(str(path))
+    if lines is None:
+        assert records.last_frame_index(str(path)) == -1
