@@ -31,8 +31,11 @@ and ``detect --ego --blank-interference``; the live slice, streamed
 radar_tpu_torch.cli serve / replay / track / bench``; evaluation,
 ``evaluate.measure_pfa``, ``pd_curve``, ``object_metrics`` and
 ``track_metrics``, and ``python -m radar_tpu_torch.cli generate /
-calibrate / detect --full --cal / azmap --cal / admap --cal``.  Phases,
-each printing one line or more:
+calibrate / detect --full --cal / azmap --cal / admap --cal``; the
+reference benchmark, ``python -m radar_tpu_torch.cli bench --native /
+--compare / --stages / --full --stages / --full --profile`` (the float64
+C++ golden of ``native.py`` on the host).  Phases, each printing one
+line or more:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
    and the build of ``radar_tpu_torch/csrc`` with its seconds;
@@ -149,7 +152,21 @@ each printing one line or more:
     --rx-imbalance``, ``calibrate`` and ``detect --full --cal`` (kernel 1
     with the calibration against its plain version, the records against
     ``--device cpu``'s, the azimuth error smaller with the calibration),
-    ``azmap`` / ``admap --cal``, and host-inclusive ms per call.
+    ``azmap`` / ``admap --cal``, and host-inclusive ms per call;
+23. the reference benchmark and the stage breakdown at B=512 on phase
+    2's 513-frame capture: ``cli bench --native`` (the C++ golden's
+    frames/s, the host CPU's) and ``native.process_capture`` against
+    ``golden.detect_capture`` (1e-12 m); ``bench --compare --per-frame``
+    on the card (every frame within 1e-3 relative, the count within the
+    reference's 1e-5 m gate, both timing tables, no kernel launched);
+    ``bench --stages`` and ``bench --full --stages``, each bucket beside
+    its device-only time, kernel 1 within 10 % of phase 17's device
+    time, its launches those of the warm-up, the batch and ``time_fn``
+    alone; ``bench --full --profile`` over phase 21's 4,097 frames
+    (kernel 1's three stage kernels once per streamed batch in the
+    trace, no other kernel of ``csrc/``, the device's idle share over
+    the traced window).  It plots nothing (no matplotlib on the card's
+    machine).
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -2065,7 +2082,7 @@ def planes_gate(name, got, want, x, a2, unit) -> float:
     return float((got - want).abs().max())
 
 
-def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
+def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
     """Phase 17: the three dft_precision tiers of kernels 1, 2 and 8
     ('highest': the SIMT f32 stages; 'high' and 'default': the
     split-TF32 tensor-core stages at 3 and 1 passes) at B=512 against
@@ -2075,7 +2092,8 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
     golden on 4 frames, kernel 1's CA checksums, device-only times taken
     in turns, the stages' profiler times, kernel 8 beside cuBLAS, and
     the host-inclusive ``detect``.  Returns the kernels-line entries of the
-    two tensor-core stages at 'high' and 'default'."""
+    two tensor-core stages at 'high' and 'default', and the device-only
+    ms of each kernel at each tier (``'kernel 1 high'``, ...)."""
     import dataclasses
 
     from radar_tpu_torch.convert import result_to_numpy
@@ -2314,7 +2332,7 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> list:
             bound_ms=b_dop[0], bound_by=b_dop[1], library_ms=None))
     assert stages["high"][0] < stages["highest"][0], "range stage not faster"
     assert stages["high"][1] < stages["highest"][1], "Doppler stage not faster"
-    return out
+    return out, t
 
 
 GEOMETRY_BATCH = 64
@@ -4111,6 +4129,275 @@ def eval_phase(gpu, dev) -> None:
     say(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# the stages of kernel 1 at 'high' / 'default' (csrc/megakernel.cu's
+# tensor-core range and Doppler stages, csrc/detect.cu's stage (c))
+KERNEL1_STAGES = ("range_tc_kernel", "doppler_tc_kernel", "detect_band_kernel")
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the events that bound a trace's window: the ops, their CUDA calls and
+# the device's work (not the profiler's own span of its session)
+WORK_EVENTS = DEVICE_EVENTS + ("cpu_op", "cuda_runtime", "cuda_driver")
+
+
+def csrc_kernel_names() -> set:
+    """The names of the ``__global__`` functions in radar_tpu_torch/csrc."""
+    import re
+
+    names = set()
+    src = os.path.join(ROOT, "radar_tpu_torch", "csrc")
+    for name in sorted(os.listdir(src)):
+        if name.endswith(".cu"):
+            with open(os.path.join(src, name)) as f:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                    r"(\w+)\s*\(", f.read()))
+    return names
+
+
+def trace_kernels(path: str) -> tuple[dict, float, float, str]:
+    """(launches by kernel name, the window in ms, the device's idle
+    share, where the device events sit in the window) of a
+    ``torch.profiler`` Chrome trace: the window runs from the first op,
+    CUDA call or device event to the end of the last; the device is busy
+    where a kernel, copy or memset runs (the union of their
+    intervals)."""
+    import re
+
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") in WORK_EVENTS]
+    launches = {}
+    spans = []
+    uploads = 0
+    for e in events:
+        if e.get("cat") in DEVICE_EVENTS:
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        uploads += e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]
+        if e.get("cat") == "kernel":
+            # "void (anonymous namespace)::name<3>(...)" -> "name"; a
+            # mangled "_Z15name..." likewise
+            name = e["name"].replace("(anonymous namespace)::", "")
+            m = re.match(r"_Z(\d+)", name)
+            if m:
+                name = name[m.end():m.end() + int(m.group(1))]
+            else:
+                name = re.split(r"[<(]", re.sub(r"^void\s+", "", name),
+                                maxsplit=1)[0].split("::")[-1].strip()
+            launches[name] = launches.get(name, 0) + 1
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    busy, end = 0.0, t0
+    for a, b in sorted(spans):
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    edges = (f"device events from {(min(a for a, _ in spans) - t0) / 1e3:.3f}"
+             f" ms to {(max(b for _, b in spans) - t0) / 1e3:.3f} ms of "
+             f"{(t1 - t0) / 1e3:.3f}, {uploads} uploads" if spans
+             else "no device event")
+    return launches, (t1 - t0) / 1e3, 1.0 - busy / (t1 - t0), edges
+
+
+def bench_cli(cli, argv: list) -> tuple[list, dict, float]:
+    """``cli.main(['bench', *argv])`` with its stdout captured: (the lines,
+    the kernel launches of the call, its seconds).  Raises unless it
+    exits 0."""
+    buf = io.StringIO()
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["bench", *argv])
+    counts = kernel_counts()
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    assert rc == 0, f"bench {' '.join(argv)} exited {rc}: {lines[-3:]}"
+    return lines, counts, seconds
+
+
+def bucket_ms(lines: list, label: str) -> float:
+    """The total ms of the report line that starts with ``label``."""
+    line = next(ln for ln in lines if ln.startswith(label))
+    return float(line[len(label):].split()[0])
+
+
+def bench_phase(cfg, capture, gpu, dev, k1_ms: float) -> None:
+    """Phase 23, the reference benchmark and the stage breakdown, at
+    ``RadarConfig()`` and B = 512 on the 513-frame capture of phase 2
+    (frame 0 the base): (a) ``cli bench --native``, the float64 C++
+    golden on the host (its frames/s are the host CPU's), and
+    ``native.process_capture`` against ``golden.detect_capture`` frame
+    for frame (1e-12 m); (b) ``bench --compare --per-frame`` on the
+    card: every frame within 1e-3 relative (exit 0), the count within
+    the reference's 1e-5 m gate, both timing tables, no kernel
+    launched; (c) ``bench --stages`` and ``bench --full --stages`` at
+    ``--batch 512``, each bucket beside the same stage's device-only
+    time (``cuda_time_ms(queue_ahead=True)``), kernel 1's device-only
+    time within 10 % of phase 17's ``k1_ms``, its launches the warm-up,
+    the streamed batch and the ``time_fn`` calls, no other kernel; (d)
+    ``bench --full --profile`` over phase 21's 4,097 frames: kernel 1's
+    stage kernels once per streamed batch in the trace and no other
+    kernel of ``csrc/``, kernel 1 once per batch (plus the warm-up), the
+    device's idle share over the traced window (the traced run in a
+    process of its own, the launches counted in this one)."""
+    from radar_tpu_torch import cli, golden, native
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.models.range_detector import RangeDetector
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.utils.timing import cuda_time_ms
+
+    import platform
+
+    t_phase = time.perf_counter()
+    n = len(capture) - 1
+    none = {k: 0 for k in range(1, 9)}
+    device = ["--device", str(dev)]
+    with tempfile.TemporaryDirectory() as tmp:
+        cap_path = os.path.join(tmp, "cap.bin")
+        write_capture(cap_path, capture, cfg)
+
+        # -- (a) the C++ golden on the host ---------------------------------
+        lines, counts, _ = bench_cli(cli, [cap_path, "--native"])
+        assert counts == none, counts
+        total = lines[1].split()
+        assert total[3] == str(n), lines[1]
+        say(f"bench --native ({n} frames, the float64 C++ golden on the "
+            f"host CPU, {platform.machine()} x {os.cpu_count()} cores, not "
+            f"on the card): {float(total[8]):.1f} frames/s, "
+            f"{float(total[5]):.2f} ms in all; FFT "
+            f"{bucket_ms(lines, 'Total FFT time'):.2f} ms, reshape "
+            f"{bucket_ms(lines, 'Total Reshape + Extension time'):.2f} ms, "
+            f"findMax {bucket_ms(lines, 'Total findMax time'):.2f} ms")
+        dists, t = native.process_capture(cap_path, cfg)
+        want = [r.distance_m for r in golden.detect_capture(capture, cfg)]
+        assert t["frames"] == len(want) == n
+        np.testing.assert_allclose(dists, want, atol=1e-12, rtol=0)
+        say(f"native.process_capture vs golden.detect_capture: {n} frames "
+            f"within 1e-12 m (max |diff| "
+            f"{np.abs(dists - np.asarray(want)).max():.3g} m)")
+
+        # -- (b) the reference's main() on the card -------------------------
+        lines, counts, secs = bench_cli(
+            cli, [cap_path, "--compare", "--per-frame", *device])
+        assert counts == none, f"--compare launched kernels: {counts}"
+        verdict = f"verification: {n}/{n} frames within 1e-3 relative " \
+                  "(gate: PASS)"
+        assert verdict in lines, lines[-2:]
+        per_frame = [ln for ln in lines if ln.startswith("frame[")]
+        assert len(per_frame) == n and not any("MISMATCH" in ln
+                                               for ln in lines)
+        say(f"bench --compare --per-frame on {gpu} ({secs:.1f} s): "
+            f"{lines[-2]}; {lines[-1]}; no kernel launched")
+        for ln in lines[:10]:
+            say(f"  {ln}")
+
+        # -- (c) the stage breakdown ----------------------------------------
+        frames = torch.from_numpy(capture[1:BATCH + 1]).to(dev)
+        lines, counts, _ = bench_cli(
+            cli, [cap_path, "--stages", "--batch", str(BATCH), *device])
+        assert counts == none, counts
+        det = RangeDetector(cfg, device=dev)
+        base_rx0 = det.prepare_base(capture[0])
+        padded = det.preprocess(frames, base_rx0)
+        spec = det.fft_stage(padded)
+        stages = {
+            "Total Reshape + Extension time":
+                (det.preprocess, frames, base_rx0),
+            "Total FFT time": (det.fft_stage, padded),
+            "Total findMax time": (det.detect_stage, spec),
+        }
+        rows = []
+        for label, (fn, *args) in stages.items():
+            ms = bucket_ms(lines, label)
+            assert ms > 0, f"{label}: {ms}"
+            dev_ms = statistics.median(cuda_time_ms(fn, *args, iters=10,
+                                                    queue_ahead=True))
+            rows.append(f"{label[6:]} {ms:.4f} ms (device only "
+                        f"{dev_ms:.4f})")
+        say(f"bench --stages B={BATCH} on {gpu}, time_fn buckets "
+            f"(host-inclusive): " + "; ".join(rows))
+
+        lines, counts, _ = bench_cli(
+            cli, [cap_path, "--full", "--stages", "--batch", str(BATCH),
+                  *device])
+        warm, time_fn_calls = 1, 2 * (2 + 5)   # bench's warm-up; 2 time_fn
+        want_counts = {**none, 1: warm + 1 + time_fn_calls}
+        assert counts == want_counts, f"--full --stages launches {counts}"
+        kern = next(ln for ln in lines if ln.startswith("Mega detect kernel"))
+        tail = next(ln for ln in lines if ln.startswith("torch tail"))
+        k_ms = float(kern.split(") ")[1].split()[0])
+        tail_ms = float(tail.split(") ")[1].split()[0])
+        assert k_ms > 0 and tail_ms >= 0, (kern, tail)
+        pipe = RDPipeline(cfg, K_DET, device=dev)
+        base_cube = pipe.prepare_base(capture[0])
+        consts = dict(pipe.named_buffers())
+        k_dev = statistics.median(cuda_time_ms(
+            lambda x: megakernel.detections_from_shorts(
+                x, base_cube, K_DET, cfg, consts), frames, iters=10,
+            queue_ahead=True))
+        d_dev = statistics.median(cuda_time_ms(pipe.detect, frames,
+                                               base_cube, iters=10,
+                                               queue_ahead=True))
+        say(f"bench --full --stages B={BATCH} on {gpu}, time_fn buckets "
+            f"(host-inclusive): kernel 1 {k_ms:.4f} ms (device only "
+            f"{k_dev:.4f}), torch tail {tail_ms:.4f} ms (device only "
+            f"{max(0.0, d_dev - k_dev):.4f}; detect {d_dev:.4f}); kernel 1 "
+            f"launches {counts[1]} = warm-up {warm} + 1 streamed batch + "
+            f"{time_fn_calls} time_fn calls, no other kernel")
+        assert abs(k_dev - k1_ms) <= 0.1 * k1_ms, (
+            f"kernel 1 device-only {k_dev:.4f} ms against phase 17's "
+            f"{k1_ms:.4f} ms")
+        say(f"kernel 1 device-only {k_dev:.4f} ms against phase 17's "
+            f"{k1_ms:.4f} ms ({k_dev / k1_ms - 1:+.1%}), within 10 %")
+        del frames, padded, spec
+
+        # -- (d) the trace ----------------------------------------------------
+        n_live = LIVE_BATCHES * BATCH + 1
+        stream_path = os.path.join(tmp, "stream.bin")
+        write_capture(stream_path, np.concatenate(
+            [capture[:1], np.tile(capture[1:], (LIVE_BATCHES, 1)),
+             capture[1:2]]), cfg)
+        n_batches = -(-n_live // BATCH)
+        lines, counts, _ = bench_cli(
+            cli, [stream_path, "--full", "--batch", str(BATCH), *device])
+        assert counts == {**none, 1: n_batches + warm}, (
+            f"--full launches {counts}")
+        # the trace from a process of its own, as a user runs it: traced
+        # in this process, ~6 min old by then, it held the kernels of 8 of
+        # the 9 batches, its device events ending ~21 ms before the host's
+        # last op (a fresh process's end with it)
+        trace_dir = os.path.join(tmp, "trace")
+        t0 = time.perf_counter()
+        lines = subprocess.run(
+            [sys.executable, "-m", "radar_tpu_torch.cli", "bench",
+             stream_path, "--full", "--profile", trace_dir, "--batch",
+             str(BATCH), *device], cwd=ROOT, capture_output=True, text=True,
+            check=True, timeout=300).stdout.splitlines()
+        secs = time.perf_counter() - t0
+        assert lines[0] == f"profiler trace written to {trace_dir}"
+        launches, window_ms, idle, edges = trace_kernels(
+            os.path.join(trace_dir, cli.TRACE_NAME))
+        for name in KERNEL1_STAGES:
+            assert launches.get(name, 0) == n_batches, (name, launches,
+                                                        edges)
+        ours = csrc_kernel_names()
+        assert set(KERNEL1_STAGES) <= ours, ours
+        others = {k: v for k, v in launches.items()
+                  if k in ours and k not in KERNEL1_STAGES}
+        assert not others, f"other csrc kernels in the trace: {others}"
+        torch_kernels = sum(v for k, v in launches.items() if k not in ours)
+        say(f"bench --full --profile {n_live} frames B={BATCH} on {gpu} "
+            f"({secs:.1f} s): "
+            + ", ".join(f"{k} x{launches[k]}" for k in KERNEL1_STAGES)
+            + f" ({n_batches} streamed batches), no other csrc kernel, "
+            f"{torch_kernels} torch kernel launches; kernel 1 launches "
+            f"{counts[1]} in this process's bench --full ({n_batches} "
+            f"batches + {warm} warm-up); traced window "
+            f"{window_ms:.2f} ms ({edges}), device idle {idle:.1%}; "
+            f"{lines[2]}")
+    say(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4295,12 +4582,15 @@ def main() -> int:
                                targets))
     mti_frontends_phase(cfg, frames, base, gpu)
     selftest_phase()
-    kernels += tiers_phase(cfg, capture, frames, base, consts, gpu)
+    tier_entries, tier_ms = tiers_phase(cfg, capture, frames, base, consts,
+                                        gpu)
+    kernels += tier_entries
     geometry_phase(gpu, targets, dev)
     objects_phase(cfg, capture, frames, base, consts, gpu, dev)
     scene_phase(cfg, capture, frames, base, gpu, dev)
     live_phase(cfg, capture, gpu, dev)
     eval_phase(gpu, dev)
+    bench_phase(cfg, capture, gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

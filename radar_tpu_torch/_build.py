@@ -12,7 +12,8 @@ The kernels' layouts and gates (``csrc/layout.h``) are also built for
 the host, with the host's C++ compiler, into a small library of their
 own (:func:`load_layout`), so the wrappers check the kernels' own gates
 before a launch, and the tests check them where there is no CUDA
-toolkit.
+toolkit.  So is the float64 C++ golden model (``cpp/golden.cc``,
+:func:`load_golden`), which ``native.py`` binds.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines without a CUDA toolkit.
@@ -42,8 +43,17 @@ LAYOUT_LIB = "libradar_layout.so"
 LAYOUT_SOURCES = ("layout.cpp", "layout.h")
 CXX_FLAGS = ("-std=c++17", "-O2", "-fPIC", "-shared")
 
+CPP_DIR = PACKAGE_DIR / "cpp"
+GOLDEN_LIB = "libradar_golden.so"
+GOLDEN_SOURCES = ("golden.cc", "golden.h")
+# cpp/Makefile's flags, so that the library computes what the JAX
+# package's build of the same source computes on the same host
+GOLDEN_FLAGS = ("-O3", "-march=native", "-std=c++17", "-Wall", "-Wextra",
+                "-fPIC", "-shared")
+
 _lib = None
 _layout = None
+_golden = None
 build_seconds = 0.0   # time the last build of this process took (0: cached)
 
 
@@ -74,7 +84,8 @@ def find_cxx() -> str:
             return found
     raise RuntimeError(
         "no C++ compiler found ($CXX, c++, g++): the kernels' layouts "
-        "(radar_tpu_torch/csrc/layout.h) are built for the host at first use"
+        "(radar_tpu_torch/csrc/layout.h) and the float64 golden "
+        "(radar_tpu_torch/cpp/golden.cc) are built for the host at first use"
     )
 
 
@@ -143,21 +154,38 @@ def build() -> Path:
     return lib_path
 
 
-def build_layout() -> Path:
-    """Compile ``csrc/layout.cpp`` for the host unless the library for
-    its digest exists; returns its path."""
+def _build_host(name: str, stem: str, src_dir: Path, sources, flags) -> Path:
+    """Compile ``sources[0]`` (with the headers among ``sources``) with
+    the host's C++ compiler into ``build/<stem>-<digest>/<name>`` unless
+    it exists; returns its path.  Raises with the compiler's output."""
     cxx = find_cxx()
-    sources = [CSRC_DIR / name for name in LAYOUT_SOURCES]
-    out_dir = BUILD_DIR / ("layout-" + _digest(cxx, CXX_FLAGS, sources))
-    lib_path = out_dir / LAYOUT_LIB
+    paths = [src_dir / s for s in sources]
+    out_dir = BUILD_DIR / f"{stem}-{_digest(cxx, flags, paths)}"
+    lib_path = out_dir / name
     if lib_path.is_file():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LAYOUT_LIB}.{os.getpid()}.tmp"
-    _run_all([[cxx, *CXX_FLAGS, "-o", str(tmp), str(sources[0])]], [],
+    tmp = out_dir / f"{name}.{os.getpid()}.tmp"
+    _run_all([[cxx, *flags, "-o", str(tmp), str(paths[0])]], [],
              what=Path(cxx).name)
     os.replace(tmp, lib_path)
     return lib_path
+
+
+def build_layout() -> Path:
+    """Compile ``csrc/layout.cpp`` for the host unless the library for
+    its digest exists; returns its path."""
+    return _build_host(LAYOUT_LIB, "layout", CSRC_DIR, LAYOUT_SOURCES,
+                       CXX_FLAGS)
+
+
+def build_golden() -> Path:
+    """Compile ``cpp/golden.cc`` for the host with ``cpp/Makefile``'s
+    flags unless the library for its digest exists; returns its path.
+    Needs no CUDA toolkit; raises when the compiler is missing or
+    fails."""
+    return _build_host(GOLDEN_LIB, "golden", CPP_DIR, GOLDEN_SOURCES,
+                       GOLDEN_FLAGS)
 
 
 def build_log() -> str:
@@ -240,6 +268,15 @@ def load_layout():
             getattr(lib, name).restype = i32
         _layout = lib
     return _layout
+
+
+def load_golden() -> ctypes.CDLL:
+    """The host library of the float64 C++ golden model (built first if
+    needed); ``native.py`` declares its C signatures."""
+    global _golden
+    if _golden is None:
+        _golden = ctypes.CDLL(str(build_golden()))
+    return _golden
 
 
 def load():

@@ -1,7 +1,7 @@
-"""radar_tpu_torch command-line interface (``generate``, ``calibrate``,
-``info``, ``eval``, ``detect``, ``verify``, ``selftest``, the scene
-products, ``serve``, ``replay``, ``track`` and the streamed ``bench`` of
-``radar_tpu.cli``, on the PyTorch port):
+"""radar_tpu_torch command-line interface (every subcommand of
+``radar_tpu.cli`` on one device, on the PyTorch port: ``generate``,
+``calibrate``, ``info``, ``eval``, ``detect``, ``verify``, ``selftest``,
+the scene products, ``serve``, ``replay``, ``track`` and ``bench``):
 
   python -m radar_tpu_torch.cli generate cap.bin [--frames 90] \\
       [--target R,V,AZ[,AMP[,EL]] ...] [--noise 10] [--seed 0] \\
@@ -20,20 +20,24 @@ products, ``serve``, ``replay``, ``track`` and the streamed ``bench`` of
       [--integrate N [--walk] | --cluster | --cmap [BETA] [--cmap-block B]] \\
       [--disambiguate] [--refine capon|2d] [--keystone] [--points PATH] \\
       [--ego [INLIER_MPS]] [--blank-interference [K]] [--cal CAL.json] \\
+      [--points-plot PNG] \\
       [--rd-impl auto|mega|mega-maps|fused|fused-pallas|planar|mxu|fft] \\
       [--clutter auto|base|mean|mti2|mti3] [--cfar-kind ca|os|goca|soca] \\
       [--chirps N] [--slope MHZ_US] [--num-tx N] [--elevated-tx [WL]] \\
       [--window-kind KIND] [--dft-precision high|highest|default] \\
       [--range-edge-guard BINS] [--cfar-pulses N]
   python -m radar_tpu_torch.cli azmap cap.bin [--frame F] \\
-      [--method fft|capon] [--cal CAL.json] [--out map.npy] --device cuda
+      [--method fft|capon] [--cal CAL.json] [--out map.npy] \\
+      [--plot map.png] --device cuda
   python -m radar_tpu_torch.cli admap cap.bin [--frame F] [--range-bin R] \\
-      [--cal CAL.json] [--out map.npy] --device cuda
+      [--cal CAL.json] [--out map.npy] [--plot map.png] --device cuda
   python -m radar_tpu_torch.cli mdoppler cap.bin [--range-bin R] \\
-      [--win-frames 8] [--hop-frames 1] [--n-fft N] [--out spec.npy]
-  python -m radar_tpu_torch.cli rti cap.bin [--out rti.npy]
+      [--win-frames 8] [--hop-frames 1] [--n-fft N] [--out spec.npy] \\
+      [--plot spec.png]
+  python -m radar_tpu_torch.cli rti cap.bin [--out rti.npy] [--plot rti.png]
   python -m radar_tpu_torch.cli bev cap.bin [--ego INLIER_MPS] \\
-      [--second cap2.bin --mount X,Y,YAW --mount2 X,Y,YAW] [--out bev.csv]
+      [--second cap2.bin --mount X,Y,YAW --mount2 X,Y,YAW] [--out bev.csv] \\
+      [--plot bev.png]
   python -m radar_tpu_torch.cli verify cap.bin --device cuda \\
       [--detect-impl auto|xla|pallas]
   python -m radar_tpu_torch.cli selftest --device cuda [--only SUBSTR]
@@ -46,9 +50,12 @@ products, ``serve``, ``replay``, ``track`` and the streamed ``bench`` of
   python -m radar_tpu_torch.cli replay cap.bin --port P [--fps 100]
   python -m radar_tpu_torch.cli track cap.bin --device cuda [--cluster] \\
       [--ego [INLIER_MPS]] [--disambiguate] [--refine capon|2d] \\
-      [--tracker alpha-beta|ekf] [--out tracks.jsonl]
+      [--tracker alpha-beta|ekf] [--out tracks.jsonl] [--plot tracks.png]
   python -m radar_tpu_torch.cli bench cap.bin --device cuda [--full] \\
-      [--batch 64] [--latency]
+      [--batch 64] [--stages] [--profile DIR] [--latency]
+  python -m radar_tpu_torch.cli bench cap.bin --native
+  python -m radar_tpu_torch.cli bench cap.bin --compare [--per-frame] \\
+      --device cuda
 
 ``generate`` writes the capture ``radar_tpu.cli generate`` writes, byte
 for byte; ``calibrate`` estimates the per-channel correction from a
@@ -65,7 +72,12 @@ is the sensor side) and prints one JSON record per frame (or per
 ``--integrate`` group) with the detections and the confirmed tracks,
 then a ``latency_stats`` line, as ``radar_tpu.cli serve``; ``track``
 prints one JSON line per confirmed track; ``bench`` times streamed
-detection over a capture (``parallel/stream.py``).
+detection over a capture (``parallel/stream.py``), with ``--stages``
+the reference's stage buckets (or, with ``--full``, kernel 1 against
+the tail) and with ``--profile`` a ``torch.profiler`` trace; ``bench
+--native`` runs the float64 C++ golden on the host (``native.py``) and
+``bench --compare`` the golden and the range-parity detector on one
+capture with the per-frame verification the reference left disabled.
 
 ``detect`` writes the same ``DetectionRecord`` JSONL as ``radar_tpu.cli
 detect``: one record per frame, or with ``--integrate N`` one per group
@@ -83,7 +95,9 @@ subcommands print one JSON event line each and write the map (``.npy``)
 or, for ``bev``, the world points (CSV); their event lines, arrays and
 exit codes are those of ``radar_tpu.cli``, except that ``bev --second``
 takes the second capture's base from its first ``--base-frames``
-frames too.  ``verify`` holds the reference-parity range pipeline
+frames too.  Every ``--plot`` (and ``detect --points-plot``) draws the
+PNG ``radar_tpu.cli`` draws (``viz.py``, which needs matplotlib; no
+other subcommand imports it).  ``verify`` holds the reference-parity range pipeline
 against the float64 golden frame by frame; ``selftest`` runs the 15
 kernel checks of ``selftest.py``.  The device is explicit (default
 ``cuda``); ``--device cpu`` runs the plain PyTorch path.
@@ -92,8 +106,10 @@ kernel checks of ``selftest.py``.  The device is explicit (default
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import os
 import sys
 import time
 from collections import deque
@@ -278,6 +294,8 @@ _NEEDS_FULL = (
                   "pipeline's power maps)"),
     ("points", "--points requires --full (points come from the RD "
                "pipeline's detections)"),
+    ("points_plot", "--points/--points-plot require --full (points come "
+                    "from the RD pipeline's detections)"),
     ("refine", "--refine requires --full (it re-estimates the RD "
                "pipeline's detection angles)"),
     ("keystone", "--keystone requires --full (it transforms the RD "
@@ -489,7 +507,7 @@ def cmd_detect(args) -> int:
                 "n_static": int(em["n_inliers"][j]),
             },
         ))
-        if args.points and dets:
+        if (args.points or args.points_plot) and dets:
             points += point_rows(start + pj, dets)
     sink = (open(args.out, "a" if start > n_base else "w") if args.out
             else sys.stdout)
@@ -500,6 +518,11 @@ def cmd_detect(args) -> int:
     if args.points:
         n_pts = write_point_cloud(args.points, points)
         print(f"wrote {n_pts} points to {args.points}")
+    if args.points_plot:
+        from radar_tpu_torch.viz import plot_point_cloud
+
+        plot_point_cloud(points, cfg, path=args.points_plot)
+        print(f"wrote point-cloud plot to {args.points_plot}")
     return 0
 
 
@@ -613,6 +636,12 @@ def cmd_mdoppler(args) -> int:
         np.save(args.out, spec)
         print(f"wrote ({spec.shape[0]}, {spec.shape[1]}) spectrogram to "
               f"{args.out}", file=sys.stderr)
+    if args.plot:
+        from radar_tpu_torch.viz import plot_micro_doppler
+
+        plot_micro_doppler(spec, cfg, hop_frames=args.hop_frames,
+                           path=args.plot)
+        print(f"wrote plot to {args.plot}", file=sys.stderr)
     return 0
 
 
@@ -658,6 +687,11 @@ def cmd_azmap(args) -> int:
         np.save(args.out, pmap)
         print(f"wrote {pmap.shape} range-azimuth map to {args.out}",
               file=sys.stderr)
+    if args.plot:
+        from radar_tpu_torch.viz import plot_range_azimuth
+
+        plot_range_azimuth(pmap, cfg, path=args.plot, angles_deg=deg_of)
+        print(f"wrote plot to {args.plot}", file=sys.stderr)
     return 0
 
 
@@ -704,6 +738,11 @@ def cmd_admap(args) -> int:
         np.save(args.out, pmap)
         print(f"wrote {pmap.shape} angle-doppler map to {args.out}",
               file=sys.stderr)
+    if args.plot:
+        from radar_tpu_torch.viz import plot_angle_doppler
+
+        plot_angle_doppler(pmap, cfg, path=args.plot)
+        print(f"wrote plot to {args.plot}", file=sys.stderr)
     return 0
 
 
@@ -730,6 +769,11 @@ def cmd_rti(args) -> int:
     if args.out:
         np.save(args.out, m)
         print(f"wrote {m.shape} RTI matrix to {args.out}", file=sys.stderr)
+    if args.plot:
+        from radar_tpu_torch.viz import plot_rti
+
+        plot_rti(m, cfg, path=args.plot)
+        print(f"wrote plot to {args.plot}", file=sys.stderr)
     return 0
 
 
@@ -855,6 +899,11 @@ def cmd_bev(args) -> int:
                         f"{int(st[i])},{vg_pts[i]:.4f}\n")
         print(f"wrote {len(xw)} world points to {args.out}",
               file=sys.stderr)
+    if args.plot:
+        from radar_tpu_torch.viz import plot_bev
+
+        plot_bev(xw, yw, st, vg_pts, pose, cfg, path=args.plot)
+        print(f"wrote plot to {args.plot}", file=sys.stderr)
     return 0
 
 
@@ -1402,25 +1451,182 @@ def cmd_track(args) -> int:
                 }) + "\n")
         print(f"wrote {len(tracks)} track histories to {args.out}",
               file=sys.stderr)
+    if args.plot:
+        from radar_tpu_torch.viz import plot_tracks
+
+        plot_tracks(tracker, cfg, path=args.plot)
+        print(f"wrote track plot to {args.plot}", file=sys.stderr)
     print(f"# {len(tracks)} confirmed tracks over {len(capture)-1} frames",
           file=sys.stderr)
     return 0
 
 
+def _print_native_report(t: dict) -> None:
+    n = t["frames"]
+    print("CPU Timing (native golden model)")
+    print(
+        f"Total Time for {n} frames {1000*t['total']:.5f} ms "
+        f"averaged {n/t['total']:.5f} FPS"
+    )
+    print(f"Total FFT time {1000*t['fft']:.5f} ms averaged "
+          f"{1000*t['fft']/n:.5f} ms/frame")
+    print(f"Total Reshape + Extension time {1000*t['preprocess']:.5f} ms "
+          f"averaged {1000*t['preprocess']/n:.5f} ms/frame")
+    print(f"Total findMax time {1000*t['findmax']:.5f} ms averaged "
+          f"{1000*t['findmax']/n:.5f} ms/frame")
+
+
+TRACE_NAME = "bench_trace.json"   # the Chrome trace of bench --profile
+
+
+@contextlib.contextmanager
+def _profiled(out_dir: str, device):
+    """``torch.profiler`` (CPU and, on a card, CUDA activities) around
+    the block, its Chrome trace written to ``out_dir/TRACE_NAME``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    os.makedirs(out_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(out_dir, TRACE_NAME))
+
+
+def _timing_header(device, mode: str, batch: int) -> str:
+    where = (f"CUDA {torch.cuda.get_device_name(device)}"
+             if device.type == "cuda" else "CPU")
+    return f"PyTorch {where} Timing ({mode}, batch={batch})"
+
+
+def _cmd_bench_compare(args, cfg) -> int:
+    """One-shot native-golden <-> accelerator comparative benchmark with
+    the per-frame verification loop ENABLED, as ``radar_tpu.cli bench
+    --compare``: the working version of the reference's ``main()``
+    (cudaBenchMarking.cpp:397-449 runs cpuTiming then cudaTiming; the
+    CPU<->GPU comparison loop is written but commented out at :410-419
+    with a 1e-5 m gate).  Exit code reflects the verification gate."""
+    from radar_tpu_torch import native
+    from radar_tpu_torch.utils.timing import StageTimings, fence, time_fn
+
+    # ---- pass 1: native C++ float64 golden (reference cpuTiming) --------
+    dists, t = native.process_capture(args.path, cfg)
+    _print_native_report(t)
+    n = t["frames"]
+
+    # ---- pass 2: the port on --device, same capture (cudaTiming) --------
+    device = resolve_device(args.device)
+    capture = read_capture(args.path, cfg)
+    det = RangeDetector(cfg, device=device)
+    base = det.prepare_base(capture[0])
+    batch = torch.from_numpy(capture[1:]).to(device)   # one upload
+    fence(det.detect(batch, base))   # warm
+    t0 = time.perf_counter()
+    out = det.detect(batch, base)
+    fence(out)
+    total = time.perf_counter() - t0
+    padded = det.preprocess(batch, base)
+    spec = det.fft_stage(padded)
+    st = StageTimings(
+        preprocess=time_fn(det.preprocess, batch, base, iters=5),
+        fft=time_fn(det.fft_stage, padded, iters=5),
+        detect=time_fn(det.detect_stage, spec, iters=5),
+        total=total,
+        frames=n,
+    )
+    print(_timing_header(device, "range-parity", n))
+    print(st.report())
+
+    # ---- pass 3: per-frame verification, ENABLED ------------------------
+    got = result_to_numpy(out)["distance_m"]
+    fail_rel = 0
+    within_ref_gate = 0
+    for i in range(n):
+        cpu_d = float(dists[i])
+        tpu_d = float(got[i])
+        if abs(tpu_d - cpu_d) < 1e-5:  # the reference's own (disabled) gate
+            within_ref_gate += 1
+        if abs(tpu_d - cpu_d) > max(1e-3 * cpu_d, 1e-9):
+            fail_rel += 1
+            print(f"FRAME {i+1} MISMATCH: native {cpu_d:.6f} m vs "
+                  f"tpu {tpu_d:.6f} m")
+        if args.per_frame:
+            print(f"frame[{i+1}] native {cpu_d:.6f} m | tpu {tpu_d:.6f} m | "
+                  f"inner {1000*total/n:.3f} ms/frame")
+    print(f"verification: {n - fail_rel}/{n} frames within 1e-3 relative "
+          f"(gate: PASS)" if fail_rel == 0 else
+          f"verification: {fail_rel}/{n} frames FAILED the 1e-3 gate")
+    print(f"reference 1e-5 m absolute gate (cudaBenchMarking.cpp:414): "
+          f"{within_ref_gate}/{n} frames within "
+          f"(bin-exact matches are identical after quantization)")
+    return 1 if fail_rel else 0
+
+
+def _full_stages(args, cfg, pipe, b, base_cube) -> None:
+    """``bench --full --stages`` on one resident batch: kernel 1 alone
+    against the detection tail where ``pipe.detect`` runs kernel 1 (the
+    pipeline's own choice, ``RDPipeline._detect_kernel``: CA, GO or SO
+    with K <= 128, any clutter; on a card a geometry outside the
+    kernel's gate has already raised in the warm-up ``detect``); JAX's
+    note with the front end that ran otherwise."""
+    from radar_tpu_torch.ops.cuda import megakernel
+    from radar_tpu_torch.utils.timing import time_fn
+
+    k, nb = args.max_detections, args.batch
+    if not pipe._detect_kernel():
+        resolved = pipe._rd_impl()
+        if resolved in ("auto", "mega"):
+            resolved = "mega-maps"   # the maps kernel, then top-K
+        print(f"(per-stage breakdown is reported for the mega+CA/GO/SO "
+              f"path with max_detections <= {megakernel.K_MAX}; this run "
+              f"resolved to rd_impl={resolved!r}, "
+              f"cfar_kind={cfg.cfar_kind!r}, K={k} — see chip_smoke.py "
+              "phase 17)")
+        return
+    consts = dict(pipe.named_buffers())
+    t_kern = time_fn(
+        lambda x, bc: megakernel.detections_from_shorts(x, bc, k, cfg,
+                                                        consts),
+        b, base_cube, iters=5)
+    t_det = time_fn(pipe.detect, b, base_cube, iters=5)
+    tail = max(0.0, t_det - t_kern)
+    what = "" if b.is_cuda else ", its plain version on the CPU"
+    print(f"Mega detect kernel (decode+DFT+power+CFAR+top-K"
+          f"+gathers{what}) {1000*t_kern:.5f} ms averaged "
+          f"{1000*t_kern/nb:.5f} ms/frame")
+    print(f"torch tail (physics + MIMO comp + angle FFT) "
+          f"{1000*tail:.5f} ms averaged {1000*tail/nb:.5f} ms/frame")
+
+
 def cmd_bench(args) -> int:
-    """Streamed throughput over a capture file, as ``radar_tpu.cli
-    bench`` without ``--stages`` / ``--compare`` / ``--native`` /
-    ``--profile``: the capture pinned, each batch uploaded on a copy
-    stream behind the detection of the batch before
-    (``parallel.stream``); ``--full`` times ``RDPipeline.detect_donated``
-    (the range-Doppler-CFAR-AoA pipeline), otherwise the range-parity
-    ``RangeDetector``.  ``--latency`` adds the dispatch -> packed-result
-    latency of one resident batch, the program ``serve`` runs."""
+    """Throughput over a capture file, as ``radar_tpu.cli bench``: the
+    capture pinned, each batch uploaded on a copy stream behind the
+    detection of the batch before (``parallel.stream``); ``--full``
+    times ``RDPipeline.detect_donated`` (the range-Doppler-CFAR-AoA
+    pipeline), otherwise the range-parity ``RangeDetector``.
+    ``--stages`` adds the reference's four buckets (range parity) or
+    kernel 1 against the tail (``--full``) on one resident batch, timed
+    with ``utils.timing.time_fn`` (host-inclusive wall time).
+    ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the
+    timed loop into DIR.  ``--latency`` adds the dispatch ->
+    packed-result latency of one resident batch, the program ``serve``
+    runs.  ``--native`` runs the float64 C++ golden on the host instead
+    (``native.py``); ``--compare`` runs the golden and the range-parity
+    detector on the same capture with the per-frame verification loop
+    (``--per-frame`` prints each frame)."""
+    cfg = _build_cfg(args)
+    if args.compare:
+        return _cmd_bench_compare(args, cfg)
+    if args.native:
+        from radar_tpu_torch import native
+
+        _, t = native.process_capture(args.path, cfg)
+        _print_native_report(t)
+        return 0
+
     from radar_tpu_torch.models.rd_pipeline import pack_detections
     from radar_tpu_torch.parallel.stream import FrameStreamer, stream_detect
     from radar_tpu_torch.utils.timing import StageTimings, fence
 
-    cfg = _build_cfg(args)
     device = resolve_device(args.device)
     pipe = RDPipeline(cfg, max_detections=args.max_detections,
                       rd_impl=args.rd_impl, device=device)
@@ -1436,23 +1642,48 @@ def cmd_bench(args) -> int:
 
         def fn(b):
             return det.detect(b, base_rx0)
-    # warm up on a copy of the first batch (kept for --latency)
+    # warm up on a copy of the first batch (kept for --stages, --latency)
     batches = iter(streamer)
     first = next(batches).clone()
     batches.close()
     fence(fn(first))
 
-    t0 = time.perf_counter()
-    results = stream_detect(streamer, fn)
-    fence([r[0] for r in results])
-    total = time.perf_counter() - t0
+    # only the timed loop is profiled, as in the JAX package
+    with (_profiled(args.profile, device) if args.profile
+          else contextlib.nullcontext()):
+        t0 = time.perf_counter()
+        results = stream_detect(streamer, fn)
+        fence([r[0] for r in results])
+        total = time.perf_counter() - t0
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
     n = len(streamer.frames)
     mode = "range-Doppler-CFAR-AoA" if args.full else "range-parity"
-    where = (f"CUDA {torch.cuda.get_device_name(device)}"
-             if device.type == "cuda" else "CPU")
-    print(f"PyTorch {where} Timing ({mode}, batch={args.batch})")
-    # the reference report's first line; the stage buckets stay empty
-    print(StageTimings(total=total, frames=n).report().splitlines()[0])
+    print(_timing_header(device, mode, args.batch))
+
+    nb = args.batch
+    if args.stages and args.full:
+        print(f"Total Time for {n} frames {1000*total:.5f} ms "
+              f"averaged {n/total:.5f} FPS")
+        _full_stages(args, cfg, pipe, first, base_cube)
+    elif args.stages:
+        # reference-format 4-bucket breakdown (non-overlapping, fenced) on
+        # one resident batch — cudaBenchMarking.cpp:328-331's report
+        from radar_tpu_torch.utils.timing import time_fn
+
+        padded = det.preprocess(first, base_rx0)
+        spec = det.fft_stage(padded)
+        t_pre = time_fn(det.preprocess, first, base_rx0, iters=5)
+        t_fft = time_fn(det.fft_stage, padded, iters=5)
+        t_det = time_fn(det.detect_stage, spec, iters=5)
+        st = StageTimings(
+            preprocess=t_pre, fft=t_fft, detect=t_det,
+            total=total * nb / max(n, 1), frames=nb,
+        )
+        print(st.report())
+    else:
+        # the reference report's first line; the stage buckets stay empty
+        print(StageTimings(total=total, frames=n).report().splitlines()[0])
 
     if args.latency:
         # dispatch -> fetched packed result, one resident batch: the
@@ -1925,6 +2156,9 @@ def main(argv=None) -> int:
                    help="with --full: also write a Cartesian point cloud "
                         "(one point per detection; CSV, or ASCII PLY for "
                         "a .ply path)")
+    d.add_argument("--points-plot", default=None, metavar="PNG",
+                   help="with --full: top-down point-cloud scatter "
+                        "colored by radial velocity")
     d.add_argument("--ego", type=float, default=None, nargs="?",
                    const=0.5, metavar="INLIER_MPS",
                    help="with --full: fit the platform (ego) velocity per "
@@ -2007,6 +2241,9 @@ def main(argv=None) -> int:
                    help="also write one JSONL record per confirmed "
                         "track, including its full (range, velocity, "
                         "azimuth) state history")
+    t.add_argument("--plot", default=None, metavar="PNG",
+                   help="range-vs-time trajectory plot of the confirmed "
+                        "tracks")
     _add_flags(t, "max_detections", "tracker", "confirm_hits", "max_misses",
                "refine", "blank_interference", *_PIPELINE)
     t.set_defaults(fn=cmd_track)
@@ -2018,6 +2255,26 @@ def main(argv=None) -> int:
                    help="time the range-Doppler-CFAR-AoA pipeline (else "
                         "the range-parity detector)")
     b.add_argument("--batch", type=int, default=64)
+    b.add_argument("--native", action="store_true",
+                   help="run the float64 C++ golden model on the host "
+                        "instead (native.py)")
+    b.add_argument("--stages", action="store_true",
+                   help="print the reference-format 4-bucket stage "
+                        "breakdown (with --full: kernel 1 against the "
+                        "tail)")
+    b.add_argument("--compare", action="store_true",
+                   help="one-shot native-golden + accelerator run on the "
+                        "same capture with the per-frame verification "
+                        "loop enabled (the reference main() with "
+                        "cudaBenchMarking.cpp:410-419 un-commented); exit "
+                        "code reflects the gate")
+    b.add_argument("--per-frame", action="store_true",
+                   help="with --compare: print one line per frame "
+                        "(native/accelerator distance + inner ms, the "
+                        "always-on per-frame line at acceleration.cu:533)")
+    b.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the timed "
+                        "loop to DIR")
     b.add_argument("--latency", action="store_true",
                    help="report dispatch->result latency percentiles "
                         "(p50/p90/p99) for the serving program")
@@ -2046,6 +2303,8 @@ def main(argv=None) -> int:
                     help="STFT size (default: window length)")
     md.add_argument("--out", default=None,
                     help="write the (windows, n_fft) power array as .npy")
+    md.add_argument("--plot", default=None,
+                    help="write a time x velocity PNG")
     _add_flags(md, "base_frames", "range_bin", "dft_precision", "clutter",
                "window_kind", "device")
     md.set_defaults(fn=cmd_mdoppler)
@@ -2059,6 +2318,8 @@ def main(argv=None) -> int:
                          "Capon/MVDR per range bin (sharper beams)")
     az.add_argument("--out", default=None,
                     help="write the (angle_bins, range_fft) map as .npy")
+    az.add_argument("--plot", default=None,
+                    help="write a range x azimuth PNG")
     _add_flags(az, "base_frames", "frame", "num_tx", "elevated_tx", "cal",
                "dft_precision", "clutter", "window_kind", "device")
     az.set_defaults(fn=cmd_azmap)
@@ -2069,6 +2330,8 @@ def main(argv=None) -> int:
     ad.add_argument("path")
     ad.add_argument("--out", default=None,
                     help="write the (doppler_fft, angle_bins) map as .npy")
+    ad.add_argument("--plot", default=None,
+                    help="write an azimuth x velocity PNG")
     _add_flags(ad, "base_frames", "frame", "range_bin", "num_tx", "cal",
                "dft_precision", "clutter", "window_kind", "device")
     ad.set_defaults(fn=cmd_admap)
@@ -2081,6 +2344,7 @@ def main(argv=None) -> int:
     bv.add_argument("--ego", type=float, default=0.5, metavar="INLIER_MPS",
                     help="ego-fit inlier gate in m/s (default 0.5)")
     bv.add_argument("--out", default=None, help="write world points as CSV")
+    bv.add_argument("--plot", default=None, help="write a PNG BEV")
     bv.add_argument("--second", default=None, metavar="CAP2",
                     help="second radar's capture (synchronized frames): "
                          "the two-radar yaw-rate fit — heading becomes "
@@ -2102,6 +2366,7 @@ def main(argv=None) -> int:
     rt.add_argument("path")
     rt.add_argument("--out", default=None,
                     help="write the (frames, range_fft) matrix as .npy")
+    rt.add_argument("--plot", default=None, help="write a PNG waterfall")
     # 'none' as radar_tpu.cli offers it: RadarConfig refuses it
     _add_flags(rt, "base_frames", "num_tx", "clutter", "window_kind",
                "device", clutter={"choices": _CLUTTER + ["none"]})

@@ -1,5 +1,5 @@
-"""Device fences, CUDA-event timing and the reference-format stage
-report (port of ``radar_tpu.utils.timing``).
+"""Wall-clock and CUDA-event timing, device fences and the
+reference-format stage report (port of ``radar_tpu.utils.timing``).
 
 The JAX version fences by materialising a value because
 ``block_until_ready`` did not fence on its remote transport.  Under
@@ -12,9 +12,23 @@ more slowly than the device runs (many small launches), the gaps count.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
+
+
+class Timer:
+    """Monotonic stopwatch (the reference Timer's contract)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def elapsed(self) -> float:
+        return time.perf_counter() - self._t0
 
 
 @dataclasses.dataclass
@@ -100,3 +114,21 @@ def cuda_time_ms(fn: Callable, *args, iters: int = 5, warmup: int = 2,
         pairs.append((start, stop))
     torch.cuda.synchronize()
     return [a.elapsed_time(b) for a, b in pairs]
+
+
+def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
+    """Mean per-iteration wall time of ``fn(*args)`` in seconds.
+
+    As in the JAX package, all ``iters`` calls are dispatched, then
+    fenced ONCE (:func:`fence`, ``torch.cuda.synchronize`` on the
+    devices of the outputs), after ``warmup`` fenced calls.  On a card
+    this is host-inclusive wall time: the host's enqueue of each call
+    counts where it is slower than the device; :func:`cuda_time_ms`
+    gives the device's time alone.
+    """
+    for _ in range(warmup):
+        fence(fn(*args))
+    t0 = time.perf_counter()
+    outs = [fn(*args) for _ in range(iters)]
+    fence(outs)
+    return (time.perf_counter() - t0) / iters

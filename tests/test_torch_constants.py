@@ -5,6 +5,8 @@ capture I/O, the synthetic scene generator and the float64 golden
 subset (the port may import nothing of the JAX package)."""
 
 import dataclasses
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -667,3 +669,83 @@ def test_last_frame_index(tmp_path, lines):
         == jax_records.last_frame_index(str(path))
     if lines is None:
         assert records.last_frame_index(str(path)) == -1
+
+
+# -- the float64 C++ golden's copy and the timing helpers ---------------------
+
+_ROOT = Path(__file__).resolve().parents[1]
+_FAULT_D = ("if (alpha < 0.0) return -1;", "return 0;")
+
+
+def test_golden_cc_copy():
+    """The port's cpp/golden.cc equals cpp/golden.cc line for line outside
+    the marked fault-(d) hunk; inside it, only the marker comments, the
+    int return type, the sentinel check and the final return are new."""
+    orig = (_ROOT / "cpp" / "golden.cc").read_text().splitlines()
+    port = (_ROOT / "radar_tpu_torch" / "cpp" / "golden.cc").read_text(
+    ).splitlines()
+    begin = [i for i, ln in enumerate(port)
+             if ln.startswith("// BEGIN reference fault (d)")]
+    end = [i for i, ln in enumerate(port)
+           if ln == "// END reference fault (d)"]
+    assert len(begin) == len(end) == 1 and begin[0] < end[0]
+    b, e = begin[0], end[0]
+    tail = len(port) - e - 1
+    assert port[:b] == orig[:b]
+    assert port[e + 1:] == orig[len(orig) - tail:]
+    hunk = [ln for ln in port[b:e] if not ln.startswith("//")
+            and ln.strip() not in _FAULT_D]
+    hunk = [ln.replace("int radar_clutter_map_cfar(",
+                       "void radar_clutter_map_cfar(") for ln in hunk]
+    assert hunk == orig[b:len(orig) - tail]
+    assert [ln.strip() for ln in port[b:e]
+            if ln.strip() in _FAULT_D] == list(_FAULT_D)
+
+
+def test_golden_h_copy():
+    orig = (_ROOT / "cpp" / "golden.h").read_text().splitlines()
+    port = (_ROOT / "radar_tpu_torch" / "cpp" / "golden.h").read_text(
+    ).splitlines()
+    assert len(port) == len(orig)
+    diff = [(a, b) for a, b in zip(orig, port) if a != b]
+    assert diff == [(
+        "void radar_clutter_map_cfar(const double* power, int frames, int d,",
+        "int radar_clutter_map_cfar(const double* power, int frames, int d,",
+    )]
+
+
+def test_timer_copy():
+    from radar_tpu.utils import timing as jax_timing
+    from radar_tpu_torch.utils import timing
+
+    for mod in (jax_timing, timing):
+        t = mod.Timer()
+        time.sleep(0.01)
+        first = t.elapsed()
+        assert 0.01 <= first <= t.elapsed()
+        t.reset()
+        assert t.elapsed() < first
+
+
+@pytest.mark.parametrize("iters,warmup", [(10, 2), (3, 0), (1, 1)])
+def test_time_fn_copy(iters, warmup):
+    """The same call count as ``radar_tpu.utils.timing.time_fn`` on a CPU
+    function, and a mean within the wall time of the calls."""
+    from radar_tpu.utils import timing as jax_timing
+    from radar_tpu_torch.utils import timing
+
+    counts = []
+    for mod in (jax_timing, timing):
+        calls = []
+
+        def fn(x):
+            calls.append(x)
+            time.sleep(0.002)
+            return np.full(3, x)
+
+        t0 = time.perf_counter()
+        mean = mod.time_fn(fn, 2.0, iters=iters, warmup=warmup)
+        wall = time.perf_counter() - t0
+        counts.append(len(calls))
+        assert 0.002 <= mean and mean * iters <= wall
+    assert counts[0] == counts[1] == iters + warmup
