@@ -34,7 +34,10 @@ radar_tpu_torch.cli serve / replay / track / bench``; evaluation,
 calibrate / detect --full --cal / azmap --cal / admap --cal``; the
 reference benchmark, ``python -m radar_tpu_torch.cli bench --native /
 --compare / --stages / --full --stages / --full --profile`` (the float64
-C++ golden of ``native.py`` on the host).  Phases, each printing one
+C++ golden of ``native.py`` on the host); the multi-device path,
+``parallel.DistributedRDPipeline`` data-parallel (kernel 1) and
+RX-sharded (kernels 2, 4, 3), and ``RangeDetector.detect_sharded``
+(kernel 7), over ranks that share the card.  Phases, each printing one
 line or more:
 
 1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
@@ -166,7 +169,18 @@ line or more:
     (kernel 1's three stage kernels once per streamed batch in the
     trace, no other kernel of ``csrc/``, the device's idle share over
     the traced window).  It plots nothing (no matplotlib on the card's
-    machine).
+    machine);
+24. the multi-device path on phase 2's 512 frames, ranks sharing the
+    one card: kernel 2 at V = 1 and 2 (a shard's RX group) against its
+    plain version; ``DistributedRDPipeline(rd_impl='mega')`` on a
+    world-1 NCCL mesh (1, 1) bit-equal to ``RDPipeline.detect`` with
+    kernel 1 launched; ``python -m radar_tpu_torch.parallel.multihost``
+    launches of 2 and 4 ranks under gloo, meshes (2, 1), (1, 2), (1, 4)
+    and (2, 2), against ``RDPipeline.detect`` within phase 2's flip
+    allowance, with every rank's launches (kernel 1 where chan is 1,
+    kernels 2, 4, 3 where chan > 1); ``RangeDetector.detect_sharded``
+    (kernel 7) equal to ``detect``; host-inclusive ms per global batch
+    of each mesh and kernel 2's device time at V = 1, 2, 4.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -3799,23 +3813,16 @@ EVAL_IMBALANCE = "1:0,1.2:35,0.8:-40,1.1:-18"
 def kernel_counts() -> dict:
     """Launches of kernels 1-8 since :func:`reset_kernel_counts`, after
     the device has finished."""
-    from radar_tpu_torch.ops.cuda import cfar, fused_dft, magargmax
-    from radar_tpu_torch.ops.cuda import megakernel, oscfar, topk
+    from radar_tpu_torch.ops.cuda import launch_counts
 
     torch.cuda.synchronize()
-    return {1: megakernel.launches, 2: megakernel.maps_launches,
-            3: topk.launches, 4: cfar.launches,
-            5: oscfar.threshold_launches, 6: oscfar.hits_launches,
-            7: magargmax.launches, 8: fused_dft.launches}
+    return dict(enumerate(launch_counts(), 1))
 
 
 def reset_kernel_counts() -> None:
-    from radar_tpu_torch.ops.cuda import cfar, fused_dft, magargmax
-    from radar_tpu_torch.ops.cuda import megakernel, oscfar, topk
+    from radar_tpu_torch.ops.cuda import reset_launch_counts
 
-    megakernel.launches = megakernel.maps_launches = 0
-    topk.launches = cfar.launches = magargmax.launches = 0
-    oscfar.threshold_launches = oscfar.hits_launches = fused_dft.launches = 0
+    reset_launch_counts()
 
 
 def counted_call(fn, *args, **kwargs):
@@ -4398,6 +4405,245 @@ def bench_phase(cfg, capture, gpu, dev, k1_ms: float) -> None:
     say(f"phase 23 took {time.perf_counter() - t_phase:.1f} s")
 
 
+SHARD_LAUNCHES = (  # world size, meshes of one worker launch, cases
+    (2, "2x1,1x2", "mega,mega+os,range"),
+    (4, "1x4,2x2", "mega,mega+stream,mega+ingest"),
+)
+SHARD_REPEAT = 5   # timed calls of each case after its first
+
+
+def start_ranks(n: int, store: str, argv) -> list:
+    """``n`` processes of ``python -m radar_tpu_torch.parallel.multihost``
+    joined through the ``file://`` store at ``store`` (no TCP port to
+    race for); ``argv`` is the rest of the command line, a list or a
+    function of the rank giving one."""
+    return [subprocess.Popen(
+        [sys.executable, "-m", "radar_tpu_torch.parallel.multihost",
+         "--coordinator", f"file://{store}", "--num-processes", str(n),
+         "--process-id", str(r), *(argv(r) if callable(argv) else argv)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(n)]
+
+
+def finish_ranks(procs: list, timeout: float = 240.0) -> str:
+    """Wait for every rank of :func:`start_ranks`, all within one
+    deadline; any rank's failure or timeout raises (the others are
+    killed).  Returns rank 0's standard output."""
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic())))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (
+            f"rank {r} of {len(procs)} failed (rc {p.returncode}):\n"
+            f"{so[-2000:]}\n{se[-4000:]}")
+    return outs[0][0]
+
+
+def launch_ranks(n: int, argv: list, timeout: float = 240.0) -> str:
+    """:func:`start_ranks` over a fresh store, then :func:`finish_ranks`."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return finish_ranks(start_ranks(n, f"{tmp}/store", argv), timeout)
+
+
+def shard_counts_check(name: str, launches: np.ndarray, want: dict) -> None:
+    """Every rank launched each kernel as ``want`` says (others 0)."""
+    row = [want.get(k, 0) for k in range(1, 9)]
+    for r, got in enumerate(launches.tolist()):
+        assert got == row, f"{name}: rank {r} launched {got}, expected {row}"
+
+
+def sharded_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
+    """Phase 24, the multi-device path at ``RadarConfig()`` on phase 2's
+    512 frames and base, ranks sharing the one card: (a) kernel 2 at
+    V = 1 and 2 (every RX group of the frames, a shard's config with
+    ``num_rx`` V) against its plain version; (b) a world-1 NCCL mesh
+    (1, 1) running ``DistributedRDPipeline(rd_impl='mega')``: its
+    ``RDResult`` bit-equal to ``RDPipeline.detect`` on the same frames,
+    kernel 1 launched once and no other kernel (counts set to 0 just
+    before, read just after), its kernel-1 outputs' checksum phase 17's;
+    (c) worker launches of 2 and 4 ranks on this card under gloo, meshes
+    (2, 1), (1, 2), (1, 4) and (2, 2), each running mega on the
+    512-frame global batch, rank 0's gathered result against
+    ``RDPipeline.detect`` within phase 2's flip allowance (flips
+    reported), every rank's launches those of its branch (kernel 1 where
+    chan is 1; kernels 2, 4 and 3 where chan > 1), the same for OS-CFAR
+    on 2 ranks (kernels 2, 6 and 3) and for the mesh streamer on 4
+    (``FrameStreamer(mesh=)``: 511 frames in global batches of 256, each
+    rank uploading its block; every frame back once, in order) and for
+    the ingest (``local_frames_to_global``: only each data row's first
+    rank holds the row's frames and broadcasts them over 'chan'); (d)
+    ``RangeDetector.detect_sharded`` with ``detect_impl='pallas'``
+    (kernel 7) on 2 ranks equal to ``RangeDetector.detect``; (e)
+    host-inclusive ms per global batch of each mesh (the ranks share one
+    card: not a scaling figure) and device-only ms of kernel 2 at V = 1,
+    2 and 4."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from radar_tpu_torch.convert import result_to_numpy
+    from radar_tpu_torch.io.capture import write_capture
+    from radar_tpu_torch.models.range_detector import RangeDetector
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        detections_from_shorts_cuda,
+        power_from_shorts_cuda,
+        power_from_shorts_reference,
+    )
+    from radar_tpu_torch.parallel import DistributedRDPipeline, build_mesh
+    from radar_tpu_torch.parallel.distributed import rx_group
+    from radar_tpu_torch.parallel.multihost import (
+        gather_detections,
+        initialize,
+    )
+
+    t_phase = time.perf_counter()
+    n = len(frames)
+    unit = tier_unit(cfg)
+
+    # (a) kernel 2 on each RX group at V = 1 and 2
+    k2 = {}
+    for v in (1, 2):
+        cfg_v = dataclasses.replace(cfg, num_rx=v, rx_cal=None)
+        worst = 0.0
+        for lo in range(0, cfg.num_rx, v):
+            x, b_v = rx_group(frames, cfg, lo, v), base[lo:lo + v]
+            worst = max(worst, maps_check(
+                f"kernel 2 V={v} RX {lo}", power_from_shorts_cuda(
+                    x, b_v, cfg_v, consts),
+                power_from_shorts_reference(x, b_v, cfg_v), unit))
+        k2[v] = (x, b_v, cfg_v)
+        say(f"kernel 2 at V={v} vs plain, B={n}, each of {cfg.num_rx // v} "
+            f"RX groups: max |power err| {worst:.4g}")
+    k2[cfg.num_rx] = (frames, base, cfg)
+    k2_ms = alternate({f"V={v}": (lambda a=a: power_from_shorts_cuda(
+        a[0], a[1], a[2], consts)) for v, a in k2.items()}, device_only=True)
+
+    # the reference: single-process detect, with kernel 1's neighbours
+    single = RDPipeline(cfg, max_detections=K_DET, device=dev)
+    want = result_to_numpy(single.detect(frames, base))
+    ref = dict(want, nbr=detections_from_shorts_cuda(
+        frames, base, K_DET, cfg, consts)[2].cpu().numpy())
+
+    cfg_os = dataclasses.replace(cfg, cfar_kind="os")
+    want_os = result_to_numpy(RDPipeline(cfg_os, max_detections=K_DET,
+                                         device=dev).detect(frames, base))
+    want_os["nbr"] = nbr_of(power_from_shorts_cuda(frames, base, cfg_os,
+                                                   consts), want_os)
+    # case -> (reference, cfg, launches per rank by chan > 1)
+    refs = {"mega": (ref, cfg, {False: {1: 1}, True: {2: 1, 3: 1, 4: 1}}),
+            "mega+os": (want_os, cfg_os, {False: {2: 1, 3: 1, 6: 1},
+                                          True: {2: 1, 3: 1, 6: 1}}),
+            # the streamer: 511 frames in global batches of 256, so two
+            # batches, the last one padded
+            "mega+stream": ({k: v[:n - 1] for k, v in ref.items()}, cfg,
+                            {False: {1: 2}, True: {2: 2, 3: 2, 4: 2}}),
+            # each data row's frames held by its first rank only, then
+            # broadcast over 'chan' (multihost.local_frames_to_global)
+            "mega+ingest": (ref, cfg, {False: {1: 1},
+                                       True: {2: 1, 3: 1, 4: 1}})}
+
+    # (b) world 1 over NCCL
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize(f"file://{tmp}/store", 1, 0, device=dev)
+        try:
+            backend = dist.get_backend()
+            mesh = build_mesh(dev.type, num_rx=1)
+            pipe = DistributedRDPipeline(mesh, cfg, K_DET, rd_impl="mega",
+                                         cfar_impl="auto")
+            base_l = pipe.prepare_base(capture[0])
+            local = pipe.shard_frames(frames)
+            out, ms1, counts = counted_call(pipe.detect, local, base_l)
+            assert counts == once(1), f"world 1: launches {counts}"
+            got = gather_detections(out, mesh)._asdict()
+            for name, value in want.items():
+                assert got[name].dtype == value.dtype and np.array_equal(
+                    got[name].view(np.uint8), value.view(np.uint8)), name
+            digest = outputs_digest(detections_from_shorts_cuda(
+                local, base_l, K_DET, cfg, dict(pipe.local.named_buffers())))
+            assert digest == (TIER_DIGEST[cfg.dft_precision] or CA_DIGEST), \
+                digest
+            world1_ms = []
+            for _ in range(SHARD_REPEAT):
+                t0 = time.perf_counter()
+                pipe.detect(local, base_l)
+                torch.cuda.synchronize()
+                world1_ms.append(1e3 * (time.perf_counter() - t0))
+        finally:
+            dist.destroy_process_group()
+    say(f"world 1 ({backend}) mesh (1, 1) mega B={n}: RDResult bit-equal "
+        f"to RDPipeline.detect, launches {counts} (kernel 1 once), kernel 1 "
+        f"checksum {digest}; host-inclusive {statistics.median(world1_ms):.4f}"
+        f" ms/batch (first call {ms1:.1f} ms)")
+
+    # (c), (d) ranks sharing the card under gloo
+    det = RangeDetector(cfg, device=dev, detect_impl="pallas")
+    range_want = det.detect(frames, det.prepare_base(capture[0]))
+    mesh_ms = {f"1x1 ({backend}, world 1)": statistics.median(world1_ms)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cap.bin")
+        write_capture(path, capture, cfg)
+        for world, meshes, cases in SHARD_LAUNCHES:
+            t0 = time.perf_counter()
+            launch_ranks(world, [
+                "--out", os.path.join(tmp, "out"), "--device", dev.type,
+                "--backend", "gloo", "--mesh", meshes, "--cases", cases,
+                "--capture", path, "--num-samples", str(cfg.num_samples),
+                "--num-chirps", str(cfg.num_chirps), "--batch", str(n),
+                "--max-detections", str(K_DET), "--repeat",
+                str(SHARD_REPEAT)])
+            launch_s = time.perf_counter() - t0
+            for shape in meshes.split(","):
+                d, c = (int(v) for v in shape.split("x"))
+                for case in cases.split(","):
+                    res = dict(np.load(os.path.join(
+                        tmp, f"out.{shape}.{case}.npz")))
+                    if case == "range":
+                        shard_counts_check(f"mesh {shape} range",
+                                           res["launches"], {7: 1})
+                        for name, value in range_want._asdict().items():
+                            np.testing.assert_array_equal(
+                                res[name], value.cpu().numpy(),
+                                err_msg=f"detect_sharded {shape}: {name}")
+                        say(f"mesh ({d}, {c}) RangeDetector.detect_sharded "
+                            f"(kernel 7, 1 launch a rank) equal to "
+                            f"RangeDetector.detect on {n} frames")
+                        continue
+                    want_c, cfg_c, counts_c = refs[case]
+                    if "stream" in case:
+                        assert np.array_equal(res["frames"], capture[1:n]), \
+                            f"mesh {shape}: streamed frames"
+                    flips, err = compare(res, want_c, cfg_c, max_flips=2,
+                                         f32_floor=True, unit=unit)
+                    shard_counts_check(f"mesh {shape} {case}",
+                                       res["launches"], counts_c[c > 1])
+                    line = (f"mesh ({d}, {c}) {case}, {world} ranks on one "
+                            f"card (gloo): {flips} flips, max |power err| "
+                            f"{err:.4g} vs RDPipeline.detect; launches per "
+                            f"rank {res['launches'][0].tolist()}")
+                    if case == "mega":
+                        mesh_ms[f"{shape} (gloo, {world} ranks)"] = float(
+                            np.median(res["ms"]))
+                        line += (f"; host-inclusive {np.median(res['ms']):.4f}"
+                                 " ms/batch")
+                    say(line)
+            say(f"worker launch of {world} ranks ({meshes}): {launch_s:.1f} s")
+    say(f"sharded host-inclusive ms per global batch of {n} on "
+        f"{gpu} (ranks share the card; not a scaling figure): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in mesh_ms.items()))
+    say(f"kernel 2 device-only on {gpu}, B={n}: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in k2_ms.items()))
+    say(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4591,6 +4837,7 @@ def main() -> int:
     live_phase(cfg, capture, gpu, dev)
     eval_phase(gpu, dev)
     bench_phase(cfg, capture, gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
+    sharded_phase(cfg, capture, frames, base, consts, gpu, dev)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -25,6 +25,7 @@ from radar_tpu_torch.ops.detect import (
 )
 from radar_tpu_torch.ops.preproc import clutter_subtract_pad
 from radar_tpu_torch.ops.rangefft import range_fft
+from radar_tpu_torch.parallel.mesh import DATA_AXIS, gather_over, shard_rows
 from radar_tpu_torch.utils.device import resolve_device
 
 _IMPLS = ("auto", "xla", "pallas")
@@ -111,3 +112,15 @@ class RangeDetector(nn.Module):
         """Frame 0 is the base; detect frames 1..N-1 in one batch."""
         frames = self._as_tensor(frames_shorts)
         return self.detect(frames[1:], self.prepare_base(frames[0]))
+
+    # -- data parallelism over a mesh ---------------------------------------
+    def detect_sharded(self, shorts, base_rx0, mesh) -> PeakDetection:
+        """Data-parallel detection over the mesh's 'data' axis
+        (``parallel.mesh``): this rank detects its block of the batch
+        ``shorts``, which every rank holds alike, and the rows are
+        gathered over 'data', so every rank returns what
+        :meth:`detect` gives on the whole batch.  Frames are
+        independent: the gather is the only collective."""
+        out = self.detect(shard_rows(shorts, mesh, self.device), base_rx0)
+        return PeakDetection(*(gather_over(t, mesh, DATA_AXIS, dim=0)
+                               for t in out))

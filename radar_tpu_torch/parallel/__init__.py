@@ -1,6 +1,16 @@
-"""Streaming over frame batches (the port of ``radar_tpu.parallel``'s
-``stream`` module; the mesh and sharded pipelines are not ported yet)."""
+"""Multi-device execution and streaming (the port of
+``radar_tpu.parallel``): the (data, chan) mesh, the sharded pipeline
+(one process per device; ``multihost`` starts and joins the ranks) and
+the double-buffered frame streamer."""
 
+from radar_tpu_torch.parallel.distributed import DistributedRDPipeline
+from radar_tpu_torch.parallel.mesh import build_mesh, mesh_factorization
 from radar_tpu_torch.parallel.stream import FrameStreamer, stream_detect
 
-__all__ = ["FrameStreamer", "stream_detect"]
+__all__ = [
+    "build_mesh",
+    "mesh_factorization",
+    "DistributedRDPipeline",
+    "FrameStreamer",
+    "stream_detect",
+]

@@ -29,6 +29,13 @@ reference kept past that point, sees the buffer overwritten (the
 counterpart of JAX's donated input buffers).  On the CPU the streamer
 yields plain tensors, one new tensor a batch, with no pinning and no
 streams.
+
+With a ``mesh`` (``parallel.mesh``, the counterpart of JAX's
+``sharding=``) ``batch`` is the global batch and must divide the mesh's
+'data' axis: each rank's buffers hold its data block of every batch
+only, ``batch / data`` rows, which feed ``DistributedRDPipeline.detect``
+as ``shard_frames`` would (the 'chan' members of a row upload the same
+block); ``multihost.gather_detections`` assembles the global results.
 """
 
 from __future__ import annotations
@@ -41,6 +48,7 @@ import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.io.capture import read_capture
+from radar_tpu_torch.parallel.mesh import mesh_coordinate, mesh_shape
 from radar_tpu_torch.utils.device import resolve_device
 
 
@@ -52,6 +60,9 @@ class FrameStreamer:
     the batch size (one shape for every launch) and
     :meth:`valid_frames` reports how many of its rows are frames.
     Iterate one pass at a time: the passes share the two buffers.
+    With ``mesh`` each batch yielded is this rank's data block of the
+    global batch (:attr:`rows` rows from global row :attr:`row0`);
+    :meth:`valid_frames` still counts the global batch's frames.
     """
 
     def __init__(
@@ -62,6 +73,7 @@ class FrameStreamer:
         *,
         device,
         skip_first: bool = True,
+        mesh=None,
     ):
         if isinstance(frames, (str, bytes)) or hasattr(frames, "__fspath__"):
             frames = read_capture(frames, cfg)
@@ -71,12 +83,22 @@ class FrameStreamer:
         self.batch = int(batch)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.rows, self.row0 = self.batch, 0
+        if mesh is not None:
+            data, _ = mesh_shape(mesh)
+            if self.batch % data:
+                raise ValueError(
+                    f"batch {self.batch} does not divide the mesh's 'data' "
+                    f"axis ({data})"
+                )
+            self.rows = self.batch // data
+            self.row0 = mesh_coordinate(mesh)[0] * self.rows
         if self.device.type != "cuda":
             return
         # the frames, page-locked once: every upload reads them in place
         self.pinned = torch.from_numpy(
             np.ascontiguousarray(self.frames)).pin_memory()
-        shape = (self.batch,) + self.frames.shape[1:]
+        shape = (self.rows,) + self.frames.shape[1:]
         self._bufs = [torch.empty(shape, dtype=self.pinned.dtype,
                                   device=self.device) for _ in range(2)]
         self._copy_stream = torch.cuda.Stream(self.device)
@@ -94,26 +116,29 @@ class FrameStreamer:
         start = batch_idx * self.batch
         return min(self.batch, len(self.frames) - start)
 
+    def _block(self, batch_idx: int) -> tuple[int, int]:
+        """(first frame, frames) of this rank's rows of batch
+        ``batch_idx``; rows past the capture's end are padding."""
+        start = batch_idx * self.batch + self.row0
+        return start, max(0, min(self.rows, len(self.frames) - start))
+
     def _host_batch(self, batch_idx: int) -> torch.Tensor:
-        start = batch_idx * self.batch
-        chunk = self.frames[start : start + self.batch]
-        if len(chunk) < self.batch:
-            pad = np.zeros(
-                (self.batch - len(chunk),) + chunk.shape[1:], chunk.dtype
-            )
+        start, n = self._block(batch_idx)
+        chunk = self.frames[start : start + n]
+        if n < self.rows:
+            pad = np.zeros((self.rows - n,) + chunk.shape[1:], chunk.dtype)
             chunk = np.concatenate([chunk, pad], axis=0)
         return torch.from_numpy(np.ascontiguousarray(chunk))
 
     def _upload(self, batch_idx: int, j: int) -> None:
         """Enqueue batch ``batch_idx`` into buffer ``j`` on the copy
         stream, after the current stream's last use of that buffer."""
-        start = batch_idx * self.batch
-        n = self.valid_frames(batch_idx)
+        start, n = self._block(batch_idx)
         buf = self._bufs[j]
         with torch.cuda.stream(self._copy_stream):
             self._copy_stream.wait_event(self._consumed[j])
             buf[:n].copy_(self.pinned[start : start + n], non_blocking=True)
-            if n < self.batch:
+            if n < self.rows:
                 buf[n:].zero_()
             self._uploaded[j].record(self._copy_stream)
 
@@ -156,7 +181,8 @@ def stream_detect(
     """Drive ``detect_fn`` over all batches with upload/compute overlap.
 
     ``detect_fn`` must enqueue its work on the current stream and keep
-    no reference to its input (``RDPipeline.detect_donated``).  The
+    no reference to its input (``RDPipeline.detect_donated``, or
+    ``DistributedRDPipeline.detect`` on a mesh streamer's blocks).  The
     results are NOT synchronised: the caller fences them
     (``utils.timing.fence``) before reading them on the host.
     """
