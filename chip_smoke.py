@@ -180,7 +180,21 @@ line or more:
     allowance, with every rank's launches (kernel 1 where chan is 1,
     kernels 2, 4, 3 where chan > 1); ``RangeDetector.detect_sharded``
     (kernel 7) equal to ``detect``; host-inclusive ms per global batch
-    of each mesh and kernel 2's device time at V = 1, 2, 4.
+    of each mesh and kernel 2's device time at V = 1, 2, 4;
+25. the measurement and acceptance tools, ``python -m
+    radar_tpu_torch.scripts.<name>`` on ``cuda:0``: ``speed_gate`` at its
+    defaults ('default' against 'high', at most 1/8 flip a target frame,
+    each geometry launching a kernel), ``stage_budget`` at B=512 'high'
+    (kernel 1's three launches within 10 % of kernel 1, kernel 1 within
+    10 % of phase 17's), ``ab_detect . .`` (equal digests; its times are
+    the A/B noise floor), ``os_cfar_bench`` at 512 maps (every
+    formulation within 1e-3 of the golden), ``serve_soak`` at 400 frames,
+    100 frames/s, ``--serve-batch 8`` (records with detections, both
+    delivery counts) and ``weak_scaling --sizes 1,2`` (the payloads the
+    layout implies).  ``speed_gate``, ``stage_budget`` and
+    ``os_cfar_bench``, whose launches are counted, run in this process;
+    ``ab_detect``, ``serve_soak`` and ``weak_scaling`` as processes of
+    their own.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -209,6 +223,17 @@ import time
 import numpy as np
 import torch
 
+# the timing helpers live in the port; os_ab.py loads each tree's
+# chip_smoke.alternate, so the names stay importable from here
+from radar_tpu_torch.utils.device import nvidia_smi_card
+from radar_tpu_torch.utils.timing import (  # noqa: F401
+    alternate,
+    host_enqueue_ms,
+    kernel_us,
+    profile_line,
+    stage_us,
+)
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TARGETS = ((3.0, 2.0, 20.0, 2500.0), (8.0, -4.0, -35.0, 1500.0))
 BATCH = 512
@@ -228,13 +253,7 @@ def outputs_digest(outputs) -> str:
     return h.hexdigest()[:16]
 
 
-def card() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    return out[0]
+card = nvidia_smi_card   # os_ab.py reads chip_smoke.card()
 
 
 # ---------------------------------------------------------------------------
@@ -928,21 +947,6 @@ def front_end_bytes(cfg, b: int, base: bool) -> float:
             + 2 * cfg.chirps_per_tx * cfg.doppler_fft_size * 4)
 
 
-def alternate(fns: dict, *args, device_only: bool = False) -> dict:
-    """Median ms of 10 CUDA-event timings of each function, run in turns
-    (in order, then reversed) on one card.  ``device_only``: the device's
-    work alone (``cuda_time_ms(queue_ahead=True)``), without the host's
-    launch gaps; else the time a caller waits for the stream."""
-    from radar_tpu_torch.utils.timing import cuda_time_ms
-
-    samples = {name: [] for name in fns}
-    for order in (list(fns), list(fns)[::-1]):
-        for name in order:
-            samples[name] += cuda_time_ms(fns[name], *args, iters=5, warmup=2,
-                                          queue_ahead=device_only)
-    return {name: statistics.median(v) for name, v in samples.items()}
-
-
 def ptxas_summary(log: str) -> str:
     """Each kernel's registers, barriers, shared memory and spills, from
     the build's ``-Xptxas -v`` lines, by kernel name (template argument
@@ -964,61 +968,6 @@ def ptxas_summary(log: str) -> str:
         elif "Used" in ln and "registers" in ln:
             out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
     return " | ".join(out)
-
-
-def host_enqueue_ms(fn, *args, iters: int = 10) -> float:
-    """Median host ms of ``fn(*args)`` until it returns, each call on a
-    drained stream and without the profiler: the time the host takes to
-    enqueue a call that has no synchronising op (the device's time is
-    measured apart)."""
-    times = []
-    for _ in range(iters):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(*args)
-        times.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    return statistics.median(times)
-
-
-def profile_line(fn, label: str, calls: int = 3) -> str:
-    """``torch.profiler`` device us per call of ``fn()``, by name (the
-    eight largest, kernels and the ops that launched them), the host's
-    enqueue time and the wall time per call, the device's idle share
-    (1 - kernel time / wall time) and the peak device memory."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        t_host = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        t_wall = time.perf_counter() - t0
-    peak_mb = torch.cuda.max_memory_allocated() / 2**20
-    rows, busy_us = [], 0.0
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(evt, "cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / calls, evt.key))
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            busy_us += getattr(evt, "self_device_time_total", 0.0)
-    rows.sort(reverse=True)
-    timing = (f"host enqueue {t_host / calls * 1e3:.3f} ms/call, wall "
-              f"{t_wall / calls * 1e3:.3f} ms/call")
-    if not rows:
-        return (f"profile {label}: no device time reported (not measured); "
-                f"{timing}; peak memory {peak_mb:.0f} MiB")
-    idle = (f"device idle {1.0 - busy_us / 1e6 / t_wall:.1%} (profiled)"
-            if busy_us > 0 else "device idle not measured")
-    return (f"profile {label} (device us/call): "
-            + "; ".join(f"{name[:48]} {us:.1f}" for us, name in rows[:8])
-            + f"; kernels {busy_us / calls:.1f} us/call; {timing}; {idle}; "
-            f"peak memory {peak_mb:.0f} MiB")
 
 
 def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
@@ -2042,35 +1991,6 @@ def selftest_phase() -> None:
 HIGH_DIGEST = "42c4276b4e5b21f1"  # kernel 1 at dft_precision 'high', as CA_DIGEST
 DEFAULT_DIGEST = "0f65ede98afe8f0e"  # and at 'default'
 TIER_DIGEST = {"highest": None, "high": HIGH_DIGEST, "default": DEFAULT_DIGEST}
-
-
-def kernel_us(fn, calls: int = 3) -> dict:
-    """``torch.profiler`` device us per launch of each kernel that
-    ``fn()`` runs, by kernel name: per launch, not per call, so that a
-    trace that lost some of the ``calls`` still reads right (kernel 1's
-    stages launch once a call)."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
-            out[evt.key] = us / max(evt.count, 1)
-    return out
-
-
-def stage_us(rows: dict, stem: str) -> float:
-    """Device us of the kernels whose names contain ``stem``; raises when
-    the profile shows none (then it is not measured)."""
-    hits = [us for name, us in rows.items() if stem in name]
-    assert hits, f"no device time for {stem} in {sorted(rows)}"
-    return sum(hits)
 
 
 def set_flips(a: dict, b: dict) -> tuple[int, int]:
@@ -4644,6 +4564,165 @@ def sharded_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     say(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
 
 
+SCRIPT_TIMEOUT = 300.0   # seconds for each tool run as a process
+
+
+def run_tool(name: str, argv: list) -> tuple[str, float]:
+    """``python -m radar_tpu_torch.scripts.<name>`` from this tree's
+    root; raises when it exits non-zero.  Returns (standard output,
+    seconds)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", f"radar_tpu_torch.scripts.{name}", *argv],
+        cwd=ROOT, capture_output=True, text=True, timeout=SCRIPT_TIMEOUT)
+    assert out.returncode == 0, (
+        f"{name} exited {out.returncode}:\n{out.stdout[-2000:]}\n"
+        f"{out.stderr[-4000:]}")
+    return out.stdout, time.perf_counter() - t0
+
+
+def free_udp_port() -> int:
+    import socket
+
+    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    try:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+    finally:
+        sock.close()
+
+
+def scripts_phase(gpu, dev, k1_ms: float) -> None:
+    """Phase 25, the tools of ``radar_tpu_torch/scripts`` on ``dev``:
+    (a) ``speed_gate.study`` at its defaults (20 seeds x 64 frames, the
+    five geometries, five noise-only captures), in this process: at most
+    ``MAX_FLIPS_PER_FRAME`` flips a target frame, every geometry
+    launching a kernel; (b) ``stage_budget.budget`` at B=512, 'high', in
+    this process: kernel 1's three stage launches summed within 10 % of
+    kernel 1's device-only time, that within 10 % of phase 17's
+    ``k1_ms``, every row a positive number; (c) ``ab_detect . .`` (the
+    tree in turns against itself, A B B A): equal digests, both trees'
+    times, the A/B noise floor; (d) ``os_cfar_bench.bench`` at 512 maps,
+    in this process: every formulation within 1e-3 of the golden (it
+    raises otherwise), kernel 5 beside PERF.md's 2.8189 ms; (e)
+    ``serve_soak --frames 400 --fps 100 --serve-batch 8``: exit 0,
+    records with detections, both delivery counts; (f) ``weak_scaling
+    --sizes 1,2 --frames-per-shard 8``: the payloads 524,288 B and 4,096
+    / 2,048 B.  Each in-process tool runs with the launch counts set to
+    0 just before it and read just after."""
+    from radar_tpu_torch.config import RadarConfig
+    from radar_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+    from radar_tpu_torch.ops.tf32 import tf32_off
+    from radar_tpu_torch.scripts import os_cfar_bench, speed_gate, stage_budget
+
+    t_phase = time.perf_counter()
+
+    # -- (a) the speed gate at its defaults ------------------------------
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with contextlib.redirect_stderr(io.StringIO()):
+        summary, launched = speed_gate.study(20, 64, dev)
+    counts = launch_counts()
+    tt, nt = summary["targeted_total"], summary["noise_total"]
+    say(f"speed_gate on {gpu} ({time.perf_counter() - t0:.1f} s): "
+        f"targeted_total {json.dumps(tt)}; noise_total {json.dumps(nt)}; "
+        f"launches {counts}")
+    say("speed_gate flips by seed: " + ", ".join(
+        f"{r['seed']} {r['flips']}/{r['n_high']}"
+        for r in summary["seed_sweep"]) + "; noise-only: " + ", ".join(
+        f"{r['seed']} {r['flips']}/{max(r['n_high'], r['n_default'])}"
+        for r in summary["noise_only"]))
+    for r in summary["geometry_sweep"]:
+        say(f"speed_gate geometry {r['geometry']}: {r['flips']} flips of "
+            f"{r['n_high']}, max |az delta| {r['max_az_delta']:.4g} deg, "
+            f"launched {launched[str(r['geometry'])]}")
+    assert tt["flips_per_frame"] <= speed_gate.MAX_FLIPS_PER_FRAME, tt
+    assert all(k != "none" for k in launched.values()), launched
+
+    # -- (b) the stage budget -------------------------------------------
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with tf32_off():
+        res = stage_budget.budget(RadarConfig(), BATCH, 5, dev)
+    counts = launch_counts()
+    for line in stage_budget.report(res, BATCH, 5, gpu):
+        say(line)
+    rows = [*res["prefixes"].values(), res["kernel1"], res["tail"],
+            res["detect"], res["detect_host"], res["enqueue"],
+            *res["alternates"].values()]
+    assert all(math.isfinite(v) and v > 0 for v in rows), rows
+    stages = list(res["prefixes"].values())[-1]
+    assert abs(stages - res["kernel1"]) <= 0.1 * res["kernel1"], (
+        stages, res["kernel1"])
+    assert abs(res["kernel1"] - k1_ms) <= 0.1 * k1_ms, (res["kernel1"], k1_ms)
+    say(f"stage_budget ({time.perf_counter() - t0:.1f} s): three stage "
+        f"launches {stages:.4f} ms against kernel 1's {res['kernel1']:.4f} "
+        f"ms ({stages / res['kernel1'] - 1:+.1%}); kernel 1 against phase "
+        f"17's {k1_ms:.4f} ms ({res['kernel1'] / k1_ms - 1:+.1%}); "
+        f"launches {counts}")
+
+    # -- (c) the tree in turns against itself ---------------------------
+    out, secs = run_tool("ab_detect", [".", ".", "--device", str(dev)])
+    runs = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    assert len(runs) == 4 and len({r["digest"] for r in runs}) == 1, out
+    say(f"ab_detect . . on {gpu} ({secs:.1f} s, A B B A, B=512): "
+        "host-inclusive " + " / ".join(f"{r['ms']:.4f}" for r in runs)
+        + " ms; device-only " + " / ".join(f"{r['device_ms']:.4f}"
+                                            for r in runs)
+        + f" ms; sha256 {runs[0]['digest']} in every run")
+
+    # -- (d) the OS-CFAR formulations -------------------------------------
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    rows = os_cfar_bench.bench(BATCH, 1, dev)
+    counts = launch_counts()
+    say(f"os_cfar_bench on {gpu} ({time.perf_counter() - t0:.1f} s, "
+        f"{BATCH} gamma maps, device only, median of 2, every formulation "
+        "within 1e-3 of the golden): " + "; ".join(
+            f"{name} {ms:.4f} ms ({'=' if same else '!='} plain)"
+            for name, (ms, _, same) in rows.items())
+        + f"; kernel 5 {rows['kernel 5'][0]:.4f} ms against PERF.md's "
+        f"2.8189 ms; launches {counts}")
+    assert rows["kernel 5"][2], "kernel 5 differs from the plain version"
+
+    # -- (e) the loopback soak --------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        soak_path = os.path.join(tmp, "soak.json")
+        _, secs = run_tool("serve_soak", [
+            "--frames", "400", "--fps", "100", "--serve-batch", "8",
+            "--port", str(free_udp_port()), "--device", str(dev),
+            "--out", soak_path])
+        with open(soak_path) as f:
+            soak = json.load(f)
+    assert soak["serve_rc"] == 0 and soak["records_with_detections"] > 0, soak
+    say(f"serve_soak on {gpu} ({secs:.1f} s): frames served (distinct) "
+        f"{soak['frames_served']}, max frame index "
+        f"{soak['frames_served_max_index']} of {soak['frames_offered']} "
+        f"offered at {soak['offered_fps']} frames/s; records "
+        f"{soak['records']} ({soak['records_with_detections']} with "
+        f"detections); delivery {soak['delivery_rate']}; sustained "
+        f"{soak['sustained_fps']} frames/s; ready in "
+        f"{soak['time_to_ready_s']} s; {json.dumps(soak['latency_stats'])}")
+
+    # -- (f) the weak-scaling table on the card ----------------------------
+    out, secs = run_tool("weak_scaling", ["--sizes", "1,2",
+                                          "--frames-per-shard", "8",
+                                          "--device", "cuda"])
+    table = {r["n"]: r for r in (json.loads(ln) for ln in out.splitlines()
+                                 if ln.startswith("{"))}
+    for n, gather in ((1, 4096), (2, 2048)):
+        assert table[n]["psum_bytes_per_device"] == 524288, table[n]
+        assert table[n]["all_gather_bytes_per_device"] == gather, table[n]
+    say(f"weak_scaling on {gpu} ({secs:.1f} s; ranks sharing "
+        f"{table[2]['cards']} card(s), not a scaling figure): " + "; ".join(
+            f"n {n} mesh ({r['mesh']['data']}, {r['mesh']['chan']}) "
+            f"{r['backend']} step {r['step_s'] * 1e3:.3f} ms, psum "
+            f"{r['psum_bytes_per_device']:,} B, all_gather "
+            f"{r['all_gather_bytes_per_device']:,} B"
+            for n, r in table.items()))
+    say(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4838,6 +4917,7 @@ def main() -> int:
     eval_phase(gpu, dev)
     bench_phase(cfg, capture, gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
     sharded_phase(cfg, capture, frames, base, consts, gpu, dev)
+    scripts_phase(gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -29,6 +29,11 @@ from radar_tpu_torch.utils.device import resolve_device
 DATA_AXIS = "data"
 CHAN_AXIS = "chan"
 
+# bytes this rank has handed to sum_over and gather_over: the collective
+# payload of the sharding layout, counted also on an axis of size 1,
+# where no collective runs (scripts/weak_scaling.py reads and resets it)
+payload_bytes = {"sum_over": 0, "gather_over": 0}
+
 
 def mesh_factorization(n_devices: int, num_rx: int = 4) -> tuple[int, int]:
     """Split ``n_devices`` into (data, chan) with chan | num_rx.
@@ -114,6 +119,7 @@ def shard_rows(x, mesh: DeviceMesh, device=None) -> torch.Tensor:
 def sum_over(x: torch.Tensor, mesh: DeviceMesh, axis: str) -> torch.Tensor:
     """``x`` summed over the mesh axis ``axis`` (in place; the JAX
     ``psum``)."""
+    payload_bytes["sum_over"] += x.numel() * x.element_size()
     if mesh.size(mesh.mesh_dim_names.index(axis)) > 1:
         dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.get_group(axis))
     return x
@@ -137,6 +143,7 @@ def gather_over(x: torch.Tensor, mesh: DeviceMesh, axis: str,
                 dim: int) -> torch.Tensor:
     """The axis members' ``x`` concatenated along ``dim`` in mesh order
     (the JAX tiled ``all_gather``)."""
+    payload_bytes["gather_over"] += x.numel() * x.element_size()
     n = mesh.size(mesh.mesh_dim_names.index(axis))
     if n == 1:
         return x

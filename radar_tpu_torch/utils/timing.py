@@ -12,6 +12,7 @@ more slowly than the device runs (many small launches), the gaps count.
 from __future__ import annotations
 
 import dataclasses
+import statistics
 import time
 from typing import Callable
 
@@ -89,14 +90,16 @@ SPIN_CYCLES = 2_000_000   # ~1 ms of device clock at the H100's ~2 GHz
 
 
 def cuda_time_ms(fn: Callable, *args, iters: int = 5, warmup: int = 2,
-                 queue_ahead: bool = False) -> list[float]:
+                 queue_ahead: bool = False,
+                 spin_cycles: int = SPIN_CYCLES) -> list[float]:
     """Device time of each of ``iters`` calls of ``fn(*args)`` in ms,
     from CUDA events around each call on the current stream (after
     ``warmup`` untimed calls).  With ``queue_ahead`` the stream first
-    spins ~1 ms on the device before each call, so the host enqueues the
-    call while the device waits and the events time the device's work
-    alone, without the host's launch gaps.  Raises when CUDA is
-    unavailable: a device time is never taken from a CPU run."""
+    spins ``spin_cycles`` device clocks (~1 ms by default) before each
+    call, so the host enqueues the call while the device waits and the
+    events time the device's work alone, without the host's launch gaps
+    (as long as the enqueue takes less than the spin).  Raises when CUDA
+    is unavailable: a device time is never taken from a CPU run."""
     if not torch.cuda.is_available():
         raise RuntimeError("cuda_time_ms needs a CUDA device")
     for _ in range(warmup):
@@ -107,7 +110,7 @@ def cuda_time_ms(fn: Callable, *args, iters: int = 5, warmup: int = 2,
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         if queue_ahead:
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(spin_cycles)
         start.record()
         fn(*args)
         stop.record()
@@ -132,3 +135,105 @@ def time_fn(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
     outs = [fn(*args) for _ in range(iters)]
     fence(outs)
     return (time.perf_counter() - t0) / iters
+
+
+def alternate(fns: dict, *args, device_only: bool = False,
+              iters: int = 5, spin_cycles: int = SPIN_CYCLES) -> dict:
+    """Median ms of ``2 * iters`` CUDA-event timings of each function
+    (10 by default), run in turns (in order, then reversed) on one card.
+    ``device_only``: the device's work alone
+    (``cuda_time_ms(queue_ahead=True)`` behind a spin of
+    ``spin_cycles``), without the host's launch gaps; else the time a
+    caller waits for the stream."""
+    samples = {name: [] for name in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            samples[name] += cuda_time_ms(fns[name], *args, iters=iters,
+                                          warmup=2, queue_ahead=device_only,
+                                          spin_cycles=spin_cycles)
+    return {name: statistics.median(v) for name, v in samples.items()}
+
+
+def host_enqueue_ms(fn, *args, iters: int = 10) -> float:
+    """Median host ms of ``fn(*args)`` until it returns, each call on a
+    drained stream and without the profiler: the time the host takes to
+    enqueue a call that has no synchronising op (the device's time is
+    measured apart)."""
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def profile_line(fn, label: str, calls: int = 3) -> str:
+    """``torch.profiler`` device us per call of ``fn()``, by name (the
+    eight largest, kernels and the ops that launched them), the host's
+    enqueue time and the wall time per call, the device's idle share
+    (1 - kernel time / wall time) and the peak device memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t_host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t_wall = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    rows, busy_us = [], 0.0
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(evt, "cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / calls, evt.key))
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy_us += getattr(evt, "self_device_time_total", 0.0)
+    rows.sort(reverse=True)
+    timing = (f"host enqueue {t_host / calls * 1e3:.3f} ms/call, wall "
+              f"{t_wall / calls * 1e3:.3f} ms/call")
+    if not rows:
+        return (f"profile {label}: no device time reported (not measured); "
+                f"{timing}; peak memory {peak_mb:.0f} MiB")
+    idle = (f"device idle {1.0 - busy_us / 1e6 / t_wall:.1%} (profiled)"
+            if busy_us > 0 else "device idle not measured")
+    return (f"profile {label} (device us/call): "
+            + "; ".join(f"{name[:48]} {us:.1f}" for us, name in rows[:8])
+            + f"; kernels {busy_us / calls:.1f} us/call; {timing}; {idle}; "
+            f"peak memory {peak_mb:.0f} MiB")
+
+
+def kernel_us(fn, calls: int = 3) -> dict:
+    """``torch.profiler`` device us per launch of each kernel that
+    ``fn()`` runs, by kernel name: per launch, not per call, so that a
+    trace that lost some of the ``calls`` still reads right (kernel 1's
+    stages launch once a call)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            out[evt.key] = us / max(evt.count, 1)
+    return out
+
+
+def stage_us(rows: dict, stem: str) -> float:
+    """Device us of the kernels whose names contain ``stem``; raises when
+    the profile shows none (then it is not measured)."""
+    hits = [us for name, us in rows.items() if stem in name]
+    if not hits:
+        raise RuntimeError(f"no device time for {stem} in {sorted(rows)}")
+    return sum(hits)
