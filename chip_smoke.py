@@ -194,7 +194,14 @@ line or more:
     layout implies).  ``speed_gate``, ``stage_budget`` and
     ``os_cfar_bench``, whose launches are counted, run in this process;
     ``ab_detect``, ``serve_soak`` and ``weak_scaling`` as processes of
-    their own.
+    their own;
+26. the port's headline benchmark, ``python -m radar_tpu_torch.bench
+    --device cuda --frames 16384`` as a process of its own (exit 0, its
+    last line with every key, the headline not faster than phase 17's
+    kernel 1 alone at 'default', each row with its launches, the XOR's
+    time, the host loop and ingest printed), and its CUDA graph in this
+    process: kernel 1 once at capture, replay 0 bit-equal to
+    ``detect``, the fold of 4 replays bit-equal to 4 uncaptured steps.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -4723,6 +4730,97 @@ def scripts_phase(gpu, dev, k1_ms: float) -> None:
     say(f"phase 25 took {time.perf_counter() - t_phase:.1f} s")
 
 
+BENCH_FRAMES = 16384    # phase 26's bench process: 32 batches of BATCH
+BENCH_REPLAYS = 4       # graph replays held to as many uncaptured steps
+BENCH_TIMEOUT = 300.0   # seconds for the bench process
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "high_mode_fps",
+              "mti2_fps", "nci4_fps", "os_cfar_fps", "backend", "device",
+              "host_loop_fps"}
+
+
+def bench_port_phase(gpu, dev, k1_default_ms: float) -> None:
+    """Phase 26, the port's bench: (a) ``python -m radar_tpu_torch.bench
+    --device cuda --frames BENCH_FRAMES`` as a process of its own: exit
+    0, the first and last stdout lines JSON with one value, the last with
+    every key, each of its log lines printed (the rows with their
+    launches, the XOR's device time, the host loop, ingest), and the
+    headline's ms a batch not under ``k1_default_ms``, phase 17's kernel
+    1 device time at 'default' (a graph that skipped work would go
+    under it); (b) in this process, at B=512 and 'default':
+    ``bench.HeadlineLoop.capture`` counts kernel 1 once and no other
+    kernel, replay 0's RDResult is bit-equal to an uncaptured
+    ``detect(frames, base)``, and the fold and index after
+    ``BENCH_REPLAYS`` replays are bit-equal to those of as many
+    uncaptured steps (the launch counts set to 0 just before each part
+    and read just after); a profile line of one replay."""
+    from radar_tpu_torch import bench
+    from radar_tpu_torch.config import RadarConfig
+    from radar_tpu_torch.io.synthetic import synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+
+    # -- (a) the bench as a process ----------------------------------------
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "radar_tpu_torch.bench", "--device", "cuda",
+         "--frames", str(BENCH_FRAMES)],
+        cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    secs = time.perf_counter() - t0
+    for line in out.stderr.strip().splitlines():
+        say(f"bench: {line}")
+    assert out.returncode == 0, (
+        f"bench exited {out.returncode}:\n{out.stdout[-2000:]}")
+    lines = out.stdout.strip().splitlines()
+    first, last = json.loads(lines[0]), json.loads(lines[-1])
+    assert set(last) == BENCH_KEYS, sorted(last)
+    assert first["value"] == last["value"] > 0, (first, last)
+    assert last["backend"] == "cuda" and last["device"] == gpu, last
+    ms = 1e3 * BATCH / last["value"]
+    assert ms >= k1_default_ms, (ms, k1_default_ms)
+    say(f"bench --frames {BENCH_FRAMES} on {gpu} ({secs:.1f} s): headline "
+        f"{last['value']} frames/s ({ms:.4f} ms/batch, phase 17's kernel 1 "
+        f"'default' {k1_default_ms:.4f} ms); host loop "
+        f"{last['host_loop_fps']} frames/s; last line {json.dumps(last)}")
+
+    # -- (b) the graph against uncaptured detect -----------------------------
+    cfg = RadarConfig(dft_precision="default")
+    capture = synthesize_capture(list(bench.TARGETS), BATCH + 1, cfg,
+                                 noise_std=5.0, seed=0)
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    base = pipe.prepare_base(capture[0])
+    frames = torch.from_numpy(capture[1:]).to(dev)
+    want = pipe.detect(frames, base)
+    loop = bench.HeadlineLoop(pipe, frames, base)
+    reset_launch_counts()
+    per_replay = loop.capture()
+    counts = launch_counts()
+    assert per_replay == [1, 0, 0, 0, 0, 0, 0, 0], per_replay
+    assert counts == [3, 0, 0, 0, 0, 0, 0, 0], counts   # 2 warm-ups + capture
+    reset_launch_counts()
+    loop.run(1)
+    torch.cuda.synchronize()
+    assert launch_counts() == [0] * 8, launch_counts()   # replays count none
+    same = [bits_equal(a, b) for a, b in zip(loop.out, want)]
+    assert all(same), [f for f, ok in zip(want._fields, same) if not ok]
+    loop.run(BENCH_REPLAYS - 1)
+    plain = bench.HeadlineLoop(pipe, frames, base)
+    reset_launch_counts()
+    plain.run(BENCH_REPLAYS)
+    torch.cuda.synchronize()
+    assert launch_counts()[0] == BENCH_REPLAYS, launch_counts()
+    assert bits_equal(loop.acc, plain.acc) and bits_equal(loop.i, plain.i), (
+        loop.acc.item(), plain.acc.item(), loop.i.item(), plain.i.item())
+    say(f"headline graph B={BATCH} 'default': kernel 1 once at capture, "
+        f"none at replay; replay 0 bit-equal to detect() on all "
+        f"{len(want)} fields; fold after {BENCH_REPLAYS} replays "
+        f"{loop.acc.item():.9g} bit-equal to {BENCH_REPLAYS} uncaptured "
+        f"steps (index {int(loop.i)})")
+    say(profile_line(lambda: loop.run(1), f"headline graph replay B={BATCH}"))
+    say(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4918,6 +5016,7 @@ def main() -> int:
     bench_phase(cfg, capture, gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
     sharded_phase(cfg, capture, frames, base, consts, gpu, dev)
     scripts_phase(gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
+    bench_port_phase(gpu, dev, tier_ms["kernel 1 default"])
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -852,6 +852,47 @@ def angle_fft(
     return np.fft.fftshift(spec, axes=-1)
 
 
+def parabolic_bin_offset(
+    p_minus: np.ndarray, p_center: np.ndarray, p_plus: np.ndarray
+) -> np.ndarray:
+    """Sub-bin peak offset in [-0.5, 0.5] from three log-power samples.
+
+    Classic 3-point parabolic (quadratic) interpolation on dB values —
+    for windowed spectra the log-domain fit is far more accurate than the
+    linear-power fit.  Flat neighborhoods return 0; NOTE a neighbor equal
+    to the center (e.g. an edge-clamped gather) collapses the parabola to
+    ±0.5, so callers must mask edge cells themselves (the pipeline zeroes
+    the offset at range-map edges).
+    """
+    eps = 1e-30
+    lm = np.log(np.maximum(p_minus, eps))
+    lc = np.log(np.maximum(p_center, eps))
+    lp = np.log(np.maximum(p_plus, eps))
+    denom = lm - 2.0 * lc + lp
+    offset = np.where(
+        np.abs(denom) > 1e-12, 0.5 * (lm - lp) / np.where(denom == 0, 1, denom), 0.0
+    )
+    return np.clip(offset, -0.5, 0.5)
+
+
+def angle_fft_azimuth(
+    rx_snapshot: np.ndarray, cfg: RadarConfig = DEFAULT_CONFIG
+) -> float:
+    """Interpolated angle-FFT azimuth (float64 twin of the pipeline's
+    aoa_from_snapshots): argmax of the fftshifted angle spectrum, 3-point
+    log-parabolic sub-bin offset (wrapping neighbors — the spectrum spans
+    the full sin-space period), interpolation in sin(theta), then arcsin.
+    """
+    n = cfg.num_angle_bins
+    spec = np.abs(angle_fft(rx_snapshot, n, cfg)) ** 2
+    b = int(np.argmax(spec))
+    off = float(parabolic_bin_offset(
+        spec[(b - 1) % n], spec[b], spec[(b + 1) % n]
+    ))
+    sin_theta = (b + off - n // 2) / (n * cfg.rx_spacing_wavelengths)
+    return float(np.rad2deg(np.arcsin(np.clip(sin_theta, -1.0, 1.0))))
+
+
 def aoa_2d(
     snapshot: np.ndarray, cfg: RadarConfig = DEFAULT_CONFIG
 ) -> tuple[float, float]:

@@ -21,6 +21,7 @@ layout — the reference's reshape target
 from __future__ import annotations
 
 import os
+from typing import Iterator
 
 import numpy as np
 
@@ -102,6 +103,19 @@ def read_capture(
         n = min(n, max_frames)
     raw = np.fromfile(path, dtype="<i2", count=n * cfg.shorts_per_frame)
     return raw.reshape(n, cfg.shorts_per_frame)
+
+
+def iter_frames(
+    path: str | os.PathLike, cfg: RadarConfig = DEFAULT_CONFIG
+) -> Iterator[np.ndarray]:
+    """Stream frames one at a time (the reference's framed fread loop,
+    cudaBenchMarking.cpp:261/374); a trailing partial frame is dropped."""
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(cfg.bytes_per_frame)
+            if len(buf) < cfg.bytes_per_frame:
+                return
+            yield np.frombuffer(buf, dtype="<i2")
 
 
 def write_capture(

@@ -7,26 +7,29 @@ the next batch uploads.
 
 On a CUDA device the capture is pinned once, at construction (one
 page-locked tensor; no per-batch staging copy, which would cost more
-host memcpy than the upload itself), and the batches go into TWO
-preallocated device buffers of ``(batch, shorts_per_frame)`` int16.
-Batch i+1 uploads with ``copy_(..., non_blocking=True)`` on a side
-``torch.cuda.Stream`` while the caller's work on batch i runs on the
-current stream (the kernels launch on the current stream,
-``ops/cuda/_launch.launch``).  Two kinds of event order the streams,
-with no host synchronisation in the loop:
+host memcpy than the upload itself), and the batches go into a ring of
+``depth`` preallocated device buffers of ``(batch, shorts_per_frame)``
+int16, TWO by default.  Batches i+1 .. i+depth-1 upload with
+``copy_(..., non_blocking=True)`` on a side ``torch.cuda.Stream``
+while the caller's work on batch i runs on the current stream (the
+kernels launch on the current stream, ``ops/cuda/_launch.launch``);
+at depth 1 each upload waits for the work on the batch before it.  Two
+kinds of event order the streams, with no host synchronisation in the
+loop:
 
 * ``uploaded[j]``, recorded on the copy stream after buffer j is
-  filled: the current stream waits for it before batch i = j (mod 2) is
-  handed out;
+  filled: the current stream waits for it before batch i = j (mod
+  depth) is handed out;
 * ``consumed[j]``, recorded on the current stream after the caller has
   enqueued its work on buffer j (when it asks for the next batch): the
   copy stream waits for it before it overwrites buffer j with batch
-  i + 2.
+  i + depth.
 
-A batch handed out is therefore valid until the caller asks for the
-batch after the next one; work enqueued on another stream, or a
-reference kept past that point, sees the buffer overwritten (the
-counterpart of JAX's donated input buffers).  On the CPU the streamer
+A batch handed out is therefore valid until the caller asks for batch
+i + depth (at the default depth, the batch after the next one); work
+enqueued on another stream, or a reference kept past that point, sees
+the buffer overwritten (the counterpart of JAX's donated input
+buffers).  On the CPU the streamer
 yields plain tensors, one new tensor a batch, with no pinning and no
 streams.
 
@@ -63,6 +66,8 @@ class FrameStreamer:
     With ``mesh`` each batch yielded is this rank's data block of the
     global batch (:attr:`rows` rows from global row :attr:`row0`);
     :meth:`valid_frames` still counts the global batch's frames.
+    ``depth`` is the number of device buffers on a CUDA device (the
+    upload ring; ``bench`` sweeps it).
     """
 
     def __init__(
@@ -74,7 +79,11 @@ class FrameStreamer:
         device,
         skip_first: bool = True,
         mesh=None,
+        depth: int = 2,
     ):
+        if depth < 1:
+            raise ValueError(f"depth must be >= 1, got {depth}")
+        self.depth = int(depth)
         if isinstance(frames, (str, bytes)) or hasattr(frames, "__fspath__"):
             frames = read_capture(frames, cfg)
         self.all_frames = np.asarray(frames)
@@ -100,11 +109,12 @@ class FrameStreamer:
             np.ascontiguousarray(self.frames)).pin_memory()
         shape = (self.rows,) + self.frames.shape[1:]
         self._bufs = [torch.empty(shape, dtype=self.pinned.dtype,
-                                  device=self.device) for _ in range(2)]
+                                  device=self.device)
+                      for _ in range(self.depth)]
         self._copy_stream = torch.cuda.Stream(self.device)
-        self._uploaded = [torch.cuda.Event() for _ in range(2)]
+        self._uploaded = [torch.cuda.Event() for _ in range(self.depth)]
         # recorded once here, so each upload has a last use to wait for
-        self._consumed = [torch.cuda.Event() for _ in range(2)]
+        self._consumed = [torch.cuda.Event() for _ in range(self.depth)]
         for ev in self._consumed:
             ev.record(torch.cuda.current_stream(self.device))
 
@@ -143,7 +153,8 @@ class FrameStreamer:
             self._uploaded[j].record(self._copy_stream)
 
     def __iter__(self) -> Iterator[torch.Tensor]:
-        """Yield the batches with one batch of upload lookahead."""
+        """Yield the batches with ``depth - 1`` batches of upload
+        lookahead."""
         n = self.num_batches
         if self.device.type != "cuda":
             for i in range(n):
@@ -152,13 +163,15 @@ class FrameStreamer:
         if n == 0:
             return
         consumer = torch.cuda.current_stream(self.device)
-        self._upload(0, 0)
+        d = self.depth
+        for i in range(min(d - 1, n)):
+            self._upload(i, i)
         held = None
         try:
             for i in range(n):
-                j = i % 2
-                if i + 1 < n:
-                    self._upload(i + 1, 1 - j)   # H2D behind batch i's work
+                j = i % d
+                if i + d - 1 < n:   # H2D behind batch i's work
+                    self._upload(i + d - 1, (i + d - 1) % d)
                 consumer.wait_event(self._uploaded[j])
                 held = j
                 yield self._bufs[j]

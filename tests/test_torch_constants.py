@@ -231,6 +231,27 @@ def test_capture_errors_match(tmp_path):
         assert str(got.value) == str(want.value)
 
 
+@pytest.mark.parametrize("tail", [0, 2, 4094])
+def test_iter_frames_copy(tmp_path, tail):
+    """``iter_frames`` yields JAX's frames, dtype and bytes, and drops a
+    trailing partial frame as JAX's does."""
+    cfg = RadarConfig(num_samples=64, num_chirps=64, num_rx=2)
+    mine = config_from_jax(cfg)
+    rng = np.random.default_rng(84)
+    frames = rng.integers(-2 ** 15, 2 ** 15, (3, cfg.shorts_per_frame),
+                          dtype=np.int16)
+    path = tmp_path / "cap.bin"
+    capture.write_capture(path, frames, mine)
+    with open(path, "ab") as f:
+        f.write(rng.bytes(tail))
+    want = list(jax_capture.iter_frames(path, cfg))
+    got = list(capture.iter_frames(path, mine))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
 @pytest.mark.parametrize("kind", ["hann", "hamming", "blackman",
                                   "blackmanharris", "rect"])
 def test_golden_windows(kind):
@@ -445,6 +466,38 @@ def test_golden_angle_copies(name, overrides):
     for g, w in zip(*((got, want) if isinstance(want, tuple)
                       else ((got,), (want,)))):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("seed", [85, 86])
+def test_golden_parabolic_bin_offset_copy(seed):
+    """Bit-equal on seeded powers, with flat, zero and edge-clamped
+    (centre equal to a neighbour) triples among them."""
+    rng = np.random.default_rng(seed)
+    p = rng.exponential(size=(3, 64)) * 10.0 ** rng.integers(-3, 6, (3, 64))
+    p[:, :4] = 1.0                  # flat
+    p[0, 4:8] = 0.0                 # under the log floor
+    p[0, 8:12] = p[1, 8:12]         # a clamped neighbour
+    got = golden.parabolic_bin_offset(*p)
+    np.testing.assert_array_equal(got, jax_golden.parabolic_bin_offset(*p))
+    assert np.abs(got).max() <= 0.5
+
+
+@pytest.mark.parametrize("overrides", OBJECT_CONFIGS + [dict()], ids=str)
+def test_golden_angle_fft_azimuth_copy(overrides):
+    """Equal azimuths on seeded snapshots, one a plane wave at a known
+    angle (its float64 error far under a degree)."""
+    cfg = RadarConfig(**overrides)
+    mine = config_from_jax(cfg)
+    rng = np.random.default_rng(87)
+    v = cfg.num_virtual_rx
+    snaps = list(_complex(rng, (6, v)))
+    az = np.deg2rad(17.0)
+    snaps.append(np.exp(2j * np.pi * cfg.rx_spacing_wavelengths
+                        * np.arange(v) * np.sin(az)))
+    for snap in snaps:
+        got = golden.angle_fft_azimuth(snap, mine)
+        assert isinstance(got, float)
+        assert got == jax_golden.angle_fft_azimuth(snap, cfg)
 
 
 @pytest.mark.parametrize("overrides", [

@@ -11,11 +11,13 @@
 * ``detect_donated`` equal to ``detect`` field for field;
 * ``utils.timing.StageTimings``: ``fps``, ``per_frame_ms`` and the
   reference-format ``report`` equal to JAX's on the same buckets;
+* ``depth`` (the upload ring) leaves the batches as they are; 0 raises;
 * a CUDA request without a card raises (no fallback to the CPU).
 
 The CUDA path (pinned frames, the copy stream, two buffers ordered by
 events) runs in ``chip_smoke.py`` phase 21, bit for bit against
-resident ``detect``.
+resident ``detect``; phase 26 runs ``bench``'s ring depths 1, 2 and 4,
+each held bit-equal to resident ``detect``.
 """
 
 import numpy as np
@@ -113,6 +115,22 @@ def test_detect_donated_equals_detect():
     assert got.keys() == want.keys()
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], name)
+
+
+@pytest.mark.parametrize("depth", [1, 4])
+def test_streamer_depth_keeps_batches(depth):
+    """The upload ring's depth changes only the CUDA schedule: on the
+    CPU every batch is the default depth's."""
+    mine = FrameStreamer(CAPTURE, BATCH, RadarConfig(**SMALL), device="cpu",
+                         depth=depth)
+    want = list(_both(CAPTURE)[0])
+    got = list(mine)
+    assert len(got) == len(want) == mine.num_batches
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="depth"):
+        FrameStreamer(CAPTURE, BATCH, RadarConfig(**SMALL), device="cpu",
+                      depth=0)
 
 
 def test_cuda_request_without_card_raises(monkeypatch):
