@@ -992,9 +992,6 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     from radar_tpu_torch.io.synthetic import synthesize_capture
     from radar_tpu_torch.models.rd_pipeline import RDPipeline
     from radar_tpu_torch.ops.cfar import ca_cfar_2d, go_so_cfar_2d
-    from radar_tpu_torch.ops.cuda import cfar as cfar_k
-    from radar_tpu_torch.ops.cuda import megakernel
-    from radar_tpu_torch.ops.cuda import topk as topk_k
     from radar_tpu_torch.ops.cuda.cfar import ca_cfar_2d_cuda
     from radar_tpu_torch.ops.cuda.megakernel import (
         detections_from_shorts_cuda,
@@ -1016,13 +1013,11 @@ def maps_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     r_ok = torch.arange(r_size, device=dev) < (
         r_size - cfg.range_edge_guard_effective)
 
-    def reset():
-        megakernel.maps_launches = cfar_k.launches = topk_k.launches = 0
+    reset = reset_kernel_counts
 
     def counts():
-        torch.cuda.synchronize()
-        return {"mega_maps": megakernel.maps_launches,
-                "ca_cfar": cfar_k.launches, "topk": topk_k.launches}
+        k = kernel_counts()
+        return {"mega_maps": k[2], "ca_cfar": k[4], "topk": k[3]}
 
     # -- 6. kernels 2, 3, 4 against their plain versions -------------------
     power_k = power_from_shorts_cuda(frames, base, cfg, consts)
@@ -1307,8 +1302,6 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         os_ring,
         os_ring_params,
     )
-    from radar_tpu_torch.ops.cuda import megakernel, oscfar
-    from radar_tpu_torch.ops.cuda import topk as topk_k
     from radar_tpu_torch.ops.cuda.megakernel import (
         power_from_shorts_cuda,
         power_from_shorts_reference,
@@ -1325,15 +1318,12 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     cfg_int = dataclasses.replace(
         cfg_mean, cfar_n_pulses=n_int * cfg.cfar_pulses_effective)
 
-    def reset():
-        megakernel.maps_launches = topk_k.launches = 0
-        oscfar.threshold_launches = oscfar.hits_launches = 0
+    reset = reset_kernel_counts
 
     def counts():
-        torch.cuda.synchronize()
-        return {"mega_maps": megakernel.maps_launches, "topk": topk_k.launches,
-                "os_threshold": oscfar.threshold_launches,
-                "os_hits": oscfar.hits_launches}
+        k = kernel_counts()
+        return {"mega_maps": k[2], "topk": k[3], "os_threshold": k[5],
+                "os_hits": k[6]}
 
     # -- 11a. kernels 5 and 6 against their plain versions -------------------
     def check_os(name, p, c) -> int:
@@ -1592,7 +1582,6 @@ def go_so_phase(cfg, frames, base, consts, gpu, digest) -> None:
 
     from radar_tpu_torch.convert import result_to_numpy
     from radar_tpu_torch.models.rd_pipeline import RDPipeline
-    from radar_tpu_torch.ops.cuda import megakernel
     from radar_tpu_torch.ops.cuda.megakernel import detections_from_shorts_cuda
 
     dev = frames.device
@@ -1601,11 +1590,10 @@ def go_so_phase(cfg, frames, base, consts, gpu, digest) -> None:
     parts, cfgs = [], {"ca": cfg}
     for kind in ("goca", "soca"):
         ck = cfgs[kind] = dataclasses.replace(cfg, cfar_kind=kind)
-        megakernel.launches = 0
+        reset_kernel_counts()
         a = result_to_numpy(RDPipeline(ck, K_DET, device=dev).detect(frames,
                                                                    base))
-        torch.cuda.synchronize()
-        launched = megakernel.launches
+        launched = kernel_counts()[1]
         assert launched > 0, f"{kind}: kernel 1 not launched"
         b = result_to_numpy(RDPipeline(ck, K_DET, device=dev,
                                        rd_impl="mega-maps").detect(frames,
@@ -1655,7 +1643,6 @@ def range_phase(cfg, capture, dev, gpu, targets) -> dict:
     from radar_tpu_torch.io.capture import write_capture
     from radar_tpu_torch.io.synthetic import synthesize_capture
     from radar_tpu_torch.models.range_detector import RangeDetector
-    from radar_tpu_torch.ops.cuda import magargmax
     from radar_tpu_torch.ops.cuda.magargmax import masked_argmax_cuda
     from radar_tpu_torch.ops.detect import scan_window_argmax
 
@@ -1694,14 +1681,13 @@ def range_phase(cfg, capture, dev, gpu, targets) -> dict:
                        device=dev)
     wide[:, ::2] = spec[:4]
     same("non-contiguous", wide[:, ::2])
-    before = magargmax.launches
+    before = kernel_counts()[7]
     same("no rows", spec[:0])
-    assert magargmax.launches == before, "kernel 7 launched on no rows"
+    assert kernel_counts()[7] == before, "kernel 7 launched on no rows"
 
-    magargmax.launches = 0
+    reset_kernel_counts()
     got = det.detect(frames, base)
-    torch.cuda.synchronize()
-    launched = magargmax.launches
+    launched = kernel_counts()[7]
     assert launched > 0, "RangeDetector('pallas') did not launch kernel 7"
     want = auto.detect(frames, base)
     for f in got._fields:
@@ -1713,12 +1699,12 @@ def range_phase(cfg, capture, dev, gpu, targets) -> dict:
         write_capture(cap_path, synthesize_capture(targets, 65, cfg,
                                                    noise_std=5.0, seed=1),
                       cfg)
-        magargmax.launches = 0
+        reset_kernel_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(["verify", cap_path, "--device", "cuda",
                            "--detect-impl", "pallas"])
-        verify_launches = magargmax.launches
+        verify_launches = kernel_counts()[7]
     verdict = buf.getvalue().strip().splitlines()[-1]
     assert rc == 0 and "64 ok, 0 failed" in verdict, buf.getvalue()[-2000:]
     assert verify_launches > 0, "cli verify did not launch kernel 7"
@@ -1769,9 +1755,6 @@ def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
     from radar_tpu_torch.convert import result_to_numpy
     from radar_tpu_torch.io.synthetic import synthesize_capture
     from radar_tpu_torch.models.rd_pipeline import RDPipeline
-    from radar_tpu_torch.ops.cuda import cfar as cfar_k
-    from radar_tpu_torch.ops.cuda import fused_dft
-    from radar_tpu_torch.ops.cuda import topk as topk_k
     from radar_tpu_torch.ops.cuda.fused_dft import fused_range_planes_cuda
     from radar_tpu_torch.ops.fuseddft import fused_range_planes
 
@@ -1807,13 +1790,11 @@ def fused_phase(cfg, capture, frames, base, consts, gpu, targets) -> dict:
         "1e-4 max|plane|): " + ", ".join(f"{k} max |err| {v:.4g}"
                                           for k, v in errs.items()))
 
-    def reset():
-        fused_dft.launches = cfar_k.launches = topk_k.launches = 0
+    reset = reset_kernel_counts
 
     def counts():
-        torch.cuda.synchronize()
-        return {"fused_range": fused_dft.launches, "ca_cfar": cfar_k.launches,
-                "topk": topk_k.launches}
+        k = kernel_counts()
+        return {"fused_range": k[8], "ca_cfar": k[4], "topk": k[3]}
 
     fp = RDPipeline(cfg, K_DET, device=dev, rd_impl="fused-pallas")
     fu = RDPipeline(cfg, K_DET, device=dev, rd_impl="fused")
@@ -1889,7 +1870,6 @@ def mti_frontends_phase(cfg, frames, base, gpu) -> None:
     from radar_tpu_torch.convert import result_to_numpy
     from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
     from radar_tpu_torch.models.rd_pipeline import RDPipeline
-    from radar_tpu_torch.ops.cuda import megakernel
     from radar_tpu_torch.ops.cuda.megakernel import (
         detections_from_shorts_cuda,
         detections_from_shorts_reference,
@@ -1906,10 +1886,9 @@ def mti_frontends_phase(cfg, frames, base, gpu) -> None:
     for order in ("mti2", "mti3"):
         c = dataclasses.replace(cfg, clutter_mode=order)
         pipe = RDPipeline(c, K_DET, device=dev, use_base_frame=False)
-        megakernel.launches = 0
+        reset_kernel_counts()
         res = result_to_numpy(pipe.detect(frames, base))   # base unused
-        torch.cuda.synchronize()
-        launched = megakernel.launches
+        launched = kernel_counts()[1]
         assert launched > 0, f"{order}: kernel 1 not launched"
         kern = run_detect(detections_from_shorts_cuda, frames, None, K_DET, c)
         for name in res:
@@ -2099,10 +2078,9 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
                         f"{float((z - zt).abs().max()):.4g}, power {emu:.4g}")
         # kernel 1 on the main path of the tier, and against plain
         pipe = RDPipeline(ct, K_DET, device=dev)
-        megakernel.launches = 0
+        reset_kernel_counts()
         res = result_to_numpy(pipe.detect(frames, base))
-        torch.cuda.synchronize()
-        launched[tier] = megakernel.launches
+        launched[tier] = kernel_counts()[1]
         assert launched[tier] > 0, f"{tier}: kernel 1 not launched"
         res["nbr"] = detections_from_shorts_cuda(frames, base, K_DET, ct,
                                                  consts)[2].cpu().numpy()
@@ -2300,9 +2278,6 @@ def geometry_phase(gpu, targets, dev) -> None:
     from radar_tpu_torch.io.synthetic import synthesize_capture
     from radar_tpu_torch.models.rd_pipeline import RDPipeline
     from radar_tpu_torch.ops.cfar import ca_cfar_2d
-    from radar_tpu_torch.ops.cuda import cfar as cfar_k
-    from radar_tpu_torch.ops.cuda import fused_dft, megakernel, oscfar
-    from radar_tpu_torch.ops.cuda import topk as topk_k
     from radar_tpu_torch.ops.cuda.cfar import ca_cfar_2d_cuda
     from radar_tpu_torch.ops.cuda.megakernel import (
         detections_from_shorts_cuda,
@@ -2316,20 +2291,15 @@ def geometry_phase(gpu, targets, dev) -> None:
     b = GEOMETRY_BATCH
     bit_fields = ("valid", "num_hits", "doppler_bin", "range_bin", "power",
                   "range_m_interp", "velocity_mps_interp")
-    counters = {"mega_detect": (megakernel, "launches"),
-                "mega_maps": (megakernel, "maps_launches"),
-                "fused_range": (fused_dft, "launches"),
-                "ca_cfar": (cfar_k, "launches"), "topk": (topk_k, "launches"),
-                "os_hits": (oscfar, "hits_launches")}
+    counters = {"mega_detect": 1, "mega_maps": 2, "fused_range": 8,
+                "ca_cfar": 4, "topk": 3, "os_hits": 6}   # kernel numbers
 
     def run(pipe, method, *args):
         """(result dict, launches by kernel) of one pipeline call."""
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        reset_kernel_counts()
         res = result_to_numpy(getattr(pipe, method)(*args))
-        torch.cuda.synchronize()
-        return res, {k: getattr(mod, attr) for k, (mod, attr)
-                     in counters.items() if getattr(mod, attr)}
+        k = kernel_counts()
+        return res, {name: k[i] for name, i in counters.items() if k[i]}
 
     def plain(c):
         return RDPipeline(c, K_DET, device=dev, rd_impl="fused",
@@ -2502,9 +2472,6 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     )
     from radar_tpu_torch.ops import cluster
     from radar_tpu_torch.ops.cmap import clutter_map_cfar
-    from radar_tpu_torch.ops.cuda import cfar as cfar_k
-    from radar_tpu_torch.ops.cuda import megakernel
-    from radar_tpu_torch.ops.cuda import topk as topk_k
     from radar_tpu_torch.ops.cuda.megakernel import (
         power_cfar_from_shorts_cuda,
         power_from_shorts_cuda,
@@ -2515,15 +2482,13 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     from radar_tpu_torch.ops.physics import mimo_compensate
 
     def reset():
-        megakernel.launches = megakernel.maps_launches = 0
-        cfar_k.launches = topk_k.launches = cluster.fixpoint_tests = 0
+        reset_kernel_counts()
+        cluster.fixpoint_tests = 0
 
     def counts() -> dict:
-        torch.cuda.synchronize()
-        return {"kernel 1": megakernel.launches,
-                "kernel 2": megakernel.maps_launches,
-                "kernel 3": topk_k.launches, "kernel 4": cfar_k.launches,
-                "label tests": cluster.fixpoint_tests}
+        k = kernel_counts()
+        return {"kernel 1": k[1], "kernel 2": k[2], "kernel 3": k[3],
+                "kernel 4": k[4], "label tests": cluster.fixpoint_tests}
 
     pipe = RDPipeline(cfg, K_DET, device=dev)
     bit_fields = RDResult._fields
@@ -2928,12 +2893,11 @@ def scene_products(cfg, capture, frames, base, gpu) -> dict:
     with ``allow_tf32`` on and off, one kernel-8 launch a call.  Returns
     {name: (call, the kernel path's output)} and prints a line."""
     from radar_tpu_torch.ops import aoa, mdoppler
-    from radar_tpu_torch.ops.cuda import fused_dft
 
-    fused_dft.launches = 0
+    reset_kernel_counts()
     gate = mdoppler.auto_range_bin(frames, base, cfg)
-    torch.cuda.synchronize()
-    assert fused_dft.launches == 1, f"auto_range_bin: {fused_dft.launches}"
+    launched = kernel_counts()[8]
+    assert launched == 1, f"auto_range_bin: {launched}"
     with plain_range_stage():
         plain_gate = mdoppler.auto_range_bin(frames, base, cfg)
     assert gate == plain_gate, (gate, plain_gate)
@@ -2952,10 +2916,10 @@ def scene_products(cfg, capture, frames, base, gpu) -> dict:
     kappa = capon_condition(cfg, frames, base)
     out, notes = {}, []
     for name, call in calls.items():
-        fused_dft.launches = 0
+        reset_kernel_counts()
         got = call(frames)
-        torch.cuda.synchronize()
-        assert fused_dft.launches == 1, (name, fused_dft.launches)
+        launched = kernel_counts()[8]
+        assert launched == 1, (name, launched)
         torch.backends.cuda.matmul.allow_tf32 = True
         try:
             got_tf32 = call(frames)
@@ -3036,7 +3000,6 @@ def scene_phase(cfg, capture, frames, base, gpu, dev) -> None:
         synthesize_capture,
     )
     from radar_tpu_torch.models.rd_pipeline import RDPipeline
-    from radar_tpu_torch.ops.cuda import megakernel
     from radar_tpu_torch.ops.egomotion import estimate_ego_motion
     from radar_tpu_torch.ops.interference import (
         blank_interference,
@@ -3077,10 +3040,10 @@ def scene_phase(cfg, capture, frames, base, gpu, dev) -> None:
     want_bl, want_n = golden_blank_interference(jam)
     np.testing.assert_array_equal(blanked.cpu().numpy(), want_bl)
     np.testing.assert_array_equal(n_bl.cpu().numpy(), want_n)
-    megakernel.launches = 0
+    reset_kernel_counts()
     base_b = pipe.prepare_base(blanked[0])
     det_b = result_to_numpy(pipe.detect(blanked[1:], base_b))
-    launches_b = megakernel.launches
+    launches_b = kernel_counts()[1]
     twin = torch.from_numpy(want_bl).to(dev)
     det_w = result_to_numpy(pipe.detect(twin[1:], pipe.prepare_base(twin[0])))
     for k in det_b:
@@ -3106,10 +3069,10 @@ def scene_phase(cfg, capture, frames, base, gpu, dev) -> None:
     tiled = np.tile(drive[1:], (BATCH // SCENE_EGO_TILE, 1))
     fr_e = torch.from_numpy(tiled).to(dev)
     base_e = pipe.prepare_base(drive[0])
-    megakernel.launches = 0
+    reset_kernel_counts()
     rd = pipe.detect(fr_e, base_e)
     em = estimate_ego_motion(rd.azimuth_deg, rd.velocity_mps, rd.valid)
-    launches_e = megakernel.launches
+    launches_e = kernel_counts()[1]
     r = result_to_numpy(rd)
     e = result_to_numpy(em)
     ok = e["ok"]
@@ -3444,9 +3407,7 @@ def live_phase(cfg, capture, gpu, dev) -> None:
     from radar_tpu_torch.io.capture import write_capture
     from radar_tpu_torch.models.rd_pipeline import RDPipeline
     from radar_tpu_torch.models.tracker import track_capture
-    from radar_tpu_torch.ops.cuda import cfar as cfar_k
-    from radar_tpu_torch.ops.cuda import megakernel
-    from radar_tpu_torch.ops.cuda import topk as topk_k
+    from radar_tpu_torch.ops.cuda import launch_counts, reset_launch_counts
     from radar_tpu_torch.parallel import FrameStreamer, stream_detect
 
     t_phase = time.perf_counter()
@@ -3569,13 +3530,12 @@ def live_phase(cfg, capture, gpu, dev) -> None:
     def loop_only():
         # at serve's ready event: the launches counted from here on are
         # the receive loop's, not the warm-up's
-        megakernel.launches = megakernel.maps_launches = 0
-        cfar_k.launches = topk_k.launches = 0
+        reset_launch_counts()
 
     def loop_counts():
-        return {"mega_detect": megakernel.launches,
-                "mega_maps": megakernel.maps_launches,
-                "ca_cfar": cfar_k.launches, "topk": topk_k.launches}
+        k = launch_counts()
+        return {"mega_detect": k[0], "mega_maps": k[1], "ca_cfar": k[3],
+                "topk": k[2]}
 
     def served(serve_path, argv, fps):
         """One ``serve_replayed`` run of ``serve_path`` at ``fps``,
@@ -4836,7 +4796,6 @@ def main() -> int:
         RDPipeline,
         assemble_result_from_kernel,
     )
-    from radar_tpu_torch.ops.cuda import megakernel
     from radar_tpu_torch.ops.cuda.megakernel import (
         detections_from_shorts_cuda,
         detections_from_shorts_reference,
@@ -4870,10 +4829,9 @@ def main() -> int:
     frames = torch.from_numpy(capture[1:]).to(dev)
     torch.cuda.synchronize()
 
-    megakernel.launches = 0
+    reset_kernel_counts()
     main_res = result_to_numpy(pipe.detect(frames, base))
-    torch.cuda.synchronize()
-    main_launches = megakernel.launches
+    main_launches = kernel_counts()[1]
     assert main_launches > 0, "the main path did not launch the kernel"
 
     kern = run_detect(detections_from_shorts_cuda, frames, base, K_DET, cfg)
@@ -4919,11 +4877,11 @@ def main() -> int:
         out_path = os.path.join(tmp, "dets.jsonl")
         cli_cap = synthesize_capture(targets, 65, cfg, noise_std=5.0, seed=1)
         write_capture(cap_path, cli_cap, cfg)
-        megakernel.launches = 0
+        reset_kernel_counts()
         rc = cli.main(["detect", cap_path, "--full", "--device", "cuda",
                        "--out", out_path])
         assert rc == 0, f"cli detect returned {rc}"
-        cli_launches = megakernel.launches
+        cli_launches = kernel_counts()[1]
         with open(out_path) as f:
             records = [json.loads(ln) for ln in f if ln.strip()]
     assert len(records) == 64, f"{len(records)} records, expected 64"

@@ -46,7 +46,8 @@ the scene products, ``serve``, ``replay``, ``track`` and ``bench``):
       [--tracker alpha-beta|ekf] [--confirm-hits M] [--max-misses N] \\
       [--ego [INLIER_MPS]] [--cmap [BETA]] [--disambiguate] \\
       [--refine capon|2d] [--integrate N [--walk]] \\
-      [--blank-interference [K]] [--max-frames N] [--timeout S]
+      [--blank-interference [K]] [--max-frames N] [--timeout S] \\
+      [--span-stats]
   python -m radar_tpu_torch.cli replay cap.bin --port P [--fps 100]
   python -m radar_tpu_torch.cli track cap.bin --device cuda [--cluster] \\
       [--ego [INLIER_MPS]] [--disambiguate] [--refine capon|2d] \\
@@ -70,7 +71,9 @@ lines (``evaluate.py``).
 ``serve`` reads DCA1000-style UDP streams (``io/live.py``; ``replay``
 is the sensor side) and prints one JSON record per frame (or per
 ``--integrate`` group) with the detections and the confirmed tracks,
-then a ``latency_stats`` line, as ``radar_tpu.cli serve``; ``track``
+then a ``latency_stats`` line, as ``radar_tpu.cli serve`` (the port's
+own ``--span-stats`` adds a ``span_stats`` line: the receive loop's
+host spans and counters, ``utils.spans``); ``track``
 prints one JSON line per confirmed track; ``bench`` times streamed
 detection over a capture (``parallel/stream.py``), with ``--stages``
 the reference's stage buckets (or, with ``--full``, kernel 1 against
@@ -138,6 +141,7 @@ from radar_tpu_torch.ops.egomotion import (
     ego_compensated_velocity,
     estimate_ego_motion,
 )
+from radar_tpu_torch.utils import spans
 from radar_tpu_torch.utils.device import resolve_device
 from radar_tpu_torch.utils.points import (
     detections_to_xyz,
@@ -978,6 +982,11 @@ def _percentiles(xs, qs: tuple[int, ...]) -> list[float]:
     ]
 
 
+# counters serve's span_stats line reports (``utils.spans``)
+SERVE_COUNTERS = ("serve.datagrams", "serve.dropped_bytes", "serve.frames",
+                  "spans.dropped")
+
+
 def _bins(col: np.ndarray, device) -> torch.Tensor:
     """A packed result's bin column (f32 (B, K)) as int32 on ``device``."""
     return torch.as_tensor(np.asarray(col, np.int32), device=device)
@@ -1018,6 +1027,16 @@ def cmd_serve(args) -> int:
     will launch (the kernel build, cuBLAS handles, shared-memory
     attributes), so no first launch stalls the receive loop into a
     socket-buffer overflow; then it prints ``{"event": "ready"}``.
+
+    The receive loop's host spans (``utils.spans``): ``serve.recv`` (a
+    receive: the wait in ``select`` and ``serve.reassemble``),
+    ``serve.dispatch`` (the upload, ``detect``, ``pack`` and the packed
+    result's transfer; its durations are ``latency_stats``'
+    ``detect_fetch_*``), ``serve.records`` (one dispatch's records, with
+    ``serve.tracker``); counters ``serve.datagrams``,
+    ``serve.dropped_bytes`` and ``serve.frames``.  ``--span-stats``
+    records them from the ready event on and prints one
+    ``{"event": "span_stats"}`` line at shutdown.
     """
     from radar_tpu_torch.io import live
     from radar_tpu_torch.models.rd_pipeline import pack_detections
@@ -1063,6 +1082,14 @@ def cmd_serve(args) -> int:
     # --integrate N: groups per dispatch (the dispatch shape stays
     # static; the PENDING buffer below fixes group alignment)
     ng = max(1, nb // n_int)
+    counted = {}     # --span-stats: the counters at the ready event
+
+    def ready():
+        print(json.dumps({"event": "ready"}), flush=True)
+        if args.span_stats:
+            # the receive loop's spans from here on, not the warm-up's
+            spans.enable()
+            counted.update(spans.counts())
 
     def warmup():
         # launch everything the loop launches while the bound sockets
@@ -1081,7 +1108,7 @@ def cmd_serve(args) -> int:
                                  dtype=torch.int16, device=device)
             pack_detections(pipe.detect_integrated(warm_g, b0, n_int,
                                                    args.walk)).cpu()
-            print(json.dumps({"event": "ready"}), flush=True)
+            ready()
             return
         packed = pack_detections(pipe.detect(warm, b0)).cpu().numpy()
         if args.cmap is not None:
@@ -1097,7 +1124,7 @@ def cmd_serve(args) -> int:
             _disambiguated(pipe, warm, b0, d_bin, r_bin)
         if args.refine:
             _refined_azimuth(pipe, warm, b0, d_bin, r_bin, args.refine)
-        print(json.dumps({"event": "ready"}), flush=True)
+        ready()
 
     batches = live.udp_frame_batches_multi(
         args.port, cfg, host=args.host,
@@ -1115,9 +1142,10 @@ def cmd_serve(args) -> int:
     # bounded reservoirs: the most recent window is what the
     # percentiles describe in a long-lived server
     lat_ms: deque = deque(maxlen=65536)    # per-frame ingest->record
-    fetch_ms: deque = deque(maxlen=65536)  # per-dispatch detect+fetch
+    fetch_ms: deque = deque(maxlen=65536)  # serve.dispatch durations
     blank_acc = 0   # a device scalar once blanking runs; read at shutdown
     n_emitted = 0   # records emitted in the CURRENT batch
+    n_dispatch = 0  # dispatches so far: the id of a dispatch's spans
 
     def emit_record(src, row, elev_row=None, n_group=1):
         """One JSONL record from one packed result row: detections ->
@@ -1125,6 +1153,7 @@ def cmd_serve(args) -> int:
         nonlocal n, n_emitted
         n += n_group
         n_emitted += 1
+        spans.count("serve.frames", n_group)
         frame_no[src] = frame_no.get(src, 0) + n_group
         dets = [
             {
@@ -1162,7 +1191,8 @@ def cmd_serve(args) -> int:
             # the tracker sees movers only; records keep every detection
             if ok:
                 track_in = [d for d, st in zip(dets, static) if not st]
-        confirmed = trackers[src].update(track_in)
+        with spans.span("serve.tracker"):
+            confirmed = trackers[src].update(track_in)
         rec = {
             "frame": frame_no[src],
             **({"integrated": n_group} if n_group > 1 else {}),
@@ -1192,7 +1222,11 @@ def cmd_serve(args) -> int:
             blank_acc = blank_acc + nbl.sum()
         return x
 
-    for got in batches:
+    while True:
+        with spans.span("serve.recv"):
+            got = next(batches, None)
+        if got is None:
+            break
         t_recv = time.perf_counter()
         todo: dict[int, list] = {}
         for src, frame in got:
@@ -1236,13 +1270,15 @@ def cmd_serve(args) -> int:
                     del pend[: g * n_int]
                     if t_first is None:
                         t_first = time.perf_counter()
-                    t_x = time.perf_counter()
-                    x = stacked(group_frames, ng * n_int)
-                    out = pack_detections(pipe.detect_integrated(
-                        x, bases[src], n_int, args.walk)).cpu().numpy()
-                    fetch_ms.append(1e3 * (time.perf_counter() - t_x))
-                    for j in range(g):
-                        emit_record(src, out[j], n_group=n_int)
+                    n_dispatch += 1
+                    with spans.timed("serve.dispatch", n_dispatch) as sp:
+                        x = stacked(group_frames, ng * n_int)
+                        out = pack_detections(pipe.detect_integrated(
+                            x, bases[src], n_int, args.walk)).cpu().numpy()
+                    fetch_ms.append(sp.ms)
+                    with spans.span("serve.records", n_dispatch):
+                        for j in range(g):
+                            emit_record(src, out[j], n_group=n_int)
                     t_last = time.perf_counter()
                     lat_ms.extend(1e3 * (t_last - t0_g)
                                   for t0_g in t_oldest)
@@ -1252,17 +1288,18 @@ def cmd_serve(args) -> int:
         for src, frames_src in todo.items():
             # detect_fetch: the upload, the launches and the packed
             # result's transfer, which waits for all of them
-            t_x = time.perf_counter()
-            x = stacked(frames_src, nb)
-            if args.cmap is not None:
-                # block=1 alpha: the map updates once per dispatch
-                res, cmap_state[src] = pipe.detect_cmap(
-                    x, bases[src], beta=args.cmap, m0=cmap_state.get(src),
-                    block=1)
-            else:
-                res = pipe.detect(x, bases[src])
-            out = pack_detections(res).cpu().numpy()
-            fetch_ms.append(1e3 * (time.perf_counter() - t_x))
+            n_dispatch += 1
+            with spans.timed("serve.dispatch", n_dispatch) as sp:
+                x = stacked(frames_src, nb)
+                if args.cmap is not None:
+                    # block=1 alpha: the map updates once per dispatch
+                    res, cmap_state[src] = pipe.detect_cmap(
+                        x, bases[src], beta=args.cmap,
+                        m0=cmap_state.get(src), block=1)
+                else:
+                    res = pipe.detect(x, bases[src])
+                out = pack_detections(res).cpu().numpy()
+            fetch_ms.append(sp.ms)
             elev = hyp = None
             if disambiguate or args.refine:
                 d_bin, r_bin = (_bins(out[..., c], device) for c in (7, 8))
@@ -1280,8 +1317,10 @@ def cmd_serve(args) -> int:
                     # wrapped targets keep the winning hypothesis' azimuth
                     az = np.where(hyp != 0, out[..., 2], az)
                 out[..., 2] = az
-            for j in range(len(frames_src)):
-                emit_record(src, out[j], None if elev is None else elev[j])
+            with spans.span("serve.records", n_dispatch):
+                for j in range(len(frames_src)):
+                    emit_record(src, out[j],
+                                None if elev is None else elev[j])
         t_last = time.perf_counter()
         # every frame of this dispatch is a record now: latency from the
         # batch's delivery
@@ -1303,6 +1342,15 @@ def cmd_serve(args) -> int:
         if blank_k is not None:
             stats["blanked_samples"] = int(blank_acc)
         print(json.dumps(stats), flush=True)
+    if args.span_stats:
+        spans.disable()
+        now = spans.counts()
+        print(json.dumps({
+            "event": "span_stats",
+            "spans": {name: {k: round(v, 4) for k, v in st.items()}
+                      for name, st in spans.stats().items()},
+            "counts": {k: now.get(k, 0) - counted.get(k, 0)
+                       for k in SERVE_COUNTERS}}), flush=True)
     if t_first is not None and t_last is not None and t_last > t_first:
         dt = t_last - t_first
         print(f"# served {n} frames in {dt:.2f}s = {n/dt:.1f} fps "
@@ -2206,6 +2254,10 @@ def main(argv=None) -> int:
     s.add_argument("--walk", action="store_true",
                    help="with --integrate: Doppler-conditioned range-walk "
                         "alignment before the sum")
+    s.add_argument("--span-stats", action="store_true",
+                   help="record the receive loop's host spans and print "
+                        "their statistics and the serve counters as one "
+                        '{"event": "span_stats"} line at shutdown')
     _add_flags(s, "max_detections", "tracker", "confirm_hits", "max_misses",
                "refine", "blank_interference", *_PIPELINE)
     s.set_defaults(fn=cmd_serve)

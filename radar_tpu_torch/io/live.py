@@ -25,6 +25,7 @@ from typing import Iterator
 import numpy as np
 
 from radar_tpu_torch.config import RadarConfig, DEFAULT_CONFIG
+from radar_tpu_torch.utils import spans
 
 HEADER_BYTES = 10
 DEFAULT_PAYLOAD = 1456
@@ -158,6 +159,11 @@ def udp_frame_batches_multi(
     sources; the timeout applies to the whole group (a stream ends when
     NO source delivers within ``timeout_s``).  ``on_bound`` runs once
     after every socket is bound.
+
+    Spans and counters (``utils.spans``): ``serve.reassemble`` covers
+    the draining and reassembly of one wake-up's datagrams (or the
+    timeout's flush); ``serve.datagrams`` counts the datagrams read,
+    ``serve.dropped_bytes`` the bytes the reassemblers zero-filled.
     """
     import selectors
 
@@ -185,14 +191,24 @@ def udp_frame_batches_multi(
         on_bound()
 
     produced = 0
+    dropped = 0
     pending: list[tuple[int, np.ndarray]] = []
+
+    def count_dropped():
+        nonlocal dropped
+        now = sum(r.dropped_bytes for r in reasms)
+        spans.count("serve.dropped_bytes", now - dropped)
+        dropped = now
+
     try:
         while max_frames is None or produced < max_frames:
             events = sel.select(timeout_s)
             if not events:
                 # group timeout: flush every source's reorder-pending tail
-                for i, reasm in enumerate(reasms):
-                    pending.extend((i, f) for f in reasm.flush_frames())
+                with spans.span("serve.reassemble"):
+                    for i, reasm in enumerate(reasms):
+                        pending.extend((i, f) for f in reasm.flush_frames())
+                count_dropped()
                 while pending:
                     n = max_batch if max_frames is None else min(
                         max_batch, max_frames - produced
@@ -203,19 +219,24 @@ def udp_frame_batches_multi(
                     produced += len(pending[:n])
                     del pending[:n]
                 return
-            for key, _ in events:
-                src = key.data
-                # drain this socket without waiting; only EWOULDBLOCK ends
-                # the drain — a genuine socket error must propagate, not
-                # busy-spin through select() forever
-                while True:
-                    try:
-                        packet, _ = key.fileobj.recvfrom(65535)
-                    except BlockingIOError:
-                        break
-                    pending.extend(
-                        (src, f) for f in reasms[src].feed(packet)
-                    )
+            datagrams = 0
+            with spans.span("serve.reassemble"):
+                for key, _ in events:
+                    src = key.data
+                    # drain this socket without waiting; only EWOULDBLOCK
+                    # ends the drain — a genuine socket error must
+                    # propagate, not busy-spin through select() forever
+                    while True:
+                        try:
+                            packet, _ = key.fileobj.recvfrom(65535)
+                        except BlockingIOError:
+                            break
+                        datagrams += 1
+                        pending.extend(
+                            (src, f) for f in reasms[src].feed(packet)
+                        )
+            spans.count("serve.datagrams", datagrams)
+            count_dropped()
             while pending:
                 n = max_batch if max_frames is None else min(
                     max_batch, max_frames - produced

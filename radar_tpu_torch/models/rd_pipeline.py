@@ -79,6 +79,7 @@ from radar_tpu_torch.ops.preproc import mean_clutter_removal, mti_clutter_remova
 from radar_tpu_torch.ops.rangefft import range_doppler
 from radar_tpu_torch.ops.window import make_window
 from radar_tpu_torch.utils.device import resolve_device
+from radar_tpu_torch.utils.spans import span
 
 
 def _declutter(x, base, cfg: RadarConfig):
@@ -349,21 +350,22 @@ def pack_detections(out: RDResult) -> torch.Tensor:
     """The serving-relevant fields as ONE (B, K, 9) f32 tensor:
     [range_m, velocity_mps, azimuth_deg, power, valid, range_m_interp,
     velocity_mps_interp, doppler_bin, range_bin] — one device-to-host
-    transfer per dispatch instead of one per field."""
-    return torch.stack(
-        [
-            out.range_m,
-            out.velocity_mps,
-            out.azimuth_deg,
-            out.power,
-            out.valid.to(torch.float32),
-            out.range_m_interp,
-            out.velocity_mps_interp,
-            out.doppler_bin.to(torch.float32),
-            out.range_bin.to(torch.float32),
-        ],
-        dim=-1,
-    )
+    transfer per dispatch instead of one per field.  Span ``pack``."""
+    with span("pack"):
+        return torch.stack(
+            [
+                out.range_m,
+                out.velocity_mps,
+                out.azimuth_deg,
+                out.power,
+                out.valid.to(torch.float32),
+                out.range_m_interp,
+                out.velocity_mps_interp,
+                out.doppler_bin.to(torch.float32),
+                out.range_bin.to(torch.float32),
+            ],
+            dim=-1,
+        )
 
 
 def integrate_power(rd: torch.Tensor) -> torch.Tensor:
@@ -535,15 +537,25 @@ class RDPipeline(nn.Module):
         """Detect on int16 frames (B, shorts_per_frame) or one frame
         (shorts_per_frame,); inputs are moved to the pipeline's device.
         Clutter follows ``cfg.effective_clutter``: with ``clutter_mode``
-        'auto', the base when one is given, else the mean over chirps."""
-        shorts = self._as_tensor(shorts)
-        base = self._base(base_cube)
-        if self._detect_kernel():
-            out = detections_from_shorts(shorts, base, self.max_detections,
-                                         self.cfg,
-                                         consts=dict(self.named_buffers()))
-            return assemble_result_from_kernel(*out, self.cfg)
-        return self._tail(*self._maps(shorts, base))
+        'auto', the base when one is given, else the mean over chirps.
+        Spans (``utils.spans``): ``detect``, inside it ``detect.launch``
+        (the inputs on the device through kernel 1's launch) or
+        ``detect.maps``, then ``detect.tail``."""
+        with span("detect"):
+            if self._detect_kernel():
+                with span("detect.launch"):
+                    out = detections_from_shorts(
+                        self._as_tensor(shorts), self._base(base_cube),
+                        self.max_detections, self.cfg,
+                        consts=dict(self.named_buffers()))
+                with span("detect.tail"):
+                    return assemble_result_from_kernel(*out, self.cfg)
+            shorts = self._as_tensor(shorts)
+            base = self._base(base_cube)
+            with span("detect.maps"):
+                maps = self._maps(shorts, base)
+            with span("detect.tail"):
+                return self._tail(*maps)
 
     forward = detect
 

@@ -2,37 +2,25 @@
 
 Each wrapper launches its kernel for CUDA tensors and raises for
 anything else; its plain PyTorch version sits in the same module and is
-what CPU tensors get through the dispatcher."""
+what CPU tensors get through the dispatcher.  Each counts its launches
+in a counter of ``utils.spans``, :data:`LAUNCH_COUNTERS` in the order
+of kernels 1-8."""
+
+from radar_tpu_torch.utils import spans
+
+LAUNCH_COUNTERS = ("launches.detect", "launches.maps", "launches.topk",
+                   "launches.cfar", "launches.os_threshold",
+                   "launches.os_hits", "launches.masked_argmax",
+                   "launches.fused_range")
 
 
 def launch_counts() -> list[int]:
     """The launches of kernels 1-8 counted by their wrappers (enqueued,
     not necessarily finished)."""
-    from radar_tpu_torch.ops.cuda import (
-        cfar,
-        fused_dft,
-        magargmax,
-        megakernel,
-        oscfar,
-        topk,
-    )
-
-    return [megakernel.launches, megakernel.maps_launches, topk.launches,
-            cfar.launches, oscfar.threshold_launches, oscfar.hits_launches,
-            magargmax.launches, fused_dft.launches]
+    counted = spans.counts()
+    return [counted.get(name, 0) for name in LAUNCH_COUNTERS]
 
 
 def reset_launch_counts() -> None:
     """Set the counters of :func:`launch_counts` to 0."""
-    from radar_tpu_torch.ops.cuda import (
-        cfar,
-        fused_dft,
-        magargmax,
-        megakernel,
-        oscfar,
-        topk,
-    )
-
-    megakernel.launches = megakernel.maps_launches = topk.launches = 0
-    cfar.launches = magargmax.launches = fused_dft.launches = 0
-    oscfar.threshold_launches = oscfar.hits_launches = 0
+    spans.clear_counts(LAUNCH_COUNTERS)

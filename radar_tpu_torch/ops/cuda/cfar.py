@@ -8,10 +8,10 @@ reaches it).
 
 * :func:`ca_cfar_2d_cuda` launches the CUDA kernel (``csrc/cfar.cu``;
   design and bounds are noted there) and counts its launches in
-  :data:`launches`.  One block takes one band of 16 Doppler rows with
-  its halo, so shared memory (:func:`threshold_smem`, from the kernel's
-  own layout, ``ops/cuda/layout.py``) is the only gate on the map's
-  size.  The same kernel, with a kind argument, is the
+  the counter ``launches.cfar`` (``utils.spans``).  One block takes
+  one band of 16 Doppler rows with its halo, so shared memory
+  (:func:`threshold_smem`, from the kernel's own layout,
+  ``ops/cuda/layout.py``) is the only gate on the map's size.  The same kernel, with a kind argument, is the
   threshold stage of the maps kernel (``megakernel.power_cfar_from_shorts``)
   and takes GO/SO there.
 * Its plain version is :func:`radar_tpu_torch.ops.cfar.ca_cfar_2d`, the
@@ -35,10 +35,9 @@ from radar_tpu_torch.ops.cuda._launch import (
     ptr,
     require_cuda,
 )
+from radar_tpu_torch.utils import spans
 
 KIND = {"ca": 0, "goca": 1, "soca": 2}
-
-launches = 0        # kernel launches by ca_cfar_2d_cuda
 
 
 def threshold_args(cfg: RadarConfig, kind: str) -> tuple:
@@ -74,7 +73,6 @@ def ca_cfar_2d_cuda(
     Returns (hits bool, threshold f32), both (..., D, R).  Raises for a
     tensor that is not on a CUDA device, for a map larger than the
     kernel takes, when the build fails and when the launch fails."""
-    global launches
     require_cuda(power, "CFAR", "radar_tpu_torch.ops.cfar.ca_cfar_2d")
     d_size, r_size = power.shape[-2], power.shape[-1]
     layout.check_smem("CFAR kernel", threshold_smem(d_size, r_size, cfg),
@@ -86,6 +84,6 @@ def ca_cfar_2d_cuda(
     thresh = torch.empty_like(x)
     launch("radar_cfar_threshold", power.device, ptr(x), ptr(thresh),
            x.shape[0], d_size, r_size, *threshold_args(cfg, "ca"))
-    launches += 1
+    spans.count("launches.cfar")
     thresh = thresh.reshape(power.shape)
     return power > thresh, thresh

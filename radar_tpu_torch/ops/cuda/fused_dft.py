@@ -11,8 +11,9 @@ range planes.  The Doppler stage stays outside the kernel
   the tier of ``cfg.dft_precision`` (``megakernel.dft_passes``: the f32
   GEMM for 'highest', the split-TF32 tensor-core GEMM for 'high' and
   'default'), plus its chirp-mean pass for 'mean' clutter, not a second
-  GEMM — and counts its launches in :data:`launches`.  For 'mti2' / 'mti3' it runs the
-  GEMM with no base and applies the plain canceller to the planes, as
+  GEMM — and counts its launches in the counter
+  ``launches.fused_range`` (``utils.spans``).  For 'mti2' / 'mti3' it
+  runs the GEMM with no base and applies the plain canceller to the planes, as
   the JAX wrapper applies ``declutter_planes`` after its kernel.
 * Its plain version is :func:`radar_tpu_torch.ops.fuseddft.fused_range_planes`.
 * :func:`range_planes` chooses between them by tensor device only;
@@ -45,8 +46,7 @@ from radar_tpu_torch.ops.fuseddft import (
     fused_range_planes,
 )
 from radar_tpu_torch.ops.preproc import declutter_planes
-
-launches = 0      # kernel launches by fused_range_planes_cuda
+from radar_tpu_torch.utils import spans
 
 
 def fused_range_supported(cfg: RadarConfig) -> bool:
@@ -87,7 +87,6 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
     Raises for a tensor that is not on a CUDA device, for a geometry the
     kernel does not take, when the build fails and when the launch
     fails."""
-    global launches
     require_cuda(shorts, "fused range DFT",
                  "radar_tpu_torch.ops.fuseddft.fused_range_planes")
     if not fused_range_supported(cfg):
@@ -120,7 +119,7 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
         launch("radar_fused_range", dev, ptr(x), ptr(base_raw),
                ptr(consts["a2"]), ptr(consts["a2_split"]), ptr(z), b, c, v,
                s2, r_size, int(mode == "mean"), passes)
-        launches += 1
+        spans.count("launches.fused_range")
     planes = z.reshape(shorts.shape[:-1] + (c, v, 2 * r_size))
     re, im = planes[..., :r_size], planes[..., r_size:]
     if mode in ("base", "mean"):

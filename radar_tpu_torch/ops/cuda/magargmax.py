@@ -7,7 +7,8 @@ magnitude, the square root of that power.
 
 * :func:`masked_argmax_cuda` launches the CUDA kernel
   (``csrc/magargmax.cu``; design and bounds are noted there) and counts
-  its launches in :data:`launches`.  It is bit-identical to the plain
+  its launches in the counter ``launches.masked_argmax``
+  (``utils.spans``).  It is bit-identical to the plain
   version on finite spectra.
 * Its plain version is :func:`radar_tpu_torch.ops.detect.scan_window_argmax`.
 * :func:`masked_argmax` chooses between them by tensor device only.
@@ -23,8 +24,7 @@ import torch
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cuda._launch import launch, ptr, require_cuda
 from radar_tpu_torch.ops.detect import scan_window_argmax
-
-launches = 0      # kernel launches by masked_argmax_cuda
+from radar_tpu_torch.utils import spans
 
 
 def masked_argmax(spectrum: torch.Tensor, cfg: RadarConfig = DEFAULT_CONFIG):
@@ -43,7 +43,6 @@ def masked_argmax_cuda(spectrum: torch.Tensor,
     non-contiguous spectrum is copied first; no rows launch nothing.
     Raises for a tensor that is not on a CUDA device or not complex64,
     when the build fails and when the launch fails."""
-    global launches
     require_cuda(spectrum, "masked argmax",
                  "radar_tpu_torch.ops.detect.scan_window_argmax")
     if spectrum.dtype != torch.complex64 or spectrum.ndim < 1:
@@ -63,5 +62,5 @@ def masked_argmax_cuda(spectrum: torch.Tensor,
     if rows:
         launch("radar_masked_argmax", spectrum.device,
                ptr(torch.view_as_real(x)), ptr(idx), ptr(mag), rows, n, w)
-        launches += 1
+        spans.count("launches.masked_argmax")
     return idx.reshape(lead), mag.reshape(lead)

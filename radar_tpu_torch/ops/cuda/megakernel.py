@@ -18,9 +18,9 @@ Port of ``radar_tpu/ops/pallas/megakernel.py``:
 
 Each op has a ``*_cuda`` wrapper that launches the CUDA kernel
 (``csrc/megakernel.cu``; design and bounds are noted there) and counts
-its launches (:data:`launches` for the detect op, :data:`maps_launches`
-for the maps op), a ``*_reference`` plain PyTorch version built from
-the stage modules (``ops/fuseddft.py``, ``ops/cfar.py``), and a
+its launches (the counters ``launches.detect`` for the detect op and
+``launches.maps`` for the maps op, ``utils.spans``), a ``*_reference``
+plain PyTorch version built from the stage modules (``ops/fuseddft.py``, ``ops/cfar.py``), and a
 dispatcher that chooses by tensor device only: CPU tensors get the
 plain version, CUDA tensors the kernel.  There is no fallback from a
 kernel to its plain version.
@@ -62,11 +62,9 @@ from radar_tpu_torch.ops.fuseddft import (
 )
 from radar_tpu_torch.ops.preproc import mti_clutter_removal
 from radar_tpu_torch.ops.window import resolve_window
+from radar_tpu_torch.utils import spans
 
 K_MAX = 128         # the TPU kernel's selection width (_K_LANE); kept as the gate
-
-launches = 0        # kernel launches by detections_from_shorts_cuda
-maps_launches = 0   # kernel launches by power_(cfar_)from_shorts_cuda
 
 # cfg.dft_precision -> the kernels' ``passes`` argument: 0 the SIMT f32
 # kernels, else the tensor-core kernels with that many TF32 passes
@@ -355,7 +353,6 @@ def detections_from_shorts_cuda(
     """:func:`detections_from_shorts` through the CUDA kernel.  Raises
     for a tensor that is not on a CUDA device, for a geometry the kernel
     does not take, when the build fails and when a launch fails."""
-    global launches
     kind = _map_kind(cfg)
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
     d_size, r_size, tx = cfg.doppler_fft_size, cfg.range_fft_size, cfg.num_tx
@@ -386,7 +383,7 @@ def detections_from_shorts_cuda(
            b, c, v, tx, s2, r_size, d_size, k, int(mode == "mean"), passes,
            kind_id, range_wrap, gd, gr, wd, wr,
            r_size - cfg.range_edge_guard_effective, coef)
-    launches += 1
+    spans.count("launches.detect")
     return (top_idx.reshape(lead + (k,)), top_val.reshape(lead + (k,)),
             nbr.reshape(lead + (k, 5)), num_hits.reshape(lead),
             torch.view_as_complex(snaps).reshape(lead + (k, tx * v)))
@@ -468,7 +465,6 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
     """The maps kernel: raises for a tensor that is not on a CUDA
     device, for a geometry it does not take, when the build fails and
     when a launch fails."""
-    global maps_launches
     kind = _map_kind(cfg) if with_cfar else "ca"
     d_size, r_size = cfg.doppler_fft_size, cfg.range_fft_size
     if with_cfar:
@@ -488,7 +484,7 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
            ptr(consts["ft_re"]), ptr(consts["ft_im"]), ptr(consts["dop_l"]),
            ptr(z), ptr(power), ptr(thresh), b, c, v, cfg.num_tx, s2, r_size,
            d_size, int(mode == "mean"), passes, *threshold_args(cfg, kind))
-    maps_launches += 1
+    spans.count("launches.maps")
     shape = shorts.shape[:-1] + (d_size, r_size)
     if not with_cfar:
         return power.reshape(shape)

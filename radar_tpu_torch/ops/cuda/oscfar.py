@@ -5,15 +5,15 @@ Port of ``radar_tpu/ops/pallas/oscfar_kernel.py``:
 * :func:`os_cfar_2d_cuda` launches the OS threshold kernel (replaces
   ``_os_kernel``, entry ``os_cfar_2d_pallas``): threshold = f32(alpha)
   * (k-th smallest training-ring cell), bit-identical to sorting the
-  ring.  It counts its launches in :data:`threshold_launches`; its plain
-  version is :func:`radar_tpu_torch.ops.cfar.os_cfar_2d`.
+  ring.  It counts its launches in the counter ``launches.os_threshold``
+  (``utils.spans``); its plain version is :func:`radar_tpu_torch.ops.cfar.os_cfar_2d`.
 * :func:`os_cfar_hits_cuda` launches the OS hits kernel (replaces
   ``_os_hits_box_kernel`` and ``_os_hits_kernel``, entry
   ``os_cfar_hits_pallas``): hit <=> count(RN(alpha * v) < p) >= k,
   bit-identical to ``power > threshold``.  One kernel serves both TPU
   bodies; ``impl`` keeps the JAX semantics ('box' refuses a decimated
-  ring).  It counts its launches in :data:`hits_launches`; its plain
-  version is :func:`radar_tpu_torch.ops.cfar.os_cfar_hits`.
+  ring).  It counts its launches in the counter ``launches.os_hits``;
+  its plain version is :func:`radar_tpu_torch.ops.cfar.os_cfar_hits`.
 * :func:`os_hits_supported` states the two kernels' gate: a tile of
   Doppler rows with its halo in a block's shared memory, as
   ``csrc/layout.h`` lays it out (read through ``layout``).
@@ -37,9 +37,7 @@ from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cfar import os_ring_params
 from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import check, launch, ptr, require_cuda
-
-threshold_launches = 0   # kernel launches by os_cfar_2d_cuda
-hits_launches = 0        # kernel launches by os_cfar_hits_cuda
+from radar_tpu_torch.utils import spans
 
 
 def _window(cfg: RadarConfig) -> tuple[int, int, int, int]:
@@ -132,10 +130,9 @@ def os_cfar_2d_cuda(
     kernel.  Returns (hits bool, threshold f32).  Raises for a tensor
     that is not on a CUDA device, for a map whose tile does not fit
     shared memory, when the build fails and when the launch fails."""
-    global threshold_launches
     thresh = _run("radar_os_threshold", power, torch.float32, cfg,
                   "OS threshold", "radar_tpu_torch.ops.cfar.os_cfar_2d")
-    threshold_launches += 1
+    spans.count("launches.os_threshold")
     return power > thresh, thresh
 
 
@@ -147,9 +144,8 @@ def os_cfar_hits_cuda(power: torch.Tensor,
     os_cfar_2d_cuda(power, cfg)[1]``.  Raises for an unknown ``impl``,
     for 'box' at ``cfar_os_stride != 1``, and as :func:`os_cfar_2d_cuda`
     does."""
-    global hits_launches
     _check_impl(cfg, impl)
     hits = _run("radar_os_hits", power, torch.bool, cfg, "OS hits",
                 "radar_tpu_torch.ops.cfar.os_cfar_hits")
-    hits_launches += 1
+    spans.count("launches.os_hits")
     return hits

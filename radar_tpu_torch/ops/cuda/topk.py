@@ -7,9 +7,9 @@ finite entries run out, the untaken indices in ascending order with
 value -inf.
 
 * :func:`topk_cuda` launches the CUDA kernel (``csrc/topk.cu``; design
-  and bounds are noted there) and counts its launches in
-  :data:`launches`: a two-level selection, each chunk of 2,048 cells of
-  a row ordered by one block, the chunks' lists merged by the row's last
+  and bounds are noted there) and counts its launches in the counter
+  ``launches.topk`` (``utils.spans``): a two-level selection, each
+  chunk of 2,048 cells of a row ordered by one block, the chunks' lists merged by the row's last
   block, the selection of kernel 1 (``csrc/select_common.cuh``).
 * :func:`top_k_sorted` is its plain version (a stable descending sort).
 
@@ -30,8 +30,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     require_cuda,
     selection_buffers,
 )
-
-launches = 0      # kernel launches by topk_cuda
+from radar_tpu_torch.utils import spans
 
 
 def top_k_sorted(flat: torch.Tensor, k: int):
@@ -49,7 +48,6 @@ def topk_cuda(flat: torch.Tensor, k: int):
     sentinel); masked power maps never hold one.  Raises for a tensor
     that is not on a CUDA device, for K outside 1..N, when the build
     fails and when the launch fails."""
-    global launches
     require_cuda(flat, "top-K", "top_k_sorted")
     n = flat.shape[-1]
     if not 1 <= k <= n:
@@ -68,5 +66,5 @@ def topk_cuda(flat: torch.Tensor, k: int):
     tickets, work = selection_buffers(flat.device, x.shape[0], words)
     launch("radar_topk", flat.device, ptr(x), ptr(vals), ptr(idx),
            ptr(tickets), ptr(work), words, x.shape[0], n, k)
-    launches += 1
+    spans.count("launches.topk")
     return vals.reshape(lead + (k,)), idx.reshape(lead + (k,))

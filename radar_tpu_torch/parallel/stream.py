@@ -31,7 +31,8 @@ enqueued on another stream, or a reference kept past that point, sees
 the buffer overwritten (the counterpart of JAX's donated input
 buffers).  On the CPU the streamer
 yields plain tensors, one new tensor a batch, with no pinning and no
-streams.
+streams.  On a CUDA device the span ``stream.next`` (``utils.spans``)
+covers the streamer's own host time between two batches handed out.
 
 With a ``mesh`` (``parallel.mesh``, the counterpart of JAX's
 ``sharding=``) ``batch`` is the global batch and must divide the mesh's
@@ -52,6 +53,7 @@ import torch
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.io.capture import read_capture
 from radar_tpu_torch.parallel.mesh import mesh_coordinate, mesh_shape
+from radar_tpu_torch.utils import spans
 from radar_tpu_torch.utils.device import resolve_device
 
 
@@ -162,6 +164,8 @@ class FrameStreamer:
             return
         if n == 0:
             return
+        # the span stream.next: from each resume to the next hand-out
+        handout = spans.begin("stream.next")
         consumer = torch.cuda.current_stream(self.device)
         d = self.depth
         for i in range(min(d - 1, n)):
@@ -174,7 +178,9 @@ class FrameStreamer:
                     self._upload(i + d - 1, (i + d - 1) % d)
                 consumer.wait_event(self._uploaded[j])
                 held = j
+                spans.end(handout)
                 yield self._bufs[j]
+                handout = spans.begin("stream.next")
                 self._consumed[j].record(consumer)
                 held = None
         finally:
@@ -185,6 +191,7 @@ class FrameStreamer:
                 self._consumed[held].record(consumer)
             for ev in self._uploaded:
                 consumer.wait_event(ev)
+            spans.end(handout)
 
 
 def stream_detect(

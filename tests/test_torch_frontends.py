@@ -61,7 +61,7 @@ from radar_tpu_torch.models.rd_pipeline import (  # noqa: E402
     RDPipeline,
     neighbour_samples,
 )
-from radar_tpu_torch.ops.cuda import fused_dft  # noqa: E402
+from radar_tpu_torch.ops.cuda import launch_counts  # noqa: E402
 from radar_tpu_torch.ops.cuda.megakernel import (  # noqa: E402
     detections_from_shorts,
     mega_constants,
@@ -276,12 +276,12 @@ def test_fused_pallas_raises_on_cpu_tensors(monkeypatch):
     cfg, frames, base = scene("small", "auto")
     pipe = RDPipeline(config_from_jax(cfg), 8, device="cpu",
                       rd_impl="fused-pallas")
-    before = fused_dft.launches
+    before = launch_counts()[7]         # kernel 8
     with pytest.raises(ValueError, match="CUDA tensors"):
         pipe.detect(frames, base_from_numpy(base))
     with pytest.raises(ValueError, match="CUDA tensors"):
         pipe.detect_integrated(frames, None, 2)
-    assert fused_dft.launches == before
+    assert launch_counts()[7] == before
 
 
 def test_mti_pipeline_matches_jax_fft():

@@ -22,6 +22,7 @@ from radar_tpu_torch.ops.cfar import cfar_detect  # noqa: E402
 from radar_tpu_torch.ops.cuda import (  # noqa: E402
     cfar,
     fused_dft,
+    launch_counts,
     magargmax,
     megakernel,
     oscfar,
@@ -90,9 +91,7 @@ def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):
 
 
 def _counts():
-    return (megakernel.launches, megakernel.maps_launches, cfar.launches,
-            topk.launches, oscfar.threshold_launches, oscfar.hits_launches,
-            magargmax.launches, fused_dft.launches)
+    return tuple(launch_counts())
 
 
 def test_cuda_wrapper_refuses_non_cuda_tensors():

@@ -30,7 +30,7 @@ from radar_tpu.ops.pallas.magargmax import masked_argmax_pallas  # noqa: E402
 from radar_tpu_torch import _build, cli  # noqa: E402
 from radar_tpu_torch.convert import config_from_jax  # noqa: E402
 from radar_tpu_torch.models.range_detector import RangeDetector  # noqa: E402
-from radar_tpu_torch.ops.cuda import magargmax  # noqa: E402
+from radar_tpu_torch.ops.cuda import launch_counts  # noqa: E402
 from radar_tpu_torch.ops.detect import scan_window_argmax  # noqa: E402
 
 CFG = RadarConfig()
@@ -176,10 +176,10 @@ def test_pallas_impl_raises_on_cpu_tensors(monkeypatch):
     shorts = synthesize_capture(TARGETS, 2, CFG, seed=43)
     det = RangeDetector(config_from_jax(CFG), device="cpu",
                         detect_impl="pallas")
-    before = magargmax.launches
+    before = launch_counts()[6]         # kernel 7
     with pytest.raises(ValueError, match="CUDA tensors"):
         det.detect_capture(shorts)
-    assert magargmax.launches == before
+    assert launch_counts()[6] == before
 
 
 @pytest.mark.parametrize("impl", ["auto", "xla"])
