@@ -166,8 +166,9 @@ line or more:
     its device-only time, kernel 1 within 10 % of phase 17's device
     time, its launches those of the warm-up, the batch and ``time_fn``
     alone; ``bench --full --profile`` over phase 21's 4,097 frames
-    (kernel 1's three stage kernels once per streamed batch in the
-    trace, no other kernel of ``csrc/``, the device's idle share over
+    (kernel 1's three stage kernels and the tail kernel once per
+    streamed batch in the trace, no other kernel of ``csrc/``, the
+    device's idle share over
     the traced window).  It plots nothing (no matplotlib on the card's
     machine);
 24. the multi-device path on phase 2's 512 frames, ranks sharing the
@@ -201,7 +202,16 @@ line or more:
     kernel 1 alone at 'default', each row with its launches, the XOR's
     time, the host loop and ingest printed), and its CUDA graph in this
     process: kernel 1 once at capture, replay 0 bit-equal to
-    ``detect``, the fold of 4 replays bit-equal to 4 uncaptured steps.
+    ``detect``, the fold of 4 replays bit-equal to 4 uncaptured steps;
+27. the detect op's tail kernel (``csrc/tail.cu``) at the benchmark's
+    two configurations (the reference's 1 TX x 4 RX, the AWR1843's 2 TX
+    x 4 RX TDM), B=512: against the plain tail on the same kernel-1
+    outputs (``selftest._det_fields``), ``launches.tail`` equal to
+    ``launches.detect``, the headline graph with the tail inside (replay
+    0 bit-equal to ``detect`` and held to the plain tail), device and
+    host times of both tails, and the host split of the benchmark's
+    closed loop (``detect.launch``, ``detect.tail``, ``pack``) with the
+    plain tail and the kernel in turns.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -4026,6 +4036,7 @@ def eval_phase(gpu, dev) -> None:
 # the stages of kernel 1 at 'high' / 'default' (csrc/megakernel.cu's
 # tensor-core range and Doppler stages, csrc/detect.cu's stage (c))
 KERNEL1_STAGES = ("range_tc_kernel", "doppler_tc_kernel", "detect_band_kernel")
+TAIL_KERNEL = "detect_tail_kernel"   # csrc/tail.cu, once per detect
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the events that bound a trace's window: the ops, their CUDA calls and
 # the device's work (not the profiler's own span of its session)
@@ -4129,8 +4140,8 @@ def bench_phase(cfg, capture, gpu, dev, k1_ms: float) -> None:
     time within 10 % of phase 17's ``k1_ms``, its launches the warm-up,
     the streamed batch and the ``time_fn`` calls, no other kernel; (d)
     ``bench --full --profile`` over phase 21's 4,097 frames: kernel 1's
-    stage kernels once per streamed batch in the trace and no other
-    kernel of ``csrc/``, kernel 1 once per batch (plus the warm-up), the
+    stage kernels and the tail kernel once per streamed batch in the
+    trace and no other kernel of ``csrc/``, kernel 1 once per batch (plus the warm-up), the
     device's idle share over the traced window (the traced run in a
     process of its own, the launches counted in this one)."""
     from radar_tpu_torch import cli, golden, native
@@ -4271,18 +4282,19 @@ def bench_phase(cfg, capture, gpu, dev, k1_ms: float) -> None:
         assert lines[0] == f"profiler trace written to {trace_dir}"
         launches, window_ms, idle, edges = trace_kernels(
             os.path.join(trace_dir, cli.TRACE_NAME))
-        for name in KERNEL1_STAGES:
+        path_kernels = KERNEL1_STAGES + (TAIL_KERNEL,)
+        for name in path_kernels:
             assert launches.get(name, 0) == n_batches, (name, launches,
                                                         edges)
         ours = csrc_kernel_names()
-        assert set(KERNEL1_STAGES) <= ours, ours
+        assert set(path_kernels) <= ours, ours
         others = {k: v for k, v in launches.items()
-                  if k in ours and k not in KERNEL1_STAGES}
+                  if k in ours and k not in path_kernels}
         assert not others, f"other csrc kernels in the trace: {others}"
         torch_kernels = sum(v for k, v in launches.items() if k not in ours)
         say(f"bench --full --profile {n_live} frames B={BATCH} on {gpu} "
             f"({secs:.1f} s): "
-            + ", ".join(f"{k} x{launches[k]}" for k in KERNEL1_STAGES)
+            + ", ".join(f"{k} x{launches[k]}" for k in path_kernels)
             + f" ({n_batches} streamed batches), no other csrc kernel, "
             f"{torch_kernels} torch kernel launches; kernel 1 launches "
             f"{counts[1]} in this process's bench --full ({n_batches} "
@@ -4781,6 +4793,194 @@ def bench_port_phase(gpu, dev, k1_default_ms: float) -> None:
     say(f"phase 26 took {time.perf_counter() - t_phase:.1f} s")
 
 
+TAIL_CONFIGS = ("dca1000-ref-1tx4rx", "awr1843-2tx4rx-256")
+TAIL_RING = 4            # phase 27's loop: batches of BATCH frames it cycles
+TAIL_SPLIT_BATCHES = 400  # batches a turn of phase 27's host split
+TAIL_SPIN_CYCLES = 10_000_000   # ~5 ms of device clock ahead of each call
+
+
+def bench_config(name: str):
+    """``RadarConfig`` of the ``radar`` block of
+    ``perfbench/configs/<name>.json``, a benchmark configuration."""
+    from radar_tpu_torch.config import RadarConfig
+
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           f"{name}.json")) as f:
+        radar = json.load(f)["radar"]
+    return RadarConfig(**{k: tuple(v) if isinstance(v, list) else v
+                          for k, v in radar.items()})
+
+
+def closed_loop_split(pipe, slots, base, n: int) -> tuple[float, dict]:
+    """The benchmark's closed loop over ``slots`` (one caller, one batch
+    ahead, each batch's packed detections copied to pinned host memory)
+    for ``n`` batches with the span recorder on, after ``len(slots)``
+    warm-up batches: (frames/s, mean ms a batch of the spans ``detect``,
+    ``detect.launch``, ``detect.tail`` and ``pack``, and of ``enqueue``,
+    the host clock around the ``detect`` call)."""
+    from radar_tpu_torch.models.rd_pipeline import pack_detections
+    from radar_tpu_torch.utils import spans
+
+    b, k = slots.shape[1], pipe.max_detections
+    host = [torch.empty((b, k, 9), pin_memory=True) for _ in range(2)]
+    events = [torch.cuda.Event() for _ in range(2)]
+    enqueue = []
+
+    def step(i):
+        t0 = time.perf_counter()
+        res = pipe.detect(slots[i % len(slots)], base)
+        enqueue.append(time.perf_counter() - t0)
+        host[i % 2].copy_(pack_detections(res), non_blocking=True)
+        events[i % 2].record()
+
+    for i in range(len(slots)):
+        step(i)
+        events[i % 2].synchronize()
+    enqueue.clear()
+    spans.enable()
+    t0 = time.perf_counter()
+    step(0)
+    for i in range(1, n):
+        step(i)
+        events[(i - 1) % 2].synchronize()
+    events[(n - 1) % 2].synchronize()
+    secs = time.perf_counter() - t0
+    spans.disable()
+    ms = {name: st["total_ms"] / n for name, st in spans.stats(
+        ["detect", "detect.launch", "detect.tail", "pack"]).items()}
+    ms["enqueue"] = 1e3 * statistics.fmean(enqueue)
+    return n * b / secs, ms
+
+
+def tail_phase(gpu, dev) -> None:
+    """Phase 27, the detect op's tail kernel (``csrc/tail.cu``) at the
+    benchmark's two configurations, B=512, K=16: (a) the kernel tail
+    against the plain tail on the same kernel-1 outputs
+    (``selftest._det_fields``; azimuth and angle-bin differences
+    printed); (b) ``launches.tail`` equal to ``launches.detect`` over 8
+    ``detect`` calls; (c) the headline graph (``bench.HeadlineLoop``):
+    kernel 1 once at capture and the tail kernel with it, replay 0
+    bit-equal to an uncaptured ``detect`` and held to the plain tail by
+    ``_det_fields``; (d) device-only and host enqueue times of the two
+    tails, a profile line of ``detect``; (e) the host split of the
+    benchmark's closed loop (``closed_loop_split`` over a ring of
+    ``TAIL_RING`` batches) with the plain tail patched in and with the
+    kernel, in turns plain, kernel, kernel, plain."""
+    from radar_tpu_torch import bench
+    from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
+    from radar_tpu_torch.models import rd_pipeline
+    from radar_tpu_torch.models.rd_pipeline import (
+        RDPipeline,
+        assemble_result_from_kernel_reference,
+    )
+    from radar_tpu_torch.ops.cuda import megakernel, tail
+    from radar_tpu_torch.selftest import _det_fields
+    from radar_tpu_torch.utils import spans
+
+    t_phase = time.perf_counter()
+    targets = [SceneTarget(r, v, az, amp) for r, v, az, amp in TARGETS]
+    kernel_tail = rd_pipeline.assemble_result_from_kernel
+
+    def tails_launched():
+        return spans.counts().get("launches.tail", 0)
+
+    for name in TAIL_CONFIGS:
+        cfg = bench_config(name)
+        capture = synthesize_capture(targets, TAIL_RING * BATCH + 1, cfg,
+                                     noise_std=5.0, seed=0)
+        pipe = RDPipeline(cfg, K_DET, device=dev)
+        base = pipe.prepare_base(capture[0])
+        slots = torch.from_numpy(capture[1:]).to(dev).view(TAIL_RING, BATCH,
+                                                           -1)
+        del capture
+        x = slots[0]
+        consts = dict(pipe.named_buffers())
+
+        # -- (a) kernel tail vs plain tail ---------------------------------
+        out = megakernel.detections_from_shorts(x, base, K_DET, cfg, consts)
+        got = tail.result_from_kernel_cuda(*out, cfg)
+        want = assemble_result_from_kernel_reference(*out, cfg)
+        _det_fields(got, want)
+        az_gap = float((got.azimuth_deg - want.azimuth_deg).abs().max())
+        az_bits = int((got.azimuth_deg != want.azimuth_deg).sum())
+        ab_flips = int((got.angle_bin != want.angle_bin).sum())
+
+        # -- (b) one tail launch per detect ---------------------------------
+        before = spans.counts()
+        for _ in range(8):
+            pipe.detect(x, base)
+        after = spans.counts()
+        n_tail = after["launches.tail"] - before.get("launches.tail", 0)
+        n_det = after["launches.detect"] - before.get("launches.detect", 0)
+        assert n_tail == n_det == 8, (n_tail, n_det)
+
+        # -- (c) the headline graph ----------------------------------------
+        loop = bench.HeadlineLoop(pipe, x, base)
+        t_before = tails_launched()
+        per_replay = loop.capture()
+        assert per_replay == [1, 0, 0, 0, 0, 0, 0, 0], per_replay
+        assert tails_launched() - t_before == 3   # 2 warm-ups + capture
+        loop.run(1)
+        torch.cuda.synchronize()
+        assert tails_launched() - t_before == 3   # replays count none
+        uncaptured = pipe.detect(x, base)
+        same = [bits_equal(a, b) for a, b in zip(loop.out, uncaptured)]
+        assert all(same), [f for f, ok in zip(uncaptured._fields, same)
+                           if not ok]
+        _det_fields(loop.out, want)
+        del loop
+        say(f"tail kernel {name} B={BATCH} K={K_DET}: _det_fields holds "
+            f"against the plain tail (azimuth: {az_bits} of {got.azimuth_deg.numel()} "
+            f"differ, widest {az_gap:.3g} deg; angle bins differ: "
+            f"{ab_flips}); launches.tail {n_tail} = launches.detect "
+            f"{n_det} over 8 detect calls; headline graph: kernel 1 once "
+            f"and the tail once at capture, none at replay, replay 0 "
+            f"bit-equal to detect() and held to the plain tail")
+
+        # -- (d) times ---------------------------------------------------------
+        def run_kernel():
+            return tail.result_from_kernel_cuda(*out, cfg)
+
+        def run_plain():
+            return assemble_result_from_kernel_reference(*out, cfg)
+
+        # a spin longer than the plain tail's enqueue (~1.5-2.6 ms), so
+        # that its host gaps stay out of its device time
+        dev_ms = alternate({"kernel tail": run_kernel,
+                            "plain tail": run_plain}, device_only=True,
+                           spin_cycles=TAIL_SPIN_CYCLES)
+        say(f"tail {name} B={BATCH} on {gpu}, device only (median, in "
+            f"turns): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                   dev_ms.items())
+            + f"; host enqueue: kernel tail "
+            f"{host_enqueue_ms(run_kernel):.4f} ms, plain tail "
+            f"{host_enqueue_ms(run_plain):.4f} ms, detect() "
+            f"{host_enqueue_ms(pipe.detect, x, base):.4f} ms")
+        say(profile_line(lambda: pipe.detect(x, base),
+                         f"detect {name} B={BATCH}"))
+
+        # -- (e) the host split, plain and kernel tails in turns -----------
+        rows = []
+        try:
+            for turn in ("plain", "kernel", "kernel", "plain"):
+                rd_pipeline.assemble_result_from_kernel = (
+                    assemble_result_from_kernel_reference
+                    if turn == "plain" else kernel_tail)
+                fps, ms = closed_loop_split(pipe, slots, base,
+                                            TAIL_SPLIT_BATCHES)
+                rows.append(f"{turn}: {fps:.0f} frames/s, "
+                            + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        ms.items()))
+        finally:
+            rd_pipeline.assemble_result_from_kernel = kernel_tail
+        say(f"host split {name} B={BATCH} on {gpu}, closed loop of "
+            f"{TAIL_SPLIT_BATCHES} batches a turn, ms a batch: "
+            + "; ".join(rows))
+        del pipe, base, slots, out, got, want
+        torch.cuda.empty_cache()
+    say(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4794,7 +4994,7 @@ def main() -> int:
     from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
     from radar_tpu_torch.models.rd_pipeline import (
         RDPipeline,
-        assemble_result_from_kernel,
+        assemble_result_from_kernel_reference,
     )
     from radar_tpu_torch.ops.cuda.megakernel import (
         detections_from_shorts_cuda,
@@ -4908,7 +5108,7 @@ def main() -> int:
         return detections_from_shorts_reference(x, base, K_DET, cfg)
 
     def plain_detect(x):
-        return assemble_result_from_kernel(*plain_op(x), cfg)
+        return assemble_result_from_kernel_reference(*plain_op(x), cfg)
 
     timings = {}
     for b in (BATCH, 1):
@@ -4975,6 +5175,7 @@ def main() -> int:
     sharded_phase(cfg, capture, frames, base, consts, gpu, dev)
     scripts_phase(gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
     bench_port_phase(gpu, dev, tier_ms["kernel 1 default"])
+    tail_phase(gpu, dev)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

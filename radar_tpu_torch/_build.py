@@ -241,6 +241,13 @@ def _declare(lib) -> None:
                                   # passes
                    + [ptr])
     fn.restype = i32
+    fn = lib.radar_detect_tail
+    fn.argtypes = ([ptr] * 9      # top_idx, top_val, nbr, snaps, rows, cal,
+                                  # out_f, out_i, valid
+                   + [i32] * 8    # n_det, n_ch, v, n_bins, R, D, rx, tx
+                   + [ctypes.c_float] * 8   # ops/cuda/tail.tail_scalars
+                   + [ptr])
+    fn.restype = i32
     lib.radar_cuda_error_string.argtypes = [i32]
     lib.radar_cuda_error_string.restype = ctypes.c_char_p
 

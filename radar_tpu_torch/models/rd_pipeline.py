@@ -9,7 +9,9 @@ Static shapes throughout: CFAR hits fold into a fixed top-K list masked
 by validity.  ``rd_impl`` 'auto'/'mega' runs everything up to the
 detection lists in the detect op of ``ops/cuda/megakernel.py`` (kernel
 1, CA / GO / SO); after it only O(B*K) physics is left
-(:func:`assemble_result_from_kernel`).  'mega-maps' runs the maps op of
+(:func:`assemble_result_from_kernel`), which CUDA tensors run as one
+more hand-written kernel (``ops/cuda/tail.py``) and CPU tensors as plain
+torch ops.  'mega-maps' runs the maps op of
 the same module (kernel 2: power and CA / GO / SO threshold maps), then
 top-K (kernel 3) and :func:`assemble_result`.  The verification front
 ends produce the RD planes, then the CFAR (kernel 4 for CA) and top-K
@@ -62,6 +64,7 @@ from radar_tpu_torch.ops.cuda.megakernel import (
     snapshots_from_shorts,
 )
 from radar_tpu_torch.ops.cuda.fused_dft import fused_range_planes_cuda
+from radar_tpu_torch.ops.cuda.tail import result_from_kernel_cuda
 from radar_tpu_torch.ops.cuda.topk import top_k_sorted, topk_cuda
 from radar_tpu_torch.ops.decode import decode_to_cube, decode_to_planes
 from radar_tpu_torch.ops.dftmat import range_doppler_mxu, range_doppler_planes
@@ -313,7 +316,21 @@ def assemble_result_from_kernel(
 ) -> RDResult:
     """Tail for the detect op (selection, neighbour samples and snapshots
     already computed): only physics formulas, MIMO compensation and the
-    angle FFT remain — all O(B*K) work."""
+    angle FFT remain, all O(B*K) work.  CPU tensors take the plain
+    version (:func:`assemble_result_from_kernel_reference`); CUDA tensors
+    the tail kernel (``ops/cuda/tail.py``, one launch), which keeps the
+    plain version's f32 arithmetic as it runs on the card."""
+    if top_idx.device.type == "cpu":
+        return assemble_result_from_kernel_reference(
+            top_idx, top_val, nbr5, num_hits, snaps, cfg)
+    return result_from_kernel_cuda(top_idx, top_val, nbr5, num_hits, snaps,
+                                   cfg)
+
+
+def assemble_result_from_kernel_reference(
+    top_idx, top_val, nbr5, num_hits, snaps, cfg: RadarConfig
+) -> RDResult:
+    """The plain PyTorch version of the tail kernel, on any device."""
     valid = torch.isfinite(top_val)
     top_power = torch.where(valid, top_val, 0.0)
     r_size = cfg.range_fft_size

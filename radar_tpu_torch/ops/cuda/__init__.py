@@ -4,7 +4,9 @@ Each wrapper launches its kernel for CUDA tensors and raises for
 anything else; its plain PyTorch version sits in the same module and is
 what CPU tensors get through the dispatcher.  Each counts its launches
 in a counter of ``utils.spans``, :data:`LAUNCH_COUNTERS` in the order
-of kernels 1-8."""
+of kernels 1-8, the ports of the JAX package's eight Pallas kernels.
+The detect op's tail kernel (``tail.py``), which replaces torch glue
+and no Pallas kernel, counts ``launches.tail`` outside that list."""
 
 from radar_tpu_torch.utils import spans
 

@@ -382,6 +382,7 @@ def test_default_config_runs_the_three_pass_tier():
 
 
 ENTRIES = ["radar_mega_detect", "radar_mega_maps", "radar_fused_range",
+           "radar_detect_tail",
            "radar_cfar_threshold", "radar_topk", "radar_os_hits",
            "radar_os_threshold", "radar_masked_argmax",
            "radar_cuda_error_string"]
