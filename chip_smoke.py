@@ -211,7 +211,13 @@ line or more:
     0 bit-equal to ``detect`` and held to the plain tail), device and
     host times of both tails, and the host split of the benchmark's
     closed loop (``detect.launch``, ``detect.tail``, ``pack``) with the
-    plain tail and the kernel in turns.
+    plain tail and the kernel in turns;
+28. ``refine_2d``'s planar angle scan kernel (``csrc/aoa2d.cu``) at the
+    benchmark's 3-TX deployment (V = 12, the 181 x 61 grid), B=512,
+    K=16: ``torch.equal`` to the plain scan on ``refine_2d``'s own
+    snapshots, ``launches.aoa2d`` 1 a ``refine_2d``, device times of
+    the kernel, the plain scan, ``refine_2d`` and its snapshots, and the
+    kernel's row of the ``kernels`` line with its bound.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -4807,8 +4813,11 @@ def bench_config(name: str):
     with open(os.path.join(ROOT, "perfbench", "configs",
                            f"{name}.json")) as f:
         radar = json.load(f)["radar"]
-    return RadarConfig(**{k: tuple(v) if isinstance(v, list) else v
-                          for k, v in radar.items()})
+
+    def frozen(v):      # nested tuples, so the configuration hashes
+        return tuple(frozen(x) for x in v) if isinstance(v, list) else v
+
+    return RadarConfig(**{k: frozen(v) for k, v in radar.items()})
 
 
 def closed_loop_split(pipe, slots, base, n: int) -> tuple[float, dict]:
@@ -4979,6 +4988,124 @@ def tail_phase(gpu, dev) -> None:
         del pipe, base, slots, out, got, want
         torch.cuda.empty_cache()
     say(f"phase 27 took {time.perf_counter() - t_phase:.1f} s")
+
+
+AOA2D_CONFIG = "awr1843-3tx4rx-3d"    # phase 28's deployment, V = 12
+# phase 28's scene: (range m, velocity m/s, azimuth deg, amplitude,
+# elevation deg)
+AOA2D_TARGETS = ((3.0, 2.0, 20.0, 2500.0, 8.0),
+                 (8.0, -4.0, -35.0, 1500.0, -12.0))
+AOA2D_SPIN_CYCLES = 40_000_000   # ~20 ms of device clock ahead of each call
+
+
+def aoa2d_phase(gpu, dev) -> dict:
+    """Phase 28, ``refine_2d``'s planar angle scan kernel
+    (``csrc/aoa2d.cu``) on the benchmark's 3-TX deployment
+    (``perfbench/configs/awr1843-3tx4rx-3d.json``: V = 12, the 181 x 61
+    grid, 192 chirps), B=512, K=16: (a) ``detect``'s cells, then
+    ``refine_2d``'s own TDM-compensated snapshots of them, on which
+    ``aoa_2d_scan_cuda`` equals (``torch.equal``) the plain scan
+    (``ops.aoa._grid_peak``), and ``refine_2d``'s result equals both;
+    each frame's strongest detection on one of the scene's targets; (b)
+    ``launches.aoa2d`` 1 over one ``refine_2d``, the counter set to 0
+    just before it; (c) device-only times of the kernel and the plain
+    scan in turns, of ``refine_2d`` and of its snapshots
+    (``cell_snapshots``), the host's enqueue of ``refine_2d`` and a
+    profile line.  Returns the kernel's entry of the ``kernels`` line,
+    its bound from ``perfbench/roofline_aoa2d.py``'s count."""
+    from perfbench import roofline_aoa2d
+    from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops import aoa
+    from radar_tpu_torch.ops.cuda.aoa2d import aoa_2d_scan_cuda
+    from radar_tpu_torch.ops.physics import mimo_compensate
+    from radar_tpu_torch.utils import spans
+
+    t_phase = time.perf_counter()
+    cfg = bench_config(AOA2D_CONFIG)
+    assert cfg.num_virtual_rx == 12, cfg.num_virtual_rx
+    capture = synthesize_capture([SceneTarget(*t) for t in AOA2D_TARGETS],
+                                 BATCH + 1, cfg, noise_std=5.0, seed=28)
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    base = pipe.prepare_base(capture[0])
+    x = torch.from_numpy(capture[1:]).to(dev)
+    del capture
+    res = pipe.detect(x, base)
+    d_bin, r_bin = res.doppler_bin, res.range_bin
+
+    # -- (a) the kernel against the plain scan on refine_2d's snapshots ----
+    snaps = mimo_compensate(pipe.cell_snapshots(x, base, d_bin, r_bin),
+                            d_bin, cfg)
+    grid = aoa._steering_grid_rows(cfg, dev)
+    got = aoa_2d_scan_cuda(snaps, *grid)
+    want = aoa._grid_peak(snaps, *grid)
+    refined = pipe.refine_2d(x, base, d_bin, r_bin)
+    for name, a, b, c in zip(("azimuth", "elevation"), got, want, refined):
+        assert a.shape == (BATCH, K_DET), (name, a.shape)
+        assert torch.equal(a, b), f"scan kernel vs plain scan: {name}"
+        assert torch.equal(c, a), f"refine_2d vs the scan kernel: {name}"
+    valid = res.valid.cpu().numpy()
+    az0 = refined[0][:, 0].cpu().numpy()[valid[:, 0]]
+    el0 = refined[1][:, 0].cpu().numpy()[valid[:, 0]]
+    on_target = np.zeros(az0.shape, dtype=bool)
+    for _, _, t_az, _, t_el in AOA2D_TARGETS:
+        on_target |= (np.abs(az0 - t_az) <= 8.0) & (np.abs(el0 - t_el) <= 4.0)
+    assert valid[:, 0].all() and on_target.all(), (
+        f"{int((~on_target).sum())} frames' strongest detection off the "
+        f"scene's targets")
+
+    # -- (b) one launch a refine_2d -------------------------------------
+    torch.cuda.synchronize()
+    spans.clear_counts(["launches.aoa2d"])
+    pipe.refine_2d(x, base, d_bin, r_bin)
+    torch.cuda.synchronize()
+    launches = spans.counts()["launches.aoa2d"]
+    assert launches == 1, launches
+    say(f"aoa2d scan kernel {AOA2D_CONFIG} B={BATCH} K={K_DET} V=12 "
+        f"{len(grid[0])}x{len(grid[1])} grid: torch.equal to the plain scan "
+        f"on refine_2d's snapshots ({int(valid.sum())} valid of "
+        f"{valid.size} slots), refine_2d equal to both; every frame's "
+        f"strongest detection on a target; launches.aoa2d {launches} over "
+        "one refine_2d")
+
+    # -- (c) times -------------------------------------------------------
+    dev_ms = alternate({
+        "kernel": lambda: aoa_2d_scan_cuda(snaps, *grid),
+        "plain": lambda: aoa._grid_peak(snaps, *grid),
+        "refine_2d": lambda: pipe.refine_2d(x, base, d_bin, r_bin),
+        "cell_snapshots": lambda: pipe.cell_snapshots(x, base, d_bin,
+                                                      r_bin),
+    }, device_only=True, spin_cycles=AOA2D_SPIN_CYCLES)
+    radar = {"num_tx": cfg.num_tx, "num_rx": cfg.num_rx,
+             "angle_grid_deg": cfg.angle_grid_deg,
+             "elevation_grid_deg": cfg.elevation_grid_deg}
+    bound_s, bound_by = roofline_aoa2d.least_time(radar, BATCH, K_DET)
+    bound_ms = 1e3 * bound_s
+    say(f"aoa2d {AOA2D_CONFIG} B={BATCH} on {gpu}, device only (median, "
+        "in turns): " + ", ".join(f"{k} {v:.4f} ms" for k, v in
+                                  dev_ms.items())
+        + f"; the kernel at {100 * bound_ms / dev_ms['kernel']:.1f} % of "
+        f"its {bound_ms:.4f} ms bound ({bound_by}); host enqueue: "
+        f"refine_2d {host_enqueue_ms(pipe.refine_2d, x, base, d_bin, r_bin):.4f}"
+        " ms")
+    say(profile_line(lambda: pipe.refine_2d(x, base, d_bin, r_bin),
+                     f"refine_2d {AOA2D_CONFIG} B={BATCH}"))
+    del pipe, base, x, snaps, res
+    torch.cuda.empty_cache()
+    say(f"phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "aoa2d_scan",
+        "route": "cuda",
+        "source": "radar_tpu_torch/csrc/aoa2d.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": 0.0,
+        "ms": dev_ms["kernel"],
+        "plain_ms": dev_ms["plain"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -5176,6 +5303,7 @@ def main() -> int:
     scripts_phase(gpu, dev, tier_ms[f"kernel 1 {cfg.dft_precision}"])
     bench_port_phase(gpu, dev, tier_ms["kernel 1 default"])
     tail_phase(gpu, dev)
+    kernels.append(aoa2d_phase(gpu, dev))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

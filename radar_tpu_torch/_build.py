@@ -248,6 +248,11 @@ def _declare(lib) -> None:
                    + [ctypes.c_float] * 8   # ops/cuda/tail.tail_scalars
                    + [ptr])
     fn.restype = i32
+    fn = lib.radar_aoa2d_scan
+    fn.argtypes = ([ptr] * 6      # snaps, steer, az, el, az_out, el_out
+                   + [i32] * 4    # n_det, v, n_az, n_el
+                   + [ptr])
+    fn.restype = i32
     lib.radar_cuda_error_string.argtypes = [i32]
     lib.radar_cuda_error_string.restype = ctypes.c_char_p
 

@@ -32,8 +32,10 @@ The object level: ``detect_objects`` clusters the hit map
 (``ops.cluster``) and ``detect_cmap`` swaps spatial CFAR for the
 clutter map (``ops.cmap``), both on the maps path (kernel 2, then
 kernel 3); ``disambiguate``, ``refine_2d`` and ``capon_refine``
-re-estimate detected cells (``ops.aoa``); ``keystone=True`` applies the
-keystone transform (``ops.keystone``) on the complex-cube front end.
+re-estimate detected cells (``ops.aoa``; ``refine_2d``'s planar scan is
+one more hand-written kernel on the card, ``ops/cuda/aoa2d.py``);
+``keystone=True`` applies the keystone transform (``ops.keystone``) on
+the complex-cube front end.
 """
 
 from __future__ import annotations
@@ -715,12 +717,19 @@ class RDPipeline(nn.Module):
     @torch.no_grad()
     def refine_2d(self, shorts, base_cube, d_bin, r_bin):
         """(azimuth_deg, elevation_deg) (B, K) of detected cells by the
-        planar grid scan (``ops.aoa.aoa_2d_from_snapshots``); elevation
-        needs an elevated TX (``cfg.tx_positions_wl``)."""
-        snaps = self.cell_snapshots(shorts, base_cube, d_bin, r_bin)
-        return aoa_2d_from_snapshots(
-            mimo_compensate(snaps, self._as_tensor(d_bin), self.cfg),
-            self.cfg)
+        planar grid scan (``ops.aoa.aoa_2d_from_snapshots``: on the card
+        one launch of the scan kernel, ``ops/cuda/aoa2d.py``); elevation
+        needs an elevated TX (``cfg.tx_positions_wl``).  Spans
+        ``refine_2d``, inside it ``refine.snapshots`` (the float64
+        recompute of :meth:`cell_snapshots`), then ``refine.scan`` (the
+        TDM compensation and the scan)."""
+        with span("refine_2d"):
+            with span("refine.snapshots"):
+                snaps = self.cell_snapshots(shorts, base_cube, d_bin, r_bin)
+            with span("refine.scan"):
+                return aoa_2d_from_snapshots(
+                    mimo_compensate(snaps, self._as_tensor(d_bin), self.cfg),
+                    self.cfg)
 
     @torch.no_grad()
     def capon_refine(self, shorts, base_cube, d_bin, r_bin) -> torch.Tensor:

@@ -10,6 +10,11 @@ at reduced precision: the JAX package pins them to HIGHEST.  Here they
 are elementwise sums over the array axis, which no global TF32 switch
 (``torch.backends.cuda.matmul.allow_tf32``) reaches.
 
+The planar scan (:func:`aoa_2d_from_snapshots`) is one CUDA kernel for
+CUDA tensors (``ops/cuda/aoa2d.py``, ``csrc/aoa2d.cu``: f32, no TF32,
+the plain version's bits) and the plain version,
+:func:`aoa_2d_from_snapshots_reference`, for CPU tensors.
+
 The scene maps take their range stage from kernel 8 for CUDA tensors
 (``ops/cuda/fused_dft.range_planes``, one launch a call) and the plain
 version for CPU tensors; the Doppler DFT (``doppler_from_range_planes``)
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.ops.cuda.aoa2d import aoa_2d_scan_cuda
 from radar_tpu_torch.ops.cuda.fused_dft import range_planes
 from radar_tpu_torch.ops.fuseddft import doppler_from_range_planes
 from radar_tpu_torch.ops.physics import doppler_hz, mimo_compensate, tdm_rotate
@@ -33,6 +39,8 @@ from radar_tpu_torch.ops.tf32 import tf32_off
 
 # Capon's diagonal loading, times the covariance's mean eigenvalue
 DIAGONAL_LOADING = 1e-3
+# azimuth rows of the plain planar scan's spectrum live at once
+AZ_CHUNK = 24
 
 
 @functools.lru_cache(maxsize=None)
@@ -246,13 +254,9 @@ def aoa_2d_from_snapshots(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Joint (azimuth, elevation) per detection from planar-array
     snapshots: matched-filter scan of the (az, el) grid, twin of
-    golden.aoa_2d.
-
-    The azimuth axis is scanned in chunks of 24 rows, so only a (..., K,
-    24 * n_el) slab of the spectrum is live at once (the whole grid is
-    ~720 MB at B = 512, K = 16); a strict ``>`` across chunks and
-    ``torch.argmax`` (the first maximum) within one keep the global
-    argmax's first-occurrence tie-breaking.
+    golden.aoa_2d.  CUDA tensors take the scan kernel
+    (``ops/cuda/aoa2d.aoa_2d_scan_cuda``, one launch, the same bits);
+    CPU tensors :func:`aoa_2d_from_snapshots_reference`.
 
     Args:
       snaps: complex64 (..., K, V), TDM-compensated.
@@ -260,13 +264,36 @@ def aoa_2d_from_snapshots(
     Returns:
       (azimuth_deg, elevation_deg) float32 (..., K).
     """
-    az_t, el_t, steer_t = _steering_grid_rows(cfg, snaps.device)
+    grid = _steering_grid_rows(cfg, snaps.device)
+    if snaps.is_cuda:
+        return aoa_2d_scan_cuda(snaps, *grid)
+    return _grid_peak(snaps, *grid)
+
+
+def aoa_2d_from_snapshots_reference(
+    snaps: torch.Tensor, cfg: RadarConfig = DEFAULT_CONFIG
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`aoa_2d_from_snapshots`, in torch ops
+    on any device (what CPU tensors take)."""
+    return _grid_peak(snaps, *_steering_grid_rows(cfg, snaps.device))
+
+
+def _grid_peak(snaps, az_t, el_t, steer_t):
+    """The plain scan on the table ``steer_t`` (n_az, n_el, V) with its
+    axes: (az_t, el_t) at each snapshot's first peak in grid order, a NaN
+    power above every number (``torch.argmax`` over the whole grid).
+
+    The azimuth axis is scanned in chunks of ``AZ_CHUNK`` rows, so only a
+    (..., K, AZ_CHUNK * n_el) slab of the spectrum is live at once (the
+    whole grid is ~720 MB at B = 512, K = 16); ``torch.argmax`` within a
+    chunk, then a later chunk's peak taken only where it is larger, or
+    NaN over a number, keep that order.
+    """
     n_el = el_t.shape[0]
     v = snaps.shape[-1]
-    az_chunk = 24
     best_p = best_i = None
-    for s in range(0, steer_t.shape[0], az_chunk):
-        a = steer_t[s:s + az_chunk].reshape(-1, v)       # (chunk*n_el, V)
+    for s in range(0, steer_t.shape[0], AZ_CHUNK):
+        a = steer_t[s:s + AZ_CHUNK].reshape(-1, v)       # (chunk*n_el, V)
         spec = sum(snaps[..., j:j + 1] * a[:, j] for j in range(v))
         p = spec.real * spec.real + spec.imag * spec.imag
         pm = p.amax(dim=-1)
@@ -274,7 +301,7 @@ def aoa_2d_from_snapshots(
         if best_p is None:
             best_p, best_i = pm, pi
         else:
-            take = pm > best_p
+            take = (pm > best_p) | (pm.isnan() & ~best_p.isnan())
             best_i = torch.where(take, pi, best_i)
             best_p = torch.where(take, pm, best_p)
     return az_t[best_i // n_el], el_t[best_i % n_el]
