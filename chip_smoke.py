@@ -217,7 +217,15 @@ line or more:
     K=16: ``torch.equal`` to the plain scan on ``refine_2d``'s own
     snapshots, ``launches.aoa2d`` 1 a ``refine_2d``, device times of
     the kernel, the plain scan, ``refine_2d`` and its snapshots, and the
-    kernel's row of the ``kernels`` line with its bound.
+    kernel's row of the ``kernels`` line with its bound;
+29. the refiners' float64 snapshot rows kernel (``csrc/snapshots.cu``)
+    at the same deployment, B=512, K=16: within 1 f32 ulp of the plain
+    float64 rows on ``detect``'s cells (the count of elements not
+    bit-equal), ``launches.snapshots`` 1 a ``refine_2d``, device times
+    of the kernel, the plain rows, their two cuBLAS products alone and
+    the kernel's bound, its registers and spills from the build log,
+    ``refine_2d``'s split into the snapshots, the compensation and the
+    scan, and the kernel's row of the ``kernels`` line.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.
 
@@ -5108,6 +5116,154 @@ def aoa2d_phase(gpu, dev) -> dict:
     }
 
 
+def f32_ulps_apart(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(elements not bit-equal, elements more than 1 f32 ulp apart)."""
+    same = got == want
+    near = torch.nextafter(want, got) == got
+    return int((~same).sum()), int((~(same | near)).sum())
+
+
+def snapshots_phase(gpu, dev) -> dict:
+    """Phase 29, the refiners' float64 snapshot rows kernel
+    (``csrc/snapshots.cu``) at phase 28's 3-TX deployment and scene,
+    B=512, K=16: (a) on ``detect``'s cells, ``snapshot_rows_cuda`` within
+    1 f32 ulp of the plain float64 rows (``snapshot_rows_reference``:
+    the batch in float64, the base subtracted, two cuBLAS products), the
+    count of elements that are not bit-equal printed, and ``refine_2d``
+    equal to the scan of ``cell_snapshots``; (b) ``launches.snapshots``
+    1 over one ``refine_2d``, the counter set to 0 just before it; (c)
+    device-only times in turns of the kernel, the plain rows and their
+    two f64 products alone on operands made beforehand (the library's
+    share), the kernel's bound from ``perfbench/roofline_snapshots.py``,
+    the kernel's registers and spills from the build log; (d)
+    ``refine_2d``'s split: ``cell_snapshots``, the compensation and the
+    scan kernel, beside phase 28's 3.394 / 0.414 ms (the snapshots and
+    the scan before this kernel).  Returns the kernel's entry of the
+    ``kernels`` line."""
+    from perfbench import roofline_snapshots
+    from radar_tpu_torch import _build
+    from radar_tpu_torch.io.synthetic import SceneTarget, synthesize_capture
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline
+    from radar_tpu_torch.ops import aoa
+    from radar_tpu_torch.ops.cuda.aoa2d import aoa_2d_scan_cuda
+    from radar_tpu_torch.ops.cuda.snapshots import (
+        snapshot_rows_cuda,
+        snapshot_rows_reference,
+    )
+    from radar_tpu_torch.ops.fuseddft import (
+        base_raw_interleave,
+        interleaved_range_matrices,
+    )
+    from radar_tpu_torch.ops.physics import mimo_compensate
+    from radar_tpu_torch.utils import spans
+
+    t_phase = time.perf_counter()
+    cfg = bench_config(AOA2D_CONFIG)
+    capture = synthesize_capture([SceneTarget(*t) for t in AOA2D_TARGETS],
+                                 BATCH + 1, cfg, noise_std=5.0, seed=29)
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    base = pipe.prepare_base(capture[0])
+    x = torch.from_numpy(capture[1:]).to(dev)
+    del capture
+    res = pipe.detect(x, base)
+    d_bin, r_bin = res.doppler_bin, res.range_bin
+
+    # -- (a) the kernel against the plain float64 rows -----------------
+    rows, s2 = cfg.num_chirps * cfg.num_rx, 2 * cfg.num_samples
+    raw = x.reshape(BATCH, rows, s2)
+    base_raw = base_raw_interleave(base).reshape(rows, s2)
+    top_idx = (d_bin * cfg.range_fft_size + r_bin).to(torch.int64)
+    tables = interleaved_range_matrices(cfg.num_samples,
+                                        cfg.range_fft_size, True, dev)
+    args = (raw, base_raw, top_idx, *tables)
+    got = snapshot_rows_cuda(*args)
+    want = snapshot_rows_reference(*args)
+    off = [f32_ulps_apart(a, b) for a, b in zip(got, want)]
+    n_el = sum(a.numel() for a in got)
+    max_abs = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+    not_equal, beyond = sum(o[0] for o in off), sum(o[1] for o in off)
+    assert beyond == 0, f"{beyond} elements more than 1 f32 ulp apart"
+    snaps = pipe.cell_snapshots(x, base, d_bin, r_bin)
+    grid = aoa._steering_grid_rows(cfg, dev)
+    scanned = aoa_2d_scan_cuda(mimo_compensate(snaps, d_bin, cfg), *grid)
+    refined = pipe.refine_2d(x, base, d_bin, r_bin)
+    for name, a, b in zip(("azimuth", "elevation"), refined, scanned):
+        assert torch.equal(a, b), f"refine_2d vs its snapshots' scan: {name}"
+
+    # -- (b) one launch a refine_2d ---------------------------------------
+    torch.cuda.synchronize()
+    spans.clear_counts(["launches.snapshots"])
+    pipe.refine_2d(x, base, d_bin, r_bin)
+    torch.cuda.synchronize()
+    launches = spans.counts()["launches.snapshots"]
+    assert launches == 1, launches
+    say(f"snapshot rows kernel {AOA2D_CONFIG} B={BATCH} K={K_DET} "
+        f"{rows} rows x 2S={s2}: {not_equal} of {n_el} elements 1 f32 ulp "
+        f"from the plain float64 rows, the rest bit-equal, none further; "
+        f"refine_2d equal to the scan of cell_snapshots; "
+        f"launches.snapshots {launches} over one refine_2d")
+
+    # -- (c) times, bound, registers -----------------------------------
+    x64 = raw.to(torch.float64) - base_raw.to(torch.float64)
+    r_rows = top_idx % cfg.range_fft_size
+    t_re, t_im = (t.to(torch.float64)[r_rows] for t in tables)
+
+    def library():
+        return (torch.einsum("bkj,bmj->bkm", t_re, x64),
+                torch.einsum("bkj,bmj->bkm", t_im, x64))
+
+    snaps_c = mimo_compensate(snaps, d_bin, cfg)
+    dev_ms = alternate({
+        "kernel": lambda: snapshot_rows_cuda(*args),
+        "plain": lambda: snapshot_rows_reference(*args),
+        "library": library,
+        "cell_snapshots": lambda: pipe.cell_snapshots(x, base, d_bin, r_bin),
+        "compensation": lambda: mimo_compensate(snaps, d_bin, cfg),
+        "scan": lambda: aoa_2d_scan_cuda(snaps_c, *grid),
+        "refine_2d": lambda: pipe.refine_2d(x, base, d_bin, r_bin),
+    }, device_only=True, spin_cycles=AOA2D_SPIN_CYCLES)
+    del x64, t_re, t_im
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           f"{AOA2D_CONFIG}.json")) as f:
+        radar = json.load(f)["radar"]
+    bound_s, bound_by = roofline_snapshots.least_time(radar, BATCH, K_DET)
+    bound_ms = 1e3 * bound_s
+    resources = [r for r in ptxas_summary(_build.build_log()).split(" | ")
+                 if "snapshot_rows_kernel" in r]
+    say(f"snapshot rows {AOA2D_CONFIG} B={BATCH} on {gpu}, device only "
+        "(median of 10, in turns): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+        + f"; the kernel at {100 * bound_ms / dev_ms['kernel']:.1f} % of "
+        f"its {bound_ms:.4f} ms bound ({bound_by}); registers: "
+        + " | ".join(resources))
+    say(f"refine_2d split {AOA2D_CONFIG} B={BATCH}: snapshots "
+        f"{dev_ms['cell_snapshots']:.4f} ms (phase 28 before the kernel: "
+        f"3.394), compensation {dev_ms['compensation']:.4f}, scan "
+        f"{dev_ms['scan']:.4f} (0.414), refine_2d {dev_ms['refine_2d']:.4f} "
+        f"(3.840); host enqueue: refine_2d "
+        f"{host_enqueue_ms(pipe.refine_2d, x, base, d_bin, r_bin):.4f} ms")
+    say(profile_line(lambda: pipe.refine_2d(x, base, d_bin, r_bin),
+                     f"refine_2d {AOA2D_CONFIG} B={BATCH}"))
+    del pipe, base, x, raw, snaps, snaps_c, res, got, want
+    torch.cuda.empty_cache()
+    say(f"phase 29 took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "snapshot_rows",
+        "route": "cuda",
+        "source": "radar_tpu_torch/csrc/snapshots.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": max_abs,
+        "ulps_off": not_equal,
+        "ms": dev_ms["kernel"],
+        "plain_ms": dev_ms["plain"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": dev_ms["library"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -5304,6 +5460,7 @@ def main() -> int:
     bench_port_phase(gpu, dev, tier_ms["kernel 1 default"])
     tail_phase(gpu, dev)
     kernels.append(aoa2d_phase(gpu, dev))
+    kernels.append(snapshots_phase(gpu, dev))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

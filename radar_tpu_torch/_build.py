@@ -248,6 +248,12 @@ def _declare(lib) -> None:
                    + [ctypes.c_float] * 8   # ops/cuda/tail.tail_scalars
                    + [ptr])
     fn.restype = i32
+    fn = lib.radar_snapshot_rows
+    fn.argtypes = ([ptr] * 7      # raw, base, top_idx, a_re, a_im, g_re,
+                                  # g_im
+                   + [i32] * 5    # n_frames, k, n_rows, s2, r_size
+                   + [ptr])
+    fn.restype = i32
     fn = lib.radar_aoa2d_scan
     fn.argtypes = ([ptr] * 6      # snaps, steer, az, el, az_out, el_out
                    + [i32] * 4    # n_det, v, n_az, n_el

@@ -5,10 +5,11 @@ anything else; its plain PyTorch version sits in the same module and is
 what CPU tensors get through the dispatcher.  Each counts its launches
 in a counter of ``utils.spans``, :data:`LAUNCH_COUNTERS` in the order
 of kernels 1-8, the ports of the JAX package's eight Pallas kernels.
-The detect op's tail kernel (``tail.py``) and ``refine_2d``'s planar
-angle scan (``aoa2d.py``), which replace torch glue and no Pallas
-kernel, count ``launches.tail`` and ``launches.aoa2d`` outside that
-list."""
+The detect op's tail kernel (``tail.py``), ``refine_2d``'s planar
+angle scan (``aoa2d.py``) and the refiners' float64 snapshot rows
+(``snapshots.py``), which replace torch glue and no Pallas kernel,
+count ``launches.tail``, ``launches.aoa2d`` and ``launches.snapshots``
+outside that list."""
 
 from radar_tpu_torch.utils import spans
 

@@ -14,7 +14,8 @@ Port of ``radar_tpu/ops/pallas/megakernel.py``:
   through ``ops/cuda/oscfar.py``);
 * ``snapshots_from_shorts``, the maps path's AoA snapshots recomputed
   from the raw frames at the detected cells (plain PyTorch, as the JAX
-  package leaves it to XLA).
+  package leaves it to XLA; with ``exact=True`` on the card its float64
+  range rows run in a kernel of their own, ``ops/cuda/snapshots.py``).
 
 Each op has a ``*_cuda`` wrapper that launches the CUDA kernel
 (``csrc/megakernel.cu``; design and bounds are noted there) and counts
@@ -51,6 +52,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     selection_buffers,
 )
 from radar_tpu_torch.ops.cuda.cfar import threshold_args, threshold_smem
+from radar_tpu_torch.ops.cuda.snapshots import snapshot_rows
 from radar_tpu_torch.ops.cuda.topk import top_k_sorted
 from radar_tpu_torch.ops.dftmat import _dft_factors, dft_matrix
 from radar_tpu_torch.ops.fuseddft import (
@@ -495,7 +497,9 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
                           cfg: RadarConfig = DEFAULT_CONFIG,
                           window=True, exact: bool = False) -> torch.Tensor:
     """Per-detection virtual-RX snapshots recomputed from the raw frames
-    (port of the JAX function of this name, plain PyTorch on any device):
+    (port of the JAX function of this name, plain PyTorch on any device
+    but for the float64 range rows on the card, ``exact=True``, which
+    take the snapshots kernel, ``ops/cuda/snapshots.py``):
 
         snap[b, k, t*V + v] = sum_kc F_dop[d_k, kc] * rng[b, kc, t, v, r_k]
 
@@ -523,17 +527,17 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
     kc, tx, r_size = cfg.chirps_per_tx, cfg.num_tx, cfg.range_fft_size
     lead = shorts.shape[:-1]
     k = top_idx.shape[-1]
-    work = torch.float64 if exact else torch.float32
-    raw = shorts.reshape(-1, c * v, s2).to(work)
-    if mode == "base":
-        raw -= base_raw_interleave(base_cube).reshape(c * v, s2).to(work)
+    raw = shorts.reshape(-1, c * v, s2)
+    base_raw = (base_raw_interleave(base_cube).reshape(c * v, s2)
+                if mode == "base" else None)
     top_idx = top_idx.reshape(-1, k).to(torch.int64)
-    d_bin, r_bin = top_idx // r_size, top_idx % r_size
-    a_re, a_im = (a.to(work) for a in interleaved_range_matrices(
-        cfg.num_samples, r_size, window, raw.device))
-    # range planes at the detected bins: (B, K, C*V)
-    g_re = torch.einsum("bkj,bmj->bkm", a_re[r_bin], raw).to(torch.float32)
-    g_im = torch.einsum("bkj,bmj->bkm", a_im[r_bin], raw).to(torch.float32)
+    d_bin = top_idx // r_size
+    # range planes at the detected bins: (B, K, C*V); in float64 on the
+    # card one launch of the snapshots kernel (ops/cuda/snapshots.py)
+    g_re, g_im = snapshot_rows(raw, base_raw, top_idx,
+                               *interleaved_range_matrices(
+                                   cfg.num_samples, r_size, window,
+                                   raw.device), exact=exact)
     b = raw.shape[0]
     g_re = g_re.reshape(b, k, c, v)
     g_im = g_im.reshape(b, k, c, v)

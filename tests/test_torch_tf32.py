@@ -385,7 +385,8 @@ ENTRIES = ["radar_mega_detect", "radar_mega_maps", "radar_fused_range",
            "radar_detect_tail",
            "radar_cfar_threshold", "radar_topk", "radar_os_hits",
            "radar_os_threshold", "radar_masked_argmax",
-           "radar_aoa2d_scan", "radar_cuda_error_string"]
+           "radar_aoa2d_scan", "radar_snapshot_rows",
+           "radar_cuda_error_string"]
 
 
 def c_signatures() -> dict[str, int]:
