@@ -4,233 +4,73 @@
     python3 chip_smoke.py
 
 Drives the port's paths on ``cuda:0`` at the default TI geometry with
-512-frame batches: the main path ``RDPipeline(RadarConfig(),
-max_detections=16).detect`` (kernel 1, the detect kernel); ``detect``
-with ``rd_impl='mega-maps'`` (kernel 2, the maps kernel, then kernel 3,
-top-K); ``detect_integrated`` (kernel 2, then kernel 4, the CFAR
-kernel, on the summed maps, then kernel 3); OS-CFAR, ``RDPipeline(
-RadarConfig(cfar_kind='os'), 16).detect`` and ``detect_integrated``
-(kernel 2, then kernel 6, the OS hits kernel, then kernel 3), with
-kernel 5, the OS threshold kernel, behind ``cfar_detect``; GO/SO inside
-kernel 1; ``RangeDetector(detect_impl='pallas')`` (kernel 7, the masked
-argmax) and ``python -m radar_tpu_torch.cli verify``; ``RDPipeline(
-rd_impl='fused-pallas')`` (kernel 8, the fused range DFT, then kernels
-4 and 3); MTI clutter through kernel 1; the 'planar', 'fft' and 'mxu'
-front ends; ``python -m radar_tpu_torch.cli detect --full [--integrate
-4 | --cfar-kind os]`` and ``... selftest``; the object level,
-``detect_objects`` and ``detect_cmap`` (kernel 2, then kernel 3),
-``disambiguate``, ``capon_refine``, ``refine_2d``, ``RDPipeline(
-keystone=True)`` (kernels 4 and 3 on the keystone cube's maps) and the
-CLI's object-level flags; the scene products, ``ops.aoa``'s
-range-azimuth (angle FFT, Capon) and angle-Doppler maps, MUSIC, and
-``ops.mdoppler``'s spectrogram, automatic gate and RTI (kernel 8 as
-their range stage), ``blank_interference``, ``estimate_ego_motion`` and
-``python -m radar_tpu_torch.cli azmap / admap / mdoppler / rti / bev``
-and ``detect --ego --blank-interference``; the live slice, streamed
-``detect`` over pinned double-buffered uploads and ``python -m
-radar_tpu_torch.cli serve / replay / track / bench``; evaluation,
-``evaluate.measure_pfa``, ``pd_curve``, ``object_metrics`` and
-``track_metrics``, and ``python -m radar_tpu_torch.cli generate /
-calibrate / detect --full --cal / azmap --cal / admap --cal``; the
-reference benchmark, ``python -m radar_tpu_torch.cli bench --native /
---compare / --stages / --full --stages / --full --profile`` (the float64
-C++ golden of ``native.py`` on the host); the multi-device path,
-``parallel.DistributedRDPipeline`` data-parallel (kernel 1) and
-RX-sharded (kernels 2, 4, 3), and ``RangeDetector.detect_sharded``
-(kernel 7), over ranks that share the card.  Phases, each printing one
-line or more:
+512-frame batches, in one process, phase by phase, each printing one
+line or more: the checks of the paths that run end to end on the card
+(the CLI, the object level, the scene products, serving, evaluation,
+the benchmarks and tools, the multi-device path), kernel 1's output
+digests at each ``dft_precision`` tier (``CA_DIGEST``, ``HIGH_DIGEST``,
+``DEFAULT_DIGEST``: a redesign that keeps the bits keeps them), and the
+device times, bounds and profile lines of PERF.md's kernel table.  The
+oracles are ``radar_tpu_torch.testing``'s, shared with the tests.  A
+new kernel's checks on the card (against its plain version, its launch
+counter, graph replay) are ``card`` cases of ``tests/``, and its phase
+here times it; the phases keep the checks they already hold.
 
-1. the card (nvidia-smi name and power limit), CUDA and nvcc versions,
-   and the build of ``radar_tpu_torch/csrc`` with its seconds;
-2. kernel 1 against its plain PyTorch version at B=512 (plus a K=48
-   batch with exhausted slots and a reduced TDM geometry with mean
-   clutter), its launch count on the main path, and a checksum of its
-   outputs;
-3. kernel 1 against the float64 golden model on 4 frames;
-4. the CLI on a 65-frame capture: 64 records, both targets found;
-5. CUDA-event timing of kernel 1 and its plain version at B=512 and
-   B=1, and a profiler breakdown by kernel;
-6. kernels 2, 3 and 4 against their plain versions at B=512;
-7. 'mega' against 'mega-maps' bit for bit at K=16, 48 and 128, and K=200
-   through the maps fall-through against the plain maps path;
-8. ``detect_integrated`` (n=4; base and mean clutter; with and without
-   range walk) against the all-plain path, and 4 groups against the
-   golden;
-9. the CLI with ``--integrate 4 --clutter mean``: 16 group records;
-10. timing of kernels 2-4 and of the two paths, their bounds, and a
-    profiler breakdown of ``detect_integrated``;
-11. OS-CFAR: kernels 5 and 6 bit for bit against their plain versions
-    on the B=512 maps, the 128 NCI sums, odd maps (R of 13, 22 and 41
-    too, at strides 1 and 3), a decimated ring,
-    range wrap, the exact tie and adversarial maps (ties, plateaus, a
-    step of 1e6, subnormals, +inf, k = 1 and k = N); kernel 5's passes
-    from its model; the OS ``detect`` (its launches of kernels 5
-    and 6), ``detect_integrated`` and the CLI with ``--cfar-kind os``
-    against the plain path and the golden; timing, bounds and a profiler
-    breakdown of the OS ``detect``;
-12. GO/SO inside kernel 1: 'mega' against 'mega-maps' bit for bit, its
-    time beside CA's, and kernel 1's CA checksum again;
-13. kernel 7 bit for bit against its plain version (512 spectra, a
-    maximum planted outside the window, exact ties, an unbatched
-    spectrum, lead dims, NaN, a non-contiguous view, no rows),
-    ``RangeDetector`` 'pallas' against 'auto' with its launches, ``cli
-    verify`` (64 ok, 0 failed), timing and a profiler breakdown;
-14. kernel 8 against its plain version (base, mean, mti2, a reduced
-    geometry), 'fused-pallas' ``detect`` against 'fused' and the golden,
-    its ``detect_integrated`` against the plain path, launches, timing
-    beside one cuBLAS call of the same GEMM, a profiler breakdown;
-15. MTI (mti2, mti3) through kernel 1 against the plain path and
-    'mega-maps', the static target notched and the mover kept; 'planar',
-    'fft' and 'mxu' against 'fused'; frames/s of bench.py's variant rows
-    and its mti2 row;
-16. ``cli selftest`` on the card: 15 checks, 0 failed, and the
-    speed-mode check's flips;
-17. the dft_precision tiers ('highest': the SIMT f32 stages; 'high' and
-    'default': the split-TF32 tensor-core stages at 3 and 1 passes) of
-    kernels 1, 2 and 8 against the f32 plain versions (and the emulated
-    tier) at B=512, 'mega' against 'mega-maps' bit for bit, the golden
-    on 4 frames, kernel 1's CA checksum at each tier (``CA_DIGEST``,
-    ``HIGH_DIGEST``, ``DEFAULT_DIGEST``: a redesign that keeps the bits
-    keeps them), device-only times in turns beside cuBLAS, the stages'
-    profile rows, stage (c) beside its plain version and its bound, and
-    the host-inclusive ``detect`` with its enqueue;
-18. the six selftest geometries (maps of 4,096 to 65,536 cells) at
-    B=64: kernel 1 against its plain version, 'mega' against 'mega-maps'
-    bit for bit, 'fused-pallas', OS and NCI against the plain path,
-    kernels 3 and 4 against their plain versions, and kernel 3 bit-exact
-    on rows of 32,768, 65,536 and 50,000 cells;
-19. the object level at B=512: ``detect_objects`` bit-identical to
-    'mega-maps' ``detect`` and ``detect_cmap`` to the plain top-K of the
-    same power, each with its launches of kernels 2 and 3; ``label_hits``
-    equal to ``golden.cluster_hits`` on 16 frames; the clutter map's hits
-    against ``golden.clutter_map_cfar`` on the card's maps (flips only
-    within 1e-5 of the threshold); ``disambiguate`` at num_tx=2 (the
-    10 m/s target recovered past the 7.6 m/s TDM span, hypotheses and
-    velocities against the golden); ``capon_refine`` and ``refine_2d``
-    with an elevated TX against the golden spectra on 16 frames, TF32
-    off and on; keystone at 512 chirps and 4x the slope, B=64 (the
-    walker refocused, the cube against the golden, TF32 on and off);
-    the CLI with ``--cluster``, ``--cmap``, ``--num-tx 2
-    --disambiguate``, ``--refine capon``, ``--elevated-tx --refine
-    2d``, ``--keystone`` and ``--points``; host-inclusive times and a
-    profile line of each method;
-20. the scene products at B=512, at 1 TX on the main scene and at 2 TX
-    on a -25 deg mover (its peak at -25 deg): each map, RTI, the
-    spectrogram (windows of 8 frames) and the automatic gate with one
-    kernel-8 launch a call, against the same product with the plain
-    range stage (16 tier units of the batch's peak; Capon plus 4 f32
-    eps times its covariances' condition number), the float64 golden on
-    4 frames (within 1e-3 of each map's peak, peak bins equal) and bit
-    for bit with TF32 on; MUSIC against the golden; interference
-    blanking bit for bit against its NumPy twin on 513 jammed frames,
-    ``detect`` on its frames against ``detect`` on the twin's, a no-op
-    on the clean scene; the ego fit on a moving-platform scene (32
-    frames tiled to 512: the statics close at 5-8 m/s) within 0.1 m/s
-    of the platform on average and one Doppler bin a frame, within
-    1e-4 m/s of the float64 golden on the same detections, ``is_static``
-    equal; the scene subcommands; host-inclusive times and profile
-    lines with peak memory;
-21. the live slice: ``parallel.FrameStreamer`` + ``stream_detect`` over
-    4,097 frames at B=512 (9 batches, the last of one frame; the capture
-    pinned, uploads on a copy stream into two device buffers ordered by
-    events) bit-identical to resident ``detect`` batch by batch, also
-    with a ~10 ms device spin queued before each detect so the uploads
-    race ahead, device memory flat across batches; streamed frames/s
-    against the same loop fenced after each upload and against frames
-    already on the card, in turns, and the H2D rate; ``python -m
-    radar_tpu_torch.cli serve --device cuda`` fed by ``... replay`` over
-    loopback at ``--serve-batch`` 1 and 8 (records against ``cli detect
-    --full``, tracks against the tracker fed them, kernel-1 launches,
-    the ``latency_stats`` line), with ``--integrate 4 --clutter mean``
-    (kernels 2, 4, 3 launched) and ``--cmap`` (kernels 2, 3); ``cli
-    track`` equal to ``track_capture`` over ``detect`` on the card, both
-    targets confirmed; ``cli bench --full --latency``;
-22. evaluation and calibration at B=512: the realized Pfa on noise-only
-    frames (CA, GO, SO, OS, x4 integration with 'mean' clutter and
-    'fused-pallas') and the Pd curve at 'highest' and 'high' against the
-    plain path on the CPU (hits exact at 'highest', within phase 17's
-    flip budget at 'high'; each Pfa within 20x of the configured one),
-    the object and track scores against the plain path, each call's
-    kernel launches (its kernels once a batch, no other), ``cli generate
-    --rx-imbalance``, ``calibrate`` and ``detect --full --cal`` (kernel 1
-    with the calibration against its plain version, the records against
-    ``--device cpu``'s, the azimuth error smaller with the calibration),
-    ``azmap`` / ``admap --cal``, and host-inclusive ms per call;
-23. the reference benchmark and the stage breakdown at B=512 on phase
-    2's 513-frame capture: ``cli bench --native`` (the C++ golden's
-    frames/s, the host CPU's) and ``native.process_capture`` against
-    ``golden.detect_capture`` (1e-12 m); ``bench --compare --per-frame``
-    on the card (every frame within 1e-3 relative, the count within the
-    reference's 1e-5 m gate, both timing tables, no kernel launched);
-    ``bench --stages`` and ``bench --full --stages``, each bucket beside
-    its device-only time, kernel 1 within 10 % of phase 17's device
-    time, its launches those of the warm-up, the batch and ``time_fn``
-    alone; ``bench --full --profile`` over phase 21's 4,097 frames
-    (kernel 1's three stage kernels and the tail kernel once per
-    streamed batch in the trace, no other kernel of ``csrc/``, the
-    device's idle share over
-    the traced window).  It plots nothing (no matplotlib on the card's
-    machine);
-24. the multi-device path on phase 2's 512 frames, ranks sharing the
-    one card: kernel 2 at V = 1 and 2 (a shard's RX group) against its
-    plain version; ``DistributedRDPipeline(rd_impl='mega')`` on a
-    world-1 NCCL mesh (1, 1) bit-equal to ``RDPipeline.detect`` with
-    kernel 1 launched; ``python -m radar_tpu_torch.parallel.multihost``
-    launches of 2 and 4 ranks under gloo, meshes (2, 1), (1, 2), (1, 4)
-    and (2, 2), against ``RDPipeline.detect`` within phase 2's flip
-    allowance, with every rank's launches (kernel 1 where chan is 1,
-    kernels 2, 4, 3 where chan > 1); ``RangeDetector.detect_sharded``
-    (kernel 7) equal to ``detect``; host-inclusive ms per global batch
-    of each mesh and kernel 2's device time at V = 1, 2, 4;
-25. the measurement and acceptance tools, ``python -m
-    radar_tpu_torch.scripts.<name>`` on ``cuda:0``: ``speed_gate`` at its
-    defaults ('default' against 'high', at most 1/8 flip a target frame,
-    each geometry launching a kernel), ``stage_budget`` at B=512 'high'
-    (kernel 1's three launches within 10 % of kernel 1, kernel 1 within
-    10 % of phase 17's), ``ab_detect . .`` (equal digests; its times are
-    the A/B noise floor), ``os_cfar_bench`` at 512 maps (every
-    formulation within 1e-3 of the golden), ``serve_soak`` at 400 frames,
-    100 frames/s, ``--serve-batch 8`` (records with detections, both
-    delivery counts) and ``weak_scaling --sizes 1,2`` (the payloads the
-    layout implies).  ``speed_gate``, ``stage_budget`` and
-    ``os_cfar_bench``, whose launches are counted, run in this process;
-    ``ab_detect``, ``serve_soak`` and ``weak_scaling`` as processes of
-    their own;
-26. the port's headline benchmark, ``python -m radar_tpu_torch.bench
-    --device cuda --frames 16384`` as a process of its own (exit 0, its
-    last line with every key, the headline not faster than phase 17's
-    kernel 1 alone at 'default', each row with its launches, the XOR's
-    time, the host loop and ingest printed), and its CUDA graph in this
-    process: kernel 1 once at capture, replay 0 bit-equal to
-    ``detect``, the fold of 4 replays bit-equal to 4 uncaptured steps;
+1. the card (nvidia-smi name and power limit), CUDA, nvcc, the build;
+2. kernel 1 (the detect kernel) against its plain version at B=512,
+   K=48 and a reduced TDM geometry, its launches, its digest;
+3. kernel 1 against the float64 golden on 4 frames;
+4. ``cli detect --full`` on a 65-frame capture;
+5. timing of kernel 1 and its plain version at B=512 and B=1, the host
+   enqueue, a profile line;
+6-10. kernels 2 (maps), 3 (top-K) and 4 (CFAR) against their plain
+   versions, 'mega' against 'mega-maps', ``detect_integrated`` against
+   the plain path and the golden, ``cli detect --integrate``, timing;
+11. OS-CFAR: kernels 5 and 6 bit for bit on the batch's maps and on
+   adversarial maps, kernel 5's passes against its model, the OS paths
+   and CLI, timing;
+12. GO/SO inside kernel 1, and the CA digest again;
+13. kernel 7 (masked argmax), ``RangeDetector`` and ``cli verify``;
+14. kernel 8 (fused range DFT), 'fused-pallas' against 'fused' and the
+   golden, timing beside cuBLAS;
+15. MTI through kernel 1; the 'planar', 'fft' and 'mxu' front ends;
+16. ``cli selftest`` on the card;
+17. the three ``dft_precision`` tiers of kernels 1, 2 and 8 against the
+   f32 plain versions and the emulated tiers, the digests, device times
+   beside cuBLAS, stage (c) and its bound;
+18. the six selftest geometries at B=64;
+19. the object level: ``detect_objects``, ``detect_cmap``, clustering,
+   ``disambiguate``, ``capon_refine``, ``refine_2d``, keystone and their
+   CLI flags, against the golden;
+20. the scene products (range-azimuth, Capon, angle-Doppler, MUSIC,
+   spectrogram, RTI), interference blanking, the ego fit, their CLI;
+21. the live slice: streamed ``detect`` bit-identical to resident,
+   ``cli serve`` fed by ``cli replay``, ``cli track``, ``bench --full
+   --latency``;
+22. evaluation and calibration: Pfa, Pd, object and track scores,
+   ``cli generate / calibrate / detect --cal / azmap / admap``;
+23. the reference benchmark: ``cli bench --native / --compare /
+   --stages / --full --profile``;
+24. the multi-device path: ``DistributedRDPipeline`` and
+   ``parallel.multihost`` ranks sharing the card;
+25. the tools of ``radar_tpu_torch/scripts/``;
+26. the port's headline benchmark, ``python -m radar_tpu_torch.bench``,
+   and its CUDA graph;
 27. the detect op's tail kernel (``csrc/tail.cu``) at the benchmark's
-    two configurations (the reference's 1 TX x 4 RX, the AWR1843's 2 TX
-    x 4 RX TDM), B=512: against the plain tail on the same kernel-1
-    outputs (``selftest._det_fields``), ``launches.tail`` equal to
-    ``launches.detect``, the headline graph with the tail inside (replay
-    0 bit-equal to ``detect`` and held to the plain tail), device and
-    host times of both tails, and the host split of the benchmark's
-    closed loop (``detect.launch``, ``detect.tail``, ``pack``) with the
-    plain tail and the kernel in turns;
+   two configurations: against the plain tail, its launches, the
+   headline graph; device and host times of both tails, and the host
+   split of the benchmark's closed loop with each tail in turns;
 28. ``refine_2d``'s planar angle scan kernel (``csrc/aoa2d.cu``) at the
-    benchmark's 3-TX deployment (V = 12, the 181 x 61 grid), B=512,
-    K=16: ``torch.equal`` to the plain scan on ``refine_2d``'s own
-    snapshots, ``launches.aoa2d`` 1 a ``refine_2d``, device times of
-    the kernel, the plain scan, ``refine_2d`` and its snapshots, and the
-    kernel's row of the ``kernels`` line with its bound;
-29. the refiners' float64 snapshot rows kernel (``csrc/snapshots.cu``)
-    at the same deployment, B=512, K=16: within 1 f32 ulp of the plain
-    float64 rows on ``detect``'s cells (the count of elements not
-    bit-equal), ``launches.snapshots`` 1 a ``refine_2d``, device times
-    of the kernel, the plain rows, their two cuBLAS products alone and
-    the kernel's bound, its registers and spills from the build log,
-    ``refine_2d``'s split into the snapshots, the compensation and the
-    scan, and the kernel's row of the ``kernels`` line.
+   3-TX deployment: equal to the plain scan, its launches, device times
+   beside the plain scan, its bound;
+29. the float64 snapshot rows kernel (``csrc/snapshots.cu``) there:
+   within 1 f32 ulp of the plain rows, its launches, device times beside
+   the plain rows and their cuBLAS products, its bound and registers,
+   ``refine_2d``'s split.
 
-The main path runs at ``RadarConfig()``'s tier, 'high'.
-
-Any failed check raises, so the script exits non-zero before its last
-line; without CUDA it exits 1 at once.  The line before the last is the
+The main path runs at ``RadarConfig()``'s tier, 'high'.  Any failed
+check raises, so the script exits non-zero before its last line;
+without CUDA it exits 1 at once.  The line before the last is the
 kernel summary JSON; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 It imports nothing of JAX and nothing of the JAX package.
@@ -239,7 +79,6 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
-import hashlib
 import io
 import json
 import math
@@ -254,10 +93,44 @@ import time
 import numpy as np
 import torch
 
-# the timing helpers live in the port; os_ab.py loads each tree's
-# chip_smoke.alternate, so the names stay importable from here
+from radar_tpu_torch.testing import (
+    F32_EPS,
+    TIER_UNIT,
+    ReadyWatch,
+    adversarial_os_maps,
+    azimuth_error,
+    bits_equal,
+    capon_condition,
+    capon_golden_spectrum,
+    compare,
+    f32_ulps_apart,
+    finish_ranks,
+    golden_check,
+    golden_clusters,
+    golden_match,
+    golden_power,
+    golden_refiner_inputs,
+    grid_angle_check,
+    maps_check,
+    metrics_close,
+    nbr_of,
+    near_check,
+    os_search_model,
+    os_warp_passes,
+    outputs_digest,
+    plain_range_stage,
+    planar_golden_spectrum,
+    run_detect,
+    set_flips,
+    start_ranks,
+    threshold_check,
+    tier_detections,
+    tier_planes,
+    tier_power,
+    tier_unit,
+)
 from radar_tpu_torch.utils.device import nvidia_smi_card
-from radar_tpu_torch.utils.timing import (  # noqa: F401
+from radar_tpu_torch.utils.timing import (
     alternate,
     host_enqueue_ms,
     kernel_us,
@@ -275,493 +148,7 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def outputs_digest(outputs) -> str:
-    """sha256 (first 16 hex digits) of a kernel's output tensors' bytes,
-    in order: equal digests mean bit-identical outputs."""
-    h = hashlib.sha256()
-    for t in outputs:
-        h.update(t.detach().contiguous().cpu().numpy().tobytes())
-    return h.hexdigest()[:16]
-
-
-card = nvidia_smi_card   # os_ab.py reads chip_smoke.card()
-
-
-# ---------------------------------------------------------------------------
-# comparisons, shared with tests/test_torch_*.py
-
-F32_EPS = 2.0 ** -24
-
-
-def _offset_tol(nbr, lo, hi, eps):
-    """Bound, in bins, on how far the 3-point log-parabola offset of the
-    sub-bin interpolation (samples ``nbr[..., lo]``, centre, ``nbr[...,
-    hi]``) can move when each sample moves by the relative ``eps``: twice
-    the first-order bound ``eps (1 + 4|off|) / |curvature|``, and the
-    clamp's whole range (1 bin) where the curvature may change sign.
-    Strong peaks get ~1e-4 bins; flat or non-peak cells (weak CFAR hits)
-    are ill-conditioned and get up to a bin."""
-    lm, lc, lp = (np.log(np.maximum(nbr[..., i], 1e-30)) for i in (lo, 0, hi))
-    e = np.maximum(np.maximum(eps[..., lo], eps[..., 0]), eps[..., hi])
-    curv = np.maximum(np.abs(lm - 2 * lc + lp), 1e-30)
-    with np.errstate(over="ignore"):   # flat cells: tol inf, clamped below
-        off = 0.5 * np.abs(lm - lp) / curv
-        tol = 2 * e * (1 + 4 * off) / curv
-    return np.where(curv > 8 * e, np.minimum(tol, 1.0), 1.0)
-
-
-def compare(a: dict, b: dict, cfg, max_flips: int, valid_only: bool = False,
-            power_rtol: float = 2e-4, f32_floor: bool = False,
-            unit: float = F32_EPS) -> tuple[int, float]:
-    """Hold two detection results (dicts of NumPy arrays keyed by the
-    RDResult field names, plus the neighbour samples ``nbr`` in at least
-    one; ``b`` is the reference) to the JAX package's cross-implementation
-    gate (tests/test_mega.py):
-
-    * at most ``max_flips`` detection-set differences over the batch,
-      counting num_hits differences too;
-    * on flip-free frames: valid, num_hits, bins and angle bins exact;
-      power and neighbours within ``power_rtol`` / atol 1e-2; azimuth
-      within 1e-3 deg; range and velocity within f32 rounding (XLA folds
-      the two constants of ``cell_physics`` into one);
-    * the sub-bin range and velocity within the offset change that the
-      neighbour tolerance allows (:func:`_offset_tol`, needs ``nbr``).
-
-    ``valid_only`` restricts the per-slot checks to valid slots.
-
-    ``f32_floor`` (needs ``nbr``) adds the rounding floor of an f32 DFT
-    whose input is dominated by the frame's strongest return: an
-    amplitude error of 8 eps sqrt(peak / p), i.e. power relative
-    16 eps sqrt(peak / p) and that many radians of azimuth.  It exceeds
-    the 2e-4 gate only on cells more than ~46 dB under the frame's peak;
-    there two f32 implementations that sum in different orders disagree
-    (measured on an NVIDIA H100 80GB HBM3 at 700 W: the plain version
-    1.0e-3 from the float64 golden on cells 76 dB down, the CUDA kernel
-    1.6e-4).  ``unit`` is the floor's unit roundoff: eps of f32 unless a
-    tensor-core tier's own (:data:`TIER_UNIT`).  Angle bins are
-    then held through the azimuth only: on such cells two angle-FFT bins
-    can tie to within the floor, and the interpolated azimuth is
-    continuous across the tie.
-
-    Returns (flips, max |power error| on flip-free frames)."""
-    va, vb = a["valid"], b["valid"]
-    flips, clean = 0, []
-    for f in range(va.shape[0]):
-        sa = set(zip(a["doppler_bin"][f][va[f]].tolist(),
-                     a["range_bin"][f][va[f]].tolist()))
-        sb = set(zip(b["doppler_bin"][f][vb[f]].tolist(),
-                     b["range_bin"][f][vb[f]].tolist()))
-        n = len(sa ^ sb) + abs(int(a["num_hits"][f]) - int(b["num_hits"][f]))
-        flips += n
-        if n == 0:
-            clean.append(f)
-    assert flips <= max_flips, (
-        f"{flips} detection-set flips across the batch (allowed {max_flips})")
-    cl = np.asarray(clean, int)
-    sel = va[cl] if valid_only else np.ones_like(va[cl])
-    for name in ("valid", "num_hits"):
-        np.testing.assert_array_equal(a[name][cl], b[name][cl], err_msg=name)
-    for name in ("doppler_bin", "range_bin"):
-        np.testing.assert_array_equal(a[name][cl][sel], b[name][cl][sel],
-                                      err_msg=name)
-
-    def close(name, x, y, rtol, atol):
-        bad = np.abs(x - y) > rtol * np.abs(y) + atol
-        assert not bad.any(), (
-            f"{name}: {int(bad.sum())} of {bad.size} beyond tolerance; "
-            f"worst |diff| {np.abs(x - y)[bad].max():.6g} at "
-            f"{np.abs(y)[bad][np.argmax(np.abs(x - y)[bad])]:.6g}")
-
-    for name in ("range_m", "velocity_mps"):
-        close(name, a[name][cl][sel], b[name][cl][sel], 4 * F32_EPS, 0.0)
-    # relative floors: per slot (its cell) and per neighbour sample
-    rel_nbr = np.zeros(va[cl].shape + (5,))
-    est = sel                            # slots whose estimates are held
-    if f32_floor:
-        nbr = np.maximum(b["nbr"][cl], 1e-30)
-        peak = nbr[..., 0].max(-1)[:, None, None]
-        rel_nbr = 16 * unit * np.sqrt(peak / nbr)
-        est = sel & va[cl]
-    rel = rel_nbr[..., 0]
-    close("power", a["power"][cl], b["power"][cl], power_rtol + rel, 1e-2)
-    if not f32_floor:
-        np.testing.assert_array_equal(a["angle_bin"][cl][sel],
-                                      b["angle_bin"][cl][sel],
-                                      err_msg="angle_bin")
-    worst = rel_nbr.max(-1)[est]         # a slot's noisiest sample
-    close("azimuth_deg", a["azimuth_deg"][cl][est],
-          b["azimuth_deg"][cl][est], 0.0, 1e-3 + np.rad2deg(worst))
-    if "nbr" in a and "nbr" in b:
-        close("nbr", a["nbr"][cl][sel], b["nbr"][cl][sel],
-              power_rtol + rel_nbr[sel], 1e-2)
-    nbr_b = (b if "nbr" in b else a)["nbr"][cl]
-    eps = power_rtol + rel_nbr + 1e-2 / np.maximum(nbr_b, 1e-30)
-    from radar_tpu_torch.config import LIGHT_SPEED
-    widths = {    # one bin, in metres and in m/s
-        "range_m_interp": (1, 2, cfg.sample_rate_hz / cfg.range_fft_size
-                           * LIGHT_SPEED / (2.0 * cfg.slope_hz_per_s)),
-        "velocity_mps_interp": (3, 4, cfg.wavelength_m / 2.0 / (
-            cfg.doppler_fft_size * cfg.slow_time_interval_s)),
-    }
-    for name, (lo, hi, width) in widths.items():
-        tol = _offset_tol(nbr_b, lo, hi, eps)[est]
-        close(name, a[name][cl][est], b[name][cl][est], 4 * F32_EPS,
-              1e-6 + width * tol)
-    err = np.abs(a["power"][cl] - b["power"][cl])
-    return flips, float(err.max()) if err.size else 0.0
-
-
-def run_detect(fn, frames, base, k, cfg) -> dict:
-    """``fn`` (a detect op) plus the kernel tail, as NumPy arrays: the
-    RDResult fields and the neighbour samples ``nbr``."""
-    from radar_tpu_torch.convert import result_to_numpy
-    from radar_tpu_torch.models.rd_pipeline import assemble_result_from_kernel
-
-    out = fn(frames, base, k, cfg)
-    res = result_to_numpy(assemble_result_from_kernel(*out, cfg))
-    res["nbr"] = out[2].cpu().numpy()
-    return res
-
-
-def golden_power(capture, cfg, n: int, walk: bool = False) -> np.ndarray:
-    """float64 golden power maps of capture frames 1.. in groups of
-    ``n`` (n = 1: single frames): decode, clutter removal per
-    ``cfg.clutter_mode`` ('mean': the mean over all chirps; else the
-    frame-0 base), virtual cube, range-Doppler map, RX sum, then the
-    sum over each group, with each Doppler row first shifted by its
-    velocity's range migration over the frames left in the group when
-    ``walk`` (zero fill)."""
-    from radar_tpu_torch import golden
-    from radar_tpu_torch.io.capture import decode_shorts
-
-    cube = decode_shorts(capture[1:], cfg)
-    if cfg.clutter_mode == "mean":
-        cube = cube - cube.mean(axis=-2, keepdims=True)
-    else:
-        cube = cube - decode_shorts(capture[0], cfg)
-    rd = golden.range_doppler_map(golden.virtual_cube(cube, cfg), cfg)
-    power = (rd.real ** 2 + rd.imag ** 2).sum(axis=-3)
-    d_sz, r_sz = power.shape[-2:]
-    pw = power.reshape((-1, n, d_sz, r_sz))
-    if walk:
-        from radar_tpu_torch.config import LIGHT_SPEED
-
-        frame_s = cfg.num_chirps * cfg.chirp_interval_s
-        r_res = (cfg.sample_rate_hz / r_sz * LIGHT_SPEED
-                 / (2.0 * cfg.slope_hz_per_s))
-        out = np.zeros_like(pw)
-        for f in range(n):
-            for d in range(d_sz):
-                v = ((d - d_sz // 2) / (d_sz * cfg.slow_time_interval_s)
-                     * cfg.wavelength_m / 2.0)
-                s = int(np.rint(v * (n - 1 - f) * frame_s / r_res))
-                lo, hi = max(0, s), min(r_sz, r_sz + s)
-                out[:, f, d, lo:hi] = pw[:, f, d, lo - s:hi - s]
-        pw = out
-    return pw.sum(axis=1)
-
-
-def golden_match(power, n_pulses: int, res, cfg) -> float:
-    """Detection sets of ``res`` equal to the golden's on the float64
-    maps ``power`` (golden CA- or OS-CFAR per ``cfg.cfar_kind``, at
-    ``n_pulses``, edge guard, stable top-K); power within 1e-3 relative.
-    Returns the max relative power error."""
-    from radar_tpu_torch import golden
-
-    n = res["valid"].shape[0]
-    top_idx = res["doppler_bin"] * cfg.range_fft_size + res["range_bin"]
-    if cfg.cfar_kind == "os":
-        hits, _ = golden.os_cfar_2d(power, cfg.cfar_guard, cfg.cfar_train,
-                                    cfg.cfar_pfa, cfg.cfar_os_k_frac,
-                                    cfg.cfar_range_mode, cfg.cfar_os_stride,
-                                    n_pulses)
-    else:
-        hits, _ = golden.ca_cfar_2d(power, cfg.cfar_guard, cfg.cfar_train,
-                                    cfg.cfar_pfa, cfg.cfar_range_mode,
-                                    n_pulses)
-    r_size = cfg.range_fft_size
-    hits &= np.arange(r_size) < r_size - cfg.range_edge_guard_effective
-    flat = np.where(hits, power, -np.inf).reshape(n, -1)
-    order = np.argsort(-flat, axis=-1, kind="stable")[:, :res["valid"].shape[1]]
-    worst = 0.0
-    for f in range(n):
-        want = {int(i) for i in order[f] if np.isfinite(flat[f, i])}
-        got = set(top_idx[f][res["valid"][f]].tolist())
-        assert want == got, f"frame {f}: golden {sorted(want)} vs port {sorted(got)}"
-        for k, i in enumerate(top_idx[f]):
-            if res["valid"][f, k]:
-                rel = abs(res["power"][f, k] - flat[f, i]) / flat[f, i]
-                worst = max(worst, rel)
-    assert worst <= 1e-3, f"power {worst:.2e} relative to the golden"
-    return worst
-
-
-def golden_check(capture, res, cfg) -> float:
-    """:func:`golden_match` of single-frame results against the golden
-    maps of capture frames 1..n (base clutter)."""
-    n = res["valid"].shape[0]
-    return golden_match(golden_power(capture[:n + 1], cfg, 1),
-                        cfg.cfar_pulses_effective, res, cfg)
-
-
-def nbr_of(power: torch.Tensor, res: dict) -> np.ndarray:
-    """The neighbour samples of ``res``'s cells on the maps ``power``
-    (..., D, R), the ``nbr`` that :func:`compare` conditions on."""
-    from radar_tpu_torch.models.rd_pipeline import neighbour_samples
-
-    d = torch.from_numpy(res["doppler_bin"]).to(power.device, torch.int64)
-    r = torch.from_numpy(res["range_bin"]).to(power.device, torch.int64)
-    return neighbour_samples(power, d * power.shape[-1] + r, d,
-                             r).cpu().numpy()
-
-
-def maps_check(name, got, want, unit: float = F32_EPS) -> float:
-    """Power maps (..., D, R) held as ``compare`` holds power: rtol 2e-4
-    plus the floor 16 unit sqrt(peak / p) of each map's strongest cell
-    (``unit`` eps of f32 unless a tier's own), atol 1e-2.  Returns max
-    |got - want|."""
-    got, want = got.double(), want.double()
-    peak = want.flatten(-2).amax(-1)[..., None, None]
-    rtol = 2e-4 + 16 * unit * torch.sqrt(peak / want.clamp_min(1e-30))
-    bad = (got - want).abs() > rtol * want.abs() + 1e-2
-    assert not bad.any(), f"{name}: {int(bad.sum())} cells beyond tolerance"
-    return float((got - want).abs().max())
-
-
-# -- the tensor-core tiers, emulated (ops/tf32.py) ---------------------------
-
-# The unit roundoff of each dft_precision tier's products, the floor's
-# ``unit`` where a tier is held against the f32 plain version: f32's eps
-# for 'highest'; for 'high', hi + lo carries each operand to 2^-22 and
-# the dropped lo*lo term is at most 2^-22 of the product, so 2^-21; for
-# 'default', one rna rounding of each operand, 2^-11 each, so 2^-11 of
-# the product to first order (the two roundings are independent).
-TIER_UNIT = {"highest": F32_EPS, "high": 2.0 ** -21, "default": 2.0 ** -11}
-
-
-def tier_unit(cfg) -> float:
-    """The floor's unit where a kernel run at ``cfg``'s tier is held
-    against the f32 plain version (:data:`TIER_UNIT`)."""
-    return TIER_UNIT[cfg.dft_precision]
-
-
-def tier_planes(shorts, base_cube, cfg, consts, passes: int):
-    """The range stage of kernels 1, 2 and 8 at ``passes`` (1 or 3),
-    emulated with ``tf32.split_matmul``: (B*C*V, 2R) rows ``[zr | zi]``
-    of (raw - base) . a2, then the chirp mean for 'mean' clutter; the
-    MTI modes' planes unfiltered, as the kernels leave them.  Exact
-    products; only the order of the sums differs from the card."""
-    from radar_tpu_torch.ops.fuseddft import base_raw_interleave
-    from radar_tpu_torch.ops.tf32 import split_matmul
-
-    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
-    mode = cfg.effective_clutter(base_cube is not None)
-    x = shorts.reshape(-1, c * v, s2).to(torch.float32)
-    if mode == "base":
-        x = x - base_raw_interleave(base_cube).reshape(c * v, s2)
-    z = split_matmul(x, consts["a2"], passes)
-    if mode == "mean":
-        z = z.reshape(len(z), c, v, -1)
-        z = (z - z.sum(dim=1, keepdim=True) / c).reshape(len(z), c * v, -1)
-    return z.reshape(-1, z.shape[-1])
-
-
-def tier_power(z, cfg, consts, passes: int):
-    """The Doppler stage of kernels 1 and 2 at ``passes``, emulated: the
-    packed constant (``doppler_lhs`` of ``ft_re`` / ``ft_im``) times the
-    stacked planes [Zr; Zi] of each frame and channel, |X|^2 summed over
-    the channels.  Returns the power (B, D, R) and, for the snapshots,
-    the f32 RD planes (dr, di) (B, TX*V, D, R) of the f32 constants, as
-    the detect stage reads them."""
-    from radar_tpu_torch.ops.cuda.megakernel import doppler_lhs
-    from radar_tpu_torch.ops.tf32 import split_matmul
-
-    kc, tx, v = cfg.chirps_per_tx, cfg.num_tx, cfg.num_rx
-    d, r = cfg.doppler_fft_size, cfg.range_fft_size
-    fr, fi = consts["ft_re"], consts["ft_im"]
-    lhs = torch.from_numpy(doppler_lhs(fr.cpu().numpy(),
-                                       fi.cpu().numpy())).to(z.device)
-    kc8 = lhs.shape[1] // 2
-    planes = z.reshape(-1, kc, tx, v, 2 * r).permute(0, 2, 3, 1, 4)
-    zr, zi = planes[..., :r], planes[..., r:]          # (B, TX, V, Kc, R)
-    stacked = zr.new_zeros(zr.shape[:-2] + (2 * kc8, r))
-    stacked[..., :kc, :] = zr
-    stacked[..., kc8:kc8 + kc, :] = zi
-    x = split_matmul(lhs, stacked, passes)             # (B, TX, V, M, R)
-    bins = torch.arange(d, device=z.device)
-    rows = bins // 8 * 16 + bins % 8
-    power = (x[..., rows, :] ** 2 + x[..., rows + 8, :] ** 2).sum(dim=(1, 2))
-    eq = "kd,btvkr->btvdr"
-    dr = torch.einsum(eq, fr, zr) - torch.einsum(eq, fi, zi)
-    di = torch.einsum(eq, fr, zi) + torch.einsum(eq, fi, zr)
-    shape = (len(dr), tx * v, d, r)
-    return power, dr.reshape(shape), di.reshape(shape)
-
-
-def tier_detections(shorts, base_cube, k, cfg, consts, passes: int,
-                    planes=None):
-    """Kernel 1's six outputs with its two DFT stages emulated at
-    ``passes`` (:func:`tier_planes`, :func:`tier_power`) and the rest as
-    its plain version: the tier's own plain version.  ``planes`` (rows
-    ``[zr | zi]``) replaces the emulated range stage when given."""
-    from radar_tpu_torch.ops.cuda.megakernel import detections_from_maps
-
-    z = (tier_planes(shorts, base_cube, cfg, consts, passes)
-         if planes is None else planes)
-    power, dr, di = tier_power(z, cfg, consts, passes)
-    return detections_from_maps(power, dr, di, k, cfg)
-
-
-def threshold_check(name, power, got, want) -> tuple[float, int]:
-    """Threshold maps within 1e-3 relative; hit maps equal except on
-    cells whose power lies within 1e-3 of the threshold.  Returns (max
-    relative threshold error, cells whose hit decision differs)."""
-    rel = ((got.double() - want.double()).abs()
-           / want.double().clamp_min(1e-30))
-    worst = float(rel.max())
-    assert worst <= 1e-3, f"{name}: threshold {worst:.2e} relative"
-    flipped = (power > got) ^ (power > want)
-    edge = (power.double() - want.double()).abs() <= 1e-3 * want.double()
-    assert not (flipped & ~edge).any(), (
-        f"{name}: {int((flipped & ~edge).sum())} hit decisions differ off "
-        "the threshold's 1e-3 band")
-    return worst, int(flipped.sum())
-
-
-def grid_angle_check(name, got, want, spectrum, step: float,
-                     margin: float = 1e-3) -> int:
-    """Angles picked on a scan grid (degrees, (..., K)) held equal
-    wherever the scanned spectrum's peak beats its runner-up by more than
-    ``margin`` relative, and within one grid ``step`` elsewhere: there
-    two implementations that round differently may pick neighbouring
-    grid angles.  ``spectrum`` is (..., K, n_grid), the golden's on the
-    same snapshots.  Returns the number of near-tie cells whose angles
-    differ (counted, not hidden)."""
-    top2 = np.sort(np.asarray(spectrum, np.float64), axis=-1)[..., -2:]
-    tie = top2[..., 1] - top2[..., 0] <= margin * top2[..., 1]
-    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
-    assert not (diff[~tie] > 0).any(), (
-        f"{name}: {int((diff[~tie] > 0).sum())} angles differ off a tie; "
-        f"worst {diff[~tie].max():.4g} deg")
-    assert not (diff[tie] > step * (1 + 1e-6)).any(), (
-        f"{name}: near-tie angles more than one grid step ({step} deg) "
-        f"apart: worst {diff[tie].max():.4g} deg")
-    return int((diff[tie] > 0).sum())
-
-
-def capon_golden_spectrum(range_cube, d_bin, r_bin, cfg) -> np.ndarray:
-    """float64 Capon spectra (B, K, n_angles) of detected cells, from a
-    (B, V, chirps_per_tx, R) range cube: the chirp-domain snapshots at
-    each detection's range bin, TDM-compensated, through
-    ``golden.capon_spectrum`` (the truth of ``capon_aoa_at_cells``)."""
-    from radar_tpu_torch import golden
-
-    rc = np.asarray(range_cube, np.complex128)
-    r_bin = np.asarray(r_bin)
-    snaps = np.swapaxes(
-        rc[np.arange(rc.shape[0])[:, None], :, :, r_bin], -2, -1)
-    if cfg.num_tx > 1:
-        snaps = golden.mimo_doppler_compensate(
-            snaps, np.asarray(d_bin)[..., None], cfg)
-    return golden.capon_spectrum(snaps, cfg)[1]
-
-
-def planar_golden_spectrum(snaps, cfg) -> np.ndarray:
-    """float64 planar matched-filter spectra (..., K, n_az * n_el) of
-    TDM-compensated snapshots (..., K, V): the scan of
-    ``golden.aoa_2d``, flattened azimuth-major."""
-    pos = cfg.virtual_positions_wl()
-    az = np.deg2rad(np.linspace(*cfg.angle_grid_deg[:2],
-                                int(cfg.angle_grid_deg[2])))
-    el = np.deg2rad(np.linspace(*cfg.elevation_grid_deg[:2],
-                                int(cfg.elevation_grid_deg[2])))
-    phase = 2 * np.pi * (
-        pos[None, None, :, 0] * np.sin(az)[:, None, None]
-        * np.cos(el)[None, :, None]
-        + pos[None, None, :, 1] * np.sin(el)[None, :, None])
-    steer = np.exp(-1j * phase).reshape(-1, pos.shape[0])
-    spec = np.asarray(snaps, np.complex128) @ steer.T
-    return np.abs(spec) ** 2
-
-
-def golden_refiner_inputs(capture, cfg, n: int, d_bin, r_bin):
-    """float64 truth of the refiners' inputs on capture frames 1..n
-    (clutter removal as :func:`golden_power`): the calibrated virtual
-    range cube (n, V, chirps_per_tx, R) of ``RDPipeline.range_cube``,
-    and the calibrated snapshots (n, K, V) of
-    ``RDPipeline.cell_snapshots``, ``golden.range_doppler_map`` read at
-    the detected cells ``d_bin``, ``r_bin`` (n, K)."""
-    from radar_tpu_torch import golden
-    from radar_tpu_torch.io.capture import decode_shorts
-
-    cube = decode_shorts(capture[1:n + 1], cfg)
-    if cfg.clutter_mode == "mean":
-        cube = cube - cube.mean(axis=-2, keepdims=True)
-    else:
-        cube = cube - decode_shorts(capture[0], cfg)
-    vc = golden.virtual_cube(cube, cfg)
-    rng = np.fft.fft(vc * golden.window_fn(vc.shape[-1], cfg.window_kind),
-                     n=cfg.range_fft_size, axis=-1)
-    rd = np.moveaxis(golden.range_doppler_map(vc, cfg), -3, -1)
-    snaps = rd[np.arange(n)[:, None], np.asarray(d_bin), np.asarray(r_bin)]
-    return (golden.apply_rx_cal(rng, cfg, axis=-3),
-            golden.apply_rx_cal(snaps, cfg))
-
-
-def near_check(name, got, want, rel: float) -> float:
-    """``got`` within ``rel`` of ``want``'s largest magnitude, elementwise
-    (rtol ``rel`` too); returns the largest error over that magnitude."""
-    got = np.asarray(got)
-    scale = float(np.abs(want).max())
-    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * scale,
-                               err_msg=name)
-    return float(np.abs(got - want).max()) / scale
-
-
-def golden_clusters(power, hits, d_bin, r_bin, valid, cfg) -> dict:
-    """NumPy truth of ``ops.cluster.cluster_detections`` (B, K) over
-    ``golden.cluster_hits``' labels: each valid detection's component,
-    its first (strongest) valid member as the cluster id, the cell count,
-    the float64 power sum, the power-weighted centroid (Doppler offsets
-    taken modulo D around the detection's own cell) in metres and m/s,
-    and the bounding extents; zeros (ids -1) on invalid slots."""
-    from radar_tpu_torch import golden
-    from radar_tpu_torch.config import LIGHT_SPEED
-
-    labels = golden.cluster_hits(hits)
-    p = np.asarray(power, np.float64)
-    n_b, d_sz, _ = hits.shape
-    k = d_bin.shape[-1]
-    half = d_sz // 2
-    ints = ("cluster_id", "cells", "extent_doppler_bins",
-            "extent_range_bins")
-    out = {f: np.zeros((n_b, k), np.int32) for f in ints}
-    out["cluster_id"][:] = -1
-    for f in ("total_power", "centroid_range_m", "centroid_velocity_mps"):
-        out[f] = np.zeros((n_b, k), np.float64)
-    m_per_bin = (cfg.sample_rate_hz / cfg.range_fft_size * LIGHT_SPEED
-                 / (2.0 * cfg.slope_hz_per_s))
-    mps_per_bin = cfg.wavelength_m / (2.0 * d_sz * cfg.slow_time_interval_s)
-    for b in range(n_b):
-        lab = labels[b, d_bin[b], r_bin[b]]
-        for kk in np.flatnonzero(valid[b]):
-            first = next(j for j in range(k)
-                         if valid[b, j] and lab[j] == lab[kk])
-            dd, rr = np.nonzero(labels[b] == lab[kk])
-            w = p[b, dd, rr]
-            ds = (dd - d_bin[b, kk] + half) % d_sz
-            tot = w.sum()
-            d_c = d_bin[b, kk] + (w @ ds / tot - half)
-            out["cluster_id"][b, kk] = first
-            out["cells"][b, kk] = dd.size
-            out["extent_doppler_bins"][b, kk] = ds.max() - ds.min() + 1
-            out["extent_range_bins"][b, kk] = rr.max() - rr.min() + 1
-            out["total_power"][b, kk] = tot
-            out["centroid_range_m"][b, kk] = w @ rr / tot * m_per_bin
-            out["centroid_velocity_mps"][b, kk] = (d_c - half) * mps_per_bin
-    out["num_clusters"] = (out["cluster_id"]
-                           == np.arange(k)).sum(axis=1).astype(np.int32)
-    return out
+card = nvidia_smi_card
 
 
 # -- bounds (H100 SXM, NVIDIA data sheet: the card's least time) -------------
@@ -840,133 +227,6 @@ def os_ops(cfg, n_cells: int) -> float:
 
     return 2.0 * n_cells * os_ring_params(cfg)[1]
 
-
-def os_pivot(lo, hi, n_lo, n_hi, k: int):
-    """Kernel 5's next pivot (``csrc/oscfar.cu`` ``pivot``) of int64 bit
-    patterns ``lo`` < ``hi`` and counts ``n_lo`` < k <= ``n_hi``, in the
-    kernel's f32 arithmetic: interpolated toward rank k, clamped to
-    [lo + w/4, hi - 1 - w/4]."""
-    w = hi - lo
-    q = w // 4
-    frac = ((k - n_lo).astype(np.float32) - np.float32(0.5)) \
-        / (n_hi - n_lo).astype(np.float32)
-    t = lo + (frac * w.astype(np.float32)).astype(np.int64)
-    return np.minimum(np.maximum(t, lo + q), hi - 1 - q)
-
-
-OS_CELLS = 4    # csrc/layout.h kOsCells: the cells of a kernel-5 thread
-OS_STALL = 3    # csrc/oscfar.cu kStall: count passes in a row that move a
-                # cell's bound past no ring value before a snapping pass
-
-
-def os_search_model(ring: np.ndarray, k: int, cells: int = OS_CELLS):
-    """NumPy model of kernel 5's search, pass for pass: ``ring`` (n, N)
-    non-negative f32, one cell a row, ``cells`` consecutive rows a thread
-    (the cells of a row of a map, in order, where R is a multiple of 4,
-    as the compile-time ring groups them; the list form's groups are
-    strided, so there the counts of a thread's passes differ, not the
-    values).
-    Returns (the k-th smallest value of each row, f32; the passes while
-    the row was open, int; how many of them were snapping passes).
-
-    The bracket [lo, hi] of bit patterns starts at the ring's min and max
-    (n_lo = 0 values below lo, n_hi = N at or below hi).  A pass counts
-    v <= pivot, and c >= k moves hi to the pivot (n_hi = c), else lo past
-    it (n_lo = c).  Where a thread has an open cell whose last OS_STALL
-    passes each moved a bound past no ring value (c equal to that side's
-    old count), its next pass snaps: hi to the largest ring value <=
-    pivot, lo to the smallest > pivot.  A cell closes at lo == hi, n_hi ==
-    k or n_lo == k - 1; then its k-th value is lo, the largest ring value
-    <= hi, or the smallest >= lo."""
-    ring = np.ascontiguousarray(ring, np.float32)
-    n, size = ring.shape
-    thread = np.arange(n) // cells
-    lo = ring.min(axis=1).view(np.uint32).astype(np.int64)
-    hi = ring.max(axis=1).view(np.uint32).astype(np.int64)
-    n_lo = np.zeros(n, np.int64)
-    n_hi = np.full(n, size, np.int64)
-    stall = np.zeros(n, np.int64)
-    passes = np.zeros(n, np.int64)
-    snaps = np.zeros(n, np.int64)
-    while True:
-        live = (lo != hi) & (n_hi != k) & (n_lo != k - 1)
-        if not live.any():
-            break
-        idx = np.flatnonzero(live)
-        snap = np.isin(thread[idx], thread[idx[stall[idx] >= OS_STALL]])
-        t = os_pivot(lo[idx], hi[idx], n_lo[idx], n_hi[idx], k)
-        r = ring[idx]
-        le = r <= t.astype(np.uint32).view(np.float32)[:, None]
-        c = le.sum(1)
-        up = c >= k
-        below = np.where(le, r, -np.inf).max(1).view(np.uint32)
-        above = np.where(le, np.inf, r).min(1).view(np.uint32)
-        new_hi = np.where(snap, below.astype(np.int64), t)
-        new_lo = np.where(snap, above.astype(np.int64), t + 1)
-        same = np.where(up, c == n_hi[idx], c == n_lo[idx])
-        stall[idx] = np.where(same & ~snap, stall[idx] + 1, 0)
-        hi[idx[up]], n_hi[idx[up]] = new_hi[up], c[up]
-        lo[idx[~up]], n_lo[idx[~up]] = new_lo[~up], c[~up]
-        passes[idx] += 1
-        snaps[idx] += snap
-    lo_f = lo.astype(np.uint32).view(np.float32)
-    hi_f = hi.astype(np.uint32).view(np.float32)
-    below = np.where(ring <= hi_f[:, None], ring, -np.inf).max(axis=1)
-    above = np.where(ring >= lo_f[:, None], ring, np.inf).min(axis=1)
-    kth = np.where(lo == hi, lo_f, np.where(n_hi == k, below, above))
-    return kth.astype(np.float32), passes, snaps
-
-
-def os_warp_passes(passes: np.ndarray, r_size: int) -> np.ndarray:
-    """Passes of the slowest cell of each warp's cells: a warp of kernel
-    5 takes 32 groups of 4 consecutive range cells of one tile, one
-    Doppler row where R = 128 (``passes`` in row-major (.., D, R)
-    order)."""
-    groups = (r_size + 3) // 4
-    g = np.pad(passes.reshape(-1, r_size),
-               ((0, 0), (0, 4 * groups - r_size))).reshape(-1, groups, 4)
-    per_thread = g.max(axis=2).reshape(-1)
-    pad = -len(per_thread) % 32
-    return np.pad(per_thread, (0, pad)).reshape(-1, 32).max(axis=1)
-
-
-def adversarial_os_maps(power, cfg_os, n: int = 128) -> dict:
-    """Maps made to stress kernels 5 and 6, ``n`` of the scene's map size
-    (seed 11): {name: (maps, cfg)}.  All cells equal; all zero; plateaus
-    of ties (values 1-4, the ring's k-th inside the 40 % at 2); a step of
-    1e6 between the range halves; subnormal cells (a tenth of them zero);
-    a quarter of the cells +inf; and the scene's maps at k = 1 and k = N
-    (``cfar_os_k_frac`` 0.001 and 1.0)."""
-    import dataclasses
-
-    rng = np.random.default_rng(11)
-    shape = (n,) + tuple(power.shape[-2:])
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-            power.device)
-
-    noise = rng.exponential(size=shape).astype(np.float32)
-    step = noise.copy()
-    step[..., shape[-1] // 2:] *= np.float32(1e6)
-    sub = noise * np.float32(1e-41)
-    sub[rng.random(shape) < 0.1] = 0.0
-    inf = noise.copy()
-    inf[rng.random(shape) < 0.25] = np.inf
-    plateau = rng.choice(np.float32([1, 2, 3, 4]), size=shape,
-                         p=[0.5, 0.4, 0.05, 0.05])
-    return {
-        "all equal": (dev(np.ones(shape)), cfg_os),
-        "all zero": (dev(np.zeros(shape)), cfg_os),
-        "plateaus": (dev(plateau), cfg_os),
-        "step 1e6": (dev(step), cfg_os),
-        "subnormal": (dev(sub), cfg_os),
-        "+inf": (dev(inf), cfg_os),
-        "k = 1": (power[:n],
-                  dataclasses.replace(cfg_os, cfar_os_k_frac=0.001)),
-        "k = N": (power[:n],
-                  dataclasses.replace(cfg_os, cfar_os_k_frac=1.0)),
-    }
 
 
 def front_end_bytes(cfg, b: int, base: bool) -> float:
@@ -1641,17 +901,6 @@ def go_so_phase(cfg, frames, base, consts, gpu, digest) -> None:
         + ("(unchanged)" if digest == HIGH_DIGEST else f"(was {HIGH_DIGEST})"))
 
 
-def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    """Equal shapes and equal bits, NaN where the other is NaN."""
-    if a.shape != b.shape or a.dtype != b.dtype:
-        return False
-    if not a.is_floating_point():
-        return torch.equal(a, b)
-    nan = a.isnan()
-    return (torch.equal(nan, b.isnan())
-            and torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32)))
-
-
 def range_phase(cfg, capture, dev, gpu, targets) -> dict:
     """Phase 13: kernel 7, the masked argmax, bit for bit against its
     plain version on the 512 spectra of the seed-0 capture and on the
@@ -2001,17 +1250,6 @@ def selftest_phase() -> None:
 HIGH_DIGEST = "42c4276b4e5b21f1"  # kernel 1 at dft_precision 'high', as CA_DIGEST
 DEFAULT_DIGEST = "0f65ede98afe8f0e"  # and at 'default'
 TIER_DIGEST = {"highest": None, "high": HIGH_DIGEST, "default": DEFAULT_DIGEST}
-
-
-def set_flips(a: dict, b: dict) -> tuple[int, int]:
-    """(detection-set differences, |num_hits| differences) over a batch."""
-    sets = sum(len(set(zip(a["doppler_bin"][f][a["valid"][f]].tolist(),
-                           a["range_bin"][f][a["valid"][f]].tolist()))
-                   ^ set(zip(b["doppler_bin"][f][b["valid"][f]].tolist(),
-                             b["range_bin"][f][b["valid"][f]].tolist())))
-               for f in range(a["valid"].shape[0]))
-    hits = int(np.abs(a["num_hits"].astype(np.int64) - b["num_hits"]).sum())
-    return sets, hits
 
 
 def planes_gate(name, got, want, x, a2, unit) -> float:
@@ -2845,47 +2083,6 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
 SCENE_EGO_TILE = 32   # phase 20's moving-platform scene, tiled to BATCH
 
 
-@contextlib.contextmanager
-def plain_range_stage():
-    """The scene products with their range stage swapped for its plain
-    version (``ops.fuseddft.fused_range_planes``, f32 under the products'
-    ``tf32_off``) on the same tensors: what the kernel-8 path is held
-    against."""
-    from radar_tpu_torch.ops import aoa, mdoppler
-    from radar_tpu_torch.ops.fuseddft import fused_range_planes
-
-    saved = aoa.range_planes, mdoppler.range_planes
-
-    aoa.range_planes = mdoppler.range_planes = fused_range_planes
-    try:
-        yield
-    finally:
-        aoa.range_planes, mdoppler.range_planes = saved
-
-
-def capon_condition(cfg, frames, base) -> torch.Tensor:
-    """Per frame, the largest condition number of the diagonally loaded
-    covariances the Capon map inverts (one per range bin), from the plain
-    compensated planes in float64: MVDR multiplies f32 rounding in the
-    covariance by about this much."""
-    from radar_tpu_torch.ops.aoa import DIAGONAL_LOADING, _tdm_compensated_rd
-
-    with plain_range_stage():
-        cr, ci = _tdm_compensated_rd(frames, base, cfg)
-    x = torch.complex(cr, ci).movedim(-1, -3).transpose(-1, -2)
-    x = x.to(torch.complex128)                          # (B, R, D, V')
-    v = x.shape[-1]
-    r = torch.einsum("...si,...sj->...ij", x, x.conj()) / x.shape[-2]
-    tr = torch.diagonal(r, dim1=-2, dim2=-1).real.sum(-1) / v
-    r = r + (DIAGONAL_LOADING * tr)[..., None, None] * torch.eye(
-        v, dtype=r.dtype, device=r.device)
-    # on the host: cuSOLVER's batched complex128 eigvalsh refuses 65,536
-    # matrices (CUSOLVER_STATUS_INVALID_VALUE on the H100, torch 2.11)
-    ev = np.linalg.eigvalsh(r.cpu().numpy())
-    return torch.from_numpy(
-        (ev[..., -1] / np.maximum(ev[..., 0], 1e-300)).max(axis=-1))
-
-
 def golden_scene(name, capture, cfg, n: int, gate: int) -> np.ndarray:
     """The float64 golden of scene product ``name`` on frames 1..n of
     ``capture`` (frame 0 the base)."""
@@ -3215,30 +2412,6 @@ LIVE_SERVE_FRAMES = 2 * BATCH + 1   # phase 21's serve capture: 1,024 requests
 # (one frame of chirps, 8.192 ms: 122 frames/s), and above it
 LIVE_FPS, LIVE_STRESS_FPS = 100, 200
 LIVE_CLI_FRAMES = 65      # frames of phase 21's track capture
-
-
-class ReadyWatch(io.TextIOBase):
-    """stdout for ``cli serve``: keeps its lines and sets ``ready`` at
-    its ``{"event": "ready"}`` (shared with tests/test_torch_serve.py).
-    ``on_ready``, if given, runs there, in serve's thread, after the
-    warm-up's last launch and before the first receive."""
-
-    def __init__(self, on_ready=None):
-        self.lines = []
-        self.ready = threading.Event()
-        self.on_ready = on_ready
-        self._part = ""
-
-    def write(self, s):
-        self._part += s
-        *done, self._part = self._part.split("\n")
-        for ln in done:
-            self.lines.append(ln)
-            if ln.strip() == '{"event": "ready"}':
-                if self.on_ready is not None:
-                    self.on_ready()
-                self.ready.set()
-        return len(s)
 
 
 @contextlib.contextmanager
@@ -3752,31 +2925,6 @@ def once(*kernels) -> dict:
     return {k: int(k in kernels) for k in range(1, 9)}
 
 
-def metrics_close(got: dict, want: dict, cfg) -> None:
-    """Object or track metrics held as ``tests/test_torch_evaluate.py``
-    holds them: counts, ids and switches exact; the range and velocity
-    RMSEs within 1e-5 of the larger of the RMSE and the largest truth
-    (|RMSE(a) - RMSE(b)| <= max |a - b|, each estimate within 1e-5
-    relative, phase 19's centroid gate); the azimuth RMSE within 1e-3 deg
-    (``compare``'s azimuth gate)."""
-    assert list(got) == list(want)
-    dt = cfg.num_chirps * cfg.chirp_interval_s
-    truth = {
-        "range_rmse_m": max(abs(r) + abs(v) * (want["frames"] + 1) * dt
-                            for r, v in zip(want["ranges_m"],
-                                            want["velocities_mps"])),
-        "velocity_rmse_mps": max(abs(v) for v in want["velocities_mps"]),
-    }
-    for k, w in want.items():
-        g = got[k]
-        if k == "azimuth_rmse_deg":
-            assert abs(g - w) <= 1e-3, (k, g, w)
-        elif k in truth:
-            assert abs(g - w) <= 1e-5 * max(abs(w), truth[k]), (k, g, w)
-        else:
-            assert g == w, (k, g, w)
-
-
 def record_flips(got: list, want: list) -> int:
     """Detection-set differences between two runs' records, frame for
     frame."""
@@ -3784,23 +2932,6 @@ def record_flips(got: list, want: list) -> int:
     cells = [[{(d["range_m"], d["velocity_mps"]) for d in r["detections"]}
               for r in recs] for recs in (got, want)]
     return sum(len(a ^ b) for a, b in zip(*cells))
-
-
-def azimuth_error(records, targets, cfg) -> float:
-    """Mean |azimuth error| of each record's strongest detection within
-    0.5 m of each target's range at that frame."""
-    frame_s = cfg.num_chirps * cfg.chirp_interval_s
-    errs = []
-    for rec in records:
-        for r0, v, az, _ in targets:
-            r = r0 + v * rec["frame"] * frame_s
-            near = [d for d in rec["detections"]
-                    if abs(d["range_m_interp"] - r) < 0.5]
-            if near:
-                best = max(near, key=lambda d: d["power"])
-                errs.append(abs(best["azimuth_deg"] - az))
-    assert errs, "no detection near a target"
-    return float(np.mean(errs))
 
 
 @contextlib.contextmanager
@@ -4325,41 +3456,6 @@ SHARD_LAUNCHES = (  # world size, meshes of one worker launch, cases
 SHARD_REPEAT = 5   # timed calls of each case after its first
 
 
-def start_ranks(n: int, store: str, argv) -> list:
-    """``n`` processes of ``python -m radar_tpu_torch.parallel.multihost``
-    joined through the ``file://`` store at ``store`` (no TCP port to
-    race for); ``argv`` is the rest of the command line, a list or a
-    function of the rank giving one."""
-    return [subprocess.Popen(
-        [sys.executable, "-m", "radar_tpu_torch.parallel.multihost",
-         "--coordinator", f"file://{store}", "--num-processes", str(n),
-         "--process-id", str(r), *(argv(r) if callable(argv) else argv)],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for r in range(n)]
-
-
-def finish_ranks(procs: list, timeout: float = 240.0) -> str:
-    """Wait for every rank of :func:`start_ranks`, all within one
-    deadline; any rank's failure or timeout raises (the others are
-    killed).  Returns rank 0's standard output."""
-    deadline = time.monotonic() + timeout
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(
-                timeout=max(1.0, deadline - time.monotonic())))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, (so, se)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, (
-            f"rank {r} of {len(procs)} failed (rc {p.returncode}):\n"
-            f"{so[-2000:]}\n{se[-4000:]}")
-    return outs[0][0]
-
-
 def launch_ranks(n: int, argv: list, timeout: float = 240.0) -> str:
     """:func:`start_ranks` over a fresh store, then :func:`finish_ranks`."""
     with tempfile.TemporaryDirectory() as tmp:
@@ -4816,16 +3912,11 @@ TAIL_SPIN_CYCLES = 10_000_000   # ~5 ms of device clock ahead of each call
 def bench_config(name: str):
     """``RadarConfig`` of the ``radar`` block of
     ``perfbench/configs/<name>.json``, a benchmark configuration."""
-    from radar_tpu_torch.config import RadarConfig
+    from perfbench.drivers.resident3d import radar_config
 
     with open(os.path.join(ROOT, "perfbench", "configs",
                            f"{name}.json")) as f:
-        radar = json.load(f)["radar"]
-
-    def frozen(v):      # nested tuples, so the configuration hashes
-        return tuple(frozen(x) for x in v) if isinstance(v, list) else v
-
-    return RadarConfig(**{k: frozen(v) for k, v in radar.items()})
+        return radar_config(json.load(f)["radar"])
 
 
 def closed_loop_split(pipe, slots, base, n: int) -> tuple[float, dict]:
@@ -5114,13 +4205,6 @@ def aoa2d_phase(gpu, dev) -> dict:
         "bound_by": bound_by,
         "library_ms": None,
     }
-
-
-def f32_ulps_apart(got: torch.Tensor, want: torch.Tensor) -> tuple:
-    """(elements not bit-equal, elements more than 1 f32 ulp apart)."""
-    same = got == want
-    near = torch.nextafter(want, got) == got
-    return int((~same).sum()), int((~(same | near)).sum())
 
 
 def snapshots_phase(gpu, dev) -> dict:

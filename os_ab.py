@@ -11,9 +11,10 @@ A, B, B, A), with the tree's own ``radar_tpu_torch`` first on the path:
 its kernels build from its own sources, and the process calls only the
 wrappers ``ops.cuda.oscfar.os_cfar_2d_cuda`` and ``os_cfar_hits_cuda``,
 whose calls have not changed since the kernels were ported.  The maps
-and the timing are this tree's ``chip_smoke``: the two-target scene's
-512 power maps (seed 0), its 128 NCI sums of 4 maps,
-``chip_smoke.adversarial_os_maps``, and 128 of the scene's maps with a
+and the timing are this checkout's (its ``radar_tpu_torch/testing.py``
+and ``utils/timing.py``, loaded by path): ``chip_smoke.py``'s two-target
+scene's 512 power maps (seed 0), its 128 NCI sums of 4 maps,
+``testing.adversarial_os_maps``, and 128 of the scene's maps with a
 decimated ring (stride 3) and with another window (guard (1, 1), train
 (2, 3)), the two rings the kernels take as a list of offsets.  Every
 output is held bit for bit to the plain versions (``ops.cfar.os_cfar_2d``
@@ -21,7 +22,7 @@ and ``os_cfar_hits``), and every run's outputs to the first run's (one
 sha256 over all of them).
 
 Prints one JSON line a run: the tree, device-only ms of each kernel on
-each map set (``chip_smoke.alternate``, median of 10), and the digest;
+each map set (``timing.alternate``, median of 10), and the digest;
 then the card (nvidia-smi name and power limit) and, for each map set
 and kernel, each tree's two times.  Exits non-zero where a check fails
 or a run does not finish.
@@ -43,10 +44,19 @@ CHILD = ("import importlib.util, sys\n"
          "mod.run_tree(sys.argv[2])\n")
 
 
-def _chip_smoke():
+TARGETS = ((3.0, 2.0, 20.0, 2500.0), (8.0, -4.0, -35.0, 1500.0))
+BATCH, K_DET = 512, 16   # chip_smoke.py's scene, batch and K
+
+
+def _here(path: str):
+    """This checkout's ``radar_tpu_torch/<path>`` loaded by path (it
+    imports only numpy and torch at the top), so that every tree is
+    checked and timed by the same code."""
     spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+        "os_ab_" + os.path.basename(path)[:-3],
+        os.path.join(HERE, "radar_tpu_torch", path))
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod   # a dataclass looks its module up
     spec.loader.exec_module(mod)
     return mod
 
@@ -69,13 +79,13 @@ def run_tree(tree: str) -> None:
         os_cfar_hits_cuda,
     )
 
-    cs = _chip_smoke()
+    testing, timing = _here("testing.py"), _here("utils/timing.py")
     dev = torch.device("cuda:0")
     _build.load()
     cfg = RadarConfig()
-    capture = synthesize_capture([SceneTarget(*t) for t in cs.TARGETS],
-                                 cs.BATCH + 1, cfg, noise_std=5.0, seed=0)
-    pipe = RDPipeline(cfg, cs.K_DET, device=dev)
+    capture = synthesize_capture([SceneTarget(*t) for t in TARGETS],
+                                 BATCH + 1, cfg, noise_std=5.0, seed=0)
+    pipe = RDPipeline(cfg, K_DET, device=dev)
     base = pipe.prepare_base(capture[0])
     frames = torch.from_numpy(capture[1:]).to(dev)
     consts = dict(pipe.named_buffers())
@@ -87,9 +97,9 @@ def run_tree(tree: str) -> None:
     power = power_from_shorts_cuda(frames, base, cfg, consts)
     p_sum = power_from_shorts_cuda(frames, base, cfg_mean, consts).reshape(
         -1, 4, d_size, r_size).sum(dim=1)
-    sets = {f"{cs.BATCH} maps": (power, cfg_os),
+    sets = {f"{BATCH} maps": (power, cfg_os),
             f"{p_sum.shape[0]} NCI sums": (p_sum, cfg_int),
-            **cs.adversarial_os_maps(power, cfg_os),
+            **testing.adversarial_os_maps(power, cfg_os),
             "stride 3": (power[:128], dataclasses.replace(
                 cfg_os, cfar_os_stride=3)),
             "guard (1,1) train (2,3)": (power[:128], dataclasses.replace(
@@ -101,16 +111,19 @@ def run_tree(tree: str) -> None:
         assert torch.equal(th, os_cfar_2d(p, c)[1]), f"kernel 5, {name}"
         assert torch.equal(hits, os_cfar_hits(p, c)), f"kernel 6, {name}"
         outputs += [th, hits]
-        t5[name] = cs.alternate({"k": lambda x: os_cfar_2d_cuda(x, c)}, p,
-                                device_only=True)["k"]
-        t6[name] = cs.alternate({"k": lambda x: os_cfar_hits_cuda(x, c)}, p,
-                                device_only=True)["k"]
+        t5[name] = timing.alternate(
+            {"k": lambda x: os_cfar_2d_cuda(x, c)}, p, device_only=True)["k"]
+        t6[name] = timing.alternate(
+            {"k": lambda x: os_cfar_hits_cuda(x, c)}, p, device_only=True)["k"]
     print(json.dumps({"tree": tree, "os_threshold": t5, "os_hits": t6,
-                      "digest": cs.outputs_digest(outputs)}), flush=True)
+                      "digest": testing.outputs_digest(outputs)}),
+          flush=True)
 
 
 def main(trees: list[str]) -> int:
     import torch
+
+    from radar_tpu_torch.utils.device import nvidia_smi_card
 
     if not trees:
         print(__doc__, file=sys.stderr)
@@ -135,7 +148,7 @@ def main(trees: list[str]) -> int:
     if len(digests) != 1:
         print(f"os_ab: the trees' outputs differ: {digests}", file=sys.stderr)
         return 1
-    print(f"nvidia-smi: {_chip_smoke().card()}; outputs bit-identical across "
+    print(f"nvidia-smi: {nvidia_smi_card()}; outputs bit-identical across "
           f"runs (sha256 {digests.pop()})")
     for kernel in ("os_threshold", "os_hits"):
         for name in runs[0][kernel]:

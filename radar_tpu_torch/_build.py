@@ -194,75 +194,6 @@ def build_log() -> str:
     return path.read_text() if path.is_file() else ""
 
 
-def _declare(lib) -> None:
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    fn = lib.radar_mega_detect
-    fn.argtypes = (
-        [ptr] * 11          # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
-                            # z, power, tickets, work
-        + [i64]             # work words
-        + [ptr] * 5         # top_idx, top_val, nbr, num_hits, snaps
-        + [i32] * 17        # geometry, clutter, passes, CFAR kind and
-                            # window integers
-        + [ctypes.c_float,  # coef
-           ptr]             # stream
-    )
-    fn.restype = i32
-    fn = lib.radar_mega_maps
-    fn.argtypes = (
-        [ptr] * 10          # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
-                            # z, power, thresh
-        + [i32] * 15        # geometry, clutter, passes, CFAR kind and
-                            # window
-        + [ctypes.c_float,  # coef
-           ptr]             # stream
-    )
-    fn.restype = i32
-    fn = lib.radar_cfar_threshold
-    fn.argtypes = [ptr] * 2 + [i32] * 9 + [ctypes.c_float, ptr]
-    fn.restype = i32
-    fn = lib.radar_topk
-    fn.argtypes = ([ptr] * 5     # x, val, idx, tickets, work
-                   + [i64]       # work words
-                   + [i32] * 3   # rows, n, k
-                   + [ptr])
-    fn.restype = i32
-    for name in ("radar_os_hits", "radar_os_threshold"):
-        fn = getattr(lib, name)
-        fn.argtypes = ([ptr] * 3   # power, hits / thresh, offsets
-                       + [i32] * 10 + [ctypes.c_float, ptr])
-        fn.restype = i32
-    fn = lib.radar_masked_argmax
-    fn.argtypes = [ptr] * 3 + [i32] * 3 + [ptr]   # x, idx, mag; rows, n, w
-    fn.restype = i32
-    fn = lib.radar_fused_range
-    fn.argtypes = ([ptr] * 5      # raw, base_raw, a2, a2s, z
-                   + [i32] * 7    # frames, chirps, rx, 2S, R, clutter_mean,
-                                  # passes
-                   + [ptr])
-    fn.restype = i32
-    fn = lib.radar_detect_tail
-    fn.argtypes = ([ptr] * 9      # top_idx, top_val, nbr, snaps, rows, cal,
-                                  # out_f, out_i, valid
-                   + [i32] * 8    # n_det, n_ch, v, n_bins, R, D, rx, tx
-                   + [ctypes.c_float] * 8   # ops/cuda/tail.tail_scalars
-                   + [ptr])
-    fn.restype = i32
-    fn = lib.radar_snapshot_rows
-    fn.argtypes = ([ptr] * 7      # raw, base, top_idx, a_re, a_im, g_re,
-                                  # g_im
-                   + [i32] * 5    # n_frames, k, n_rows, s2, r_size
-                   + [ptr])
-    fn.restype = i32
-    fn = lib.radar_aoa2d_scan
-    fn.argtypes = ([ptr] * 6      # snaps, steer, az, el, az_out, el_out
-                   + [i32] * 4    # n_det, v, n_az, n_el
-                   + [ptr])
-    fn.restype = i32
-    lib.radar_cuda_error_string.argtypes = [i32]
-    lib.radar_cuda_error_string.restype = ctypes.c_char_p
-
-
 def load_layout():
     """The host library of the kernels' layouts (built first if needed),
     with its C signatures declared."""
@@ -298,11 +229,9 @@ def load_golden() -> ctypes.CDLL:
 
 
 def load():
-    """The kernel library (built first if needed), with its C signatures
-    declared."""
+    """The kernel library (built first if needed); each entry's C
+    signature is its wrapper's (``ops/cuda/_launch.declare``)."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        _declare(lib)
-        _lib = lib
+        _lib = ctypes.CDLL(str(build()))
     return _lib

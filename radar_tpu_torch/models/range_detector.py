@@ -52,8 +52,8 @@ class RangeDetector(nn.Module):
             raise NotImplementedError(
                 f"detect_impl {detect_impl!r} has no counterpart in the "
                 f"port (it takes {', '.join(_IMPLS)}; 'xla', the plain "
-                "version, stands for Pallas interpret mode: ROADMAP.md "
-                "queue 1, 'Not to port')"
+                "version, stands for Pallas interpret mode: ROADMAP.md, "
+                "'Not to port')"
             )
         self.cfg = cfg
         self.detect_impl = detect_impl

@@ -1,15 +1,14 @@
 """Wrappers of the hand-written CUDA kernels (sources in ``csrc/``).
 
-Each wrapper launches its kernel for CUDA tensors and raises for
-anything else; its plain PyTorch version sits in the same module and is
-what CPU tensors get through the dispatcher.  Each counts its launches
-in a counter of ``utils.spans``, :data:`LAUNCH_COUNTERS` in the order
-of kernels 1-8, the ports of the JAX package's eight Pallas kernels.
-The detect op's tail kernel (``tail.py``), ``refine_2d``'s planar
-angle scan (``aoa2d.py``) and the refiners' float64 snapshot rows
-(``snapshots.py``), which replace torch glue and no Pallas kernel,
-count ``launches.tail``, ``launches.aoa2d`` and ``launches.snapshots``
-outside that list."""
+Each wrapper module owns its kernels' C entries: it declares each
+entry's argument types (``_launch.declare``), checks the tensors,
+launches the kernel for CUDA tensors and raises for anything else, and
+counts the launches in a counter ``launches.<name>`` of ``utils.spans``.
+Each kernel's plain PyTorch version is what CPU tensors get through the
+dispatcher and what the tests hold the kernel to.
+:data:`LAUNCH_COUNTERS` names the counters of kernels 1-8, the ports of
+the JAX package's eight Pallas kernels, in that order; the kernels that
+replace torch glue and no Pallas kernel count outside it."""
 
 from radar_tpu_torch.utils import spans
 

@@ -1,4 +1,10 @@
-"""Checks and the launch call shared by the kernel wrappers."""
+"""Checks, the C signatures and the launch call shared by the kernel
+wrappers.
+
+Each wrapper declares its C entry's argument types once, at import, next
+to the function that launches it (:func:`declare`); :func:`launch` hands
+them to ``ctypes`` at the entry's first call, with the trailing stream
+argument and the ``int`` CUDA error code that every entry returns."""
 
 from __future__ import annotations
 
@@ -36,6 +42,33 @@ def check_aligned(name: str, t: torch.Tensor) -> None:
                          "kernels load 16 bytes at a time); pass a copy")
 
 
+# ctypes types of the entries' arguments: pointers (tensors, the stream),
+# int, long long (the work words) and float
+PTR, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+
+# entry -> (argtypes, restype) of the kernel library's C functions
+SIGNATURES: dict[str, tuple[list, type]] = {
+    "radar_cuda_error_string": ([I32], ctypes.c_char_p),
+}
+
+
+def declare(entry: str, argtypes: list) -> None:
+    """Declare the argument types of the C entry ``entry``, in order and
+    without the trailing stream; an entry is declared once."""
+    if entry in SIGNATURES:
+        raise ValueError(f"{entry} is declared twice")
+    SIGNATURES[entry] = ([*argtypes, PTR], I32)
+
+
+def _bound(lib, entry: str):
+    """``lib``'s function ``entry`` with its declared C signature."""
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:
+        fn.argtypes, fn.restype = SIGNATURES[entry]
+    return fn
+
+
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
@@ -67,11 +100,10 @@ def launch(entry: str, device: torch.device, *args) -> None:
     ``args`` and the current stream of ``device``; raise on a non-zero
     CUDA error."""
     lib = _build.load()
+    fn = _bound(lib, entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, entry)(*args, ctypes.c_void_p(stream))
+        err = fn(*args, ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(
-            f"{entry} failed: CUDA error {err} "
-            f"({lib.radar_cuda_error_string(err).decode()})"
-        )
+        text = _bound(lib, "radar_cuda_error_string")(err).decode()
+        raise RuntimeError(f"{entry} failed: CUDA error {err} ({text})")

@@ -21,13 +21,21 @@ from __future__ import annotations
 import torch
 
 from radar_tpu_torch.ops.cuda._launch import (
+    I32,
+    PTR,
     check,
     check_aligned,
+    declare,
     launch,
     ptr,
     require_cuda,
 )
 from radar_tpu_torch.utils import spans
+
+
+declare("radar_aoa2d_scan",
+        [PTR] * 6          # snaps, steer, az, el, az_out, el_out
+        + [I32] * 4)       # n_det, v, n_az, n_el
 
 
 def aoa_2d_scan_cuda(snaps: torch.Tensor, az: torch.Tensor,

@@ -29,8 +29,12 @@ from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cfar import cfar_alpha, go_so_params
 from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import (
+    F32,
+    I32,
+    PTR,
     check,
     check_aligned,
+    declare,
     launch,
     ptr,
     require_cuda,
@@ -63,6 +67,9 @@ def threshold_smem(d_size: int, r_size: int, cfg: RadarConfig) -> int:
     gd, gr = cfg.cfar_guard
     td, tr = cfg.cfar_train
     return layout.threshold_smem(d_size, r_size, gd + td, gr + tr)
+
+
+declare("radar_cfar_threshold", [PTR] * 2 + [I32] * 9 + [F32])
 
 
 def ca_cfar_2d_cuda(

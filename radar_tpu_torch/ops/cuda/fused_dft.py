@@ -30,8 +30,11 @@ import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cuda._launch import (
+    I32,
+    PTR,
     check,
     check_aligned,
+    declare,
     launch,
     ptr,
     require_cuda,
@@ -74,6 +77,11 @@ def range_planes(shorts: torch.Tensor, base_cube: torch.Tensor | None,
     if shorts.device.type == "cpu":
         return fused_range_planes(shorts, base_cube, cfg)
     return fused_range_planes_cuda(shorts, base_cube, cfg, consts)
+
+
+declare("radar_fused_range",
+        [PTR] * 5          # raw, base_raw, a2, a2s, z
+        + [I32] * 7)       # frames, chirps, rx, 2S, R, clutter_mean, passes
 
 
 def fused_range_planes_cuda(shorts: torch.Tensor,

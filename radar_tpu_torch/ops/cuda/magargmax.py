@@ -22,7 +22,14 @@ from __future__ import annotations
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
-from radar_tpu_torch.ops.cuda._launch import launch, ptr, require_cuda
+from radar_tpu_torch.ops.cuda._launch import (
+    I32,
+    PTR,
+    declare,
+    launch,
+    ptr,
+    require_cuda,
+)
 from radar_tpu_torch.ops.detect import scan_window_argmax
 from radar_tpu_torch.utils import spans
 
@@ -34,6 +41,10 @@ def masked_argmax(spectrum: torch.Tensor, cfg: RadarConfig = DEFAULT_CONFIG):
     if spectrum.device.type == "cpu":
         return scan_window_argmax(spectrum, cfg)
     return masked_argmax_cuda(spectrum, cfg)
+
+
+declare("radar_masked_argmax",
+        [PTR] * 3 + [I32] * 3)   # x, idx, mag; rows, n, w
 
 
 def masked_argmax_cuda(spectrum: torch.Tensor,

@@ -41,11 +41,17 @@ import numpy as np
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.ops.cells import gather_snapshots, neighbour_samples
 from radar_tpu_torch.ops.cfar import cfar_detect
 from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import (
+    F32,
+    I32,
+    I64,
+    PTR,
     check,
     check_aligned,
+    declare,
     launch,
     ptr,
     require_cuda,
@@ -251,11 +257,6 @@ def detections_from_maps(power, dr, di, k: int, cfg: RadarConfig,
     strip-form CFAR of ``cfg.cfar_kind``, the range-edge guard,
     stable-sort top-K and the gathers; lead dims ``lead`` (default
     (B,))."""
-    from radar_tpu_torch.models.rd_pipeline import (
-        gather_snapshots,
-        neighbour_samples,
-    )
-
     lead = (len(power),) if lead is None else tuple(lead)
     hits = power > _threshold_reference(power, cfg)
     r_size = cfg.range_fft_size
@@ -343,6 +344,16 @@ def _detect_gate(cfg: RadarConfig, k: int, n_frames: int = 1) -> int:
         cfg.cfar_guard[1] + cfg.cfar_train[1], k, n_frames)
     layout.check_smem("detect kernel", smem, d_size, r_size)
     return words
+
+
+declare("radar_mega_detect",
+        [PTR] * 11         # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
+                           # z, power, tickets, work
+        + [I64]            # work words
+        + [PTR] * 5        # top_idx, top_val, nbr, num_hits, snaps
+        + [I32] * 17       # geometry, clutter, passes, CFAR kind and
+                           # window integers
+        + [F32])           # coef
 
 
 def detections_from_shorts_cuda(
@@ -461,6 +472,14 @@ def power_cfar_from_shorts_cuda(shorts, base_cube,
                                 consts=None):
     """:func:`power_cfar_from_shorts` through the CUDA kernel."""
     return _maps_cuda(shorts, base_cube, cfg, consts, with_cfar=True)
+
+
+declare("radar_mega_maps",
+        [PTR] * 10         # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
+                           # z, power, thresh
+        + [I32] * 15       # geometry, clutter, passes, CFAR kind and
+                           # window
+        + [F32])           # coef
 
 
 def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):

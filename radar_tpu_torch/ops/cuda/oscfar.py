@@ -36,7 +36,16 @@ import torch
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
 from radar_tpu_torch.ops.cfar import os_ring_params
 from radar_tpu_torch.ops.cuda import layout
-from radar_tpu_torch.ops.cuda._launch import check, launch, ptr, require_cuda
+from radar_tpu_torch.ops.cuda._launch import (
+    F32,
+    I32,
+    PTR,
+    check,
+    declare,
+    launch,
+    ptr,
+    require_cuda,
+)
 from radar_tpu_torch.utils import spans
 
 
@@ -93,6 +102,11 @@ def _offset_table(offsets, wd: int, wr: int, r_size: int,
     w = layout.os_pitch(r_size, wr)
     return torch.tensor([(wd + dd) * w + wr + dr for dd, dr in offsets],
                         dtype=torch.int32, device=device)
+
+
+# power, hits / thresh, offsets; the geometry and window integers; alpha
+declare("radar_os_hits", [PTR] * 3 + [I32] * 10 + [F32])
+declare("radar_os_threshold", [PTR] * 3 + [I32] * 10 + [F32])
 
 
 def _run(entry: str, power: torch.Tensor, out_dtype, cfg: RadarConfig,

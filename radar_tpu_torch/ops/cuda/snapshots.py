@@ -24,8 +24,11 @@ from __future__ import annotations
 import torch
 
 from radar_tpu_torch.ops.cuda._launch import (
+    I32,
+    PTR,
     check,
     check_aligned,
+    declare,
     launch,
     ptr,
     require_cuda,
@@ -49,6 +52,11 @@ def snapshot_rows_reference(raw, base_raw, top_idx, a_re, a_im,
     g_re = torch.einsum("bkj,bmj->bkm", a_re[r_bin], x).to(torch.float32)
     g_im = torch.einsum("bkj,bmj->bkm", a_im[r_bin], x).to(torch.float32)
     return g_re, g_im
+
+
+declare("radar_snapshot_rows",
+        [PTR] * 7          # raw, base, top_idx, a_re, a_im, g_re, g_im
+        + [I32] * 5)       # n_frames, k, n_rows, s2, r_size
 
 
 def snapshot_rows_cuda(raw, base_raw, top_idx, a_re, a_im):

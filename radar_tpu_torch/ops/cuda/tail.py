@@ -30,7 +30,17 @@ import torch
 
 from radar_tpu_torch.config import LIGHT_SPEED, RadarConfig
 from radar_tpu_torch.ops.aoa import _angle_rows
-from radar_tpu_torch.ops.cuda._launch import check, launch, ptr, require_cuda
+from radar_tpu_torch.ops.cells import RDResult
+from radar_tpu_torch.ops.cuda._launch import (
+    F32,
+    I32,
+    PTR,
+    check,
+    declare,
+    launch,
+    ptr,
+    require_cuda,
+)
 from radar_tpu_torch.utils import spans
 
 
@@ -88,6 +98,13 @@ def tail_tensors(cfg: RadarConfig, n_ch: int, device: torch.device):
     return rows, _cal(cfg, device)
 
 
+declare("radar_detect_tail",
+        [PTR] * 9          # top_idx, top_val, nbr, snaps, rows, cal,
+                           # out_f, out_i, valid
+        + [I32] * 8        # n_det, n_ch, v, n_bins, R, D, rx, tx
+        + [F32] * 8)       # tail_scalars
+
+
 def result_from_kernel_cuda(top_idx, top_val, nbr5, num_hits, snaps,
                             cfg: RadarConfig):
     """``assemble_result_from_kernel`` through the CUDA kernel, for the
@@ -100,8 +117,6 @@ def result_from_kernel_cuda(top_idx, top_val, nbr5, num_hits, snaps,
     and no upload, so a CUDA graph captures it.  Raises for tensors that
     are not on a CUDA device, for other dtypes or shapes, when the build
     fails and when the launch fails."""
-    from radar_tpu_torch.models.rd_pipeline import RDResult
-
     require_cuda(top_idx, "detect tail",
                  "models.rd_pipeline.assemble_result_from_kernel_reference")
     dev = top_idx.device

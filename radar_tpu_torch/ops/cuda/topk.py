@@ -23,8 +23,12 @@ import torch
 
 from radar_tpu_torch.ops.cuda import layout
 from radar_tpu_torch.ops.cuda._launch import (
+    I32,
+    I64,
+    PTR,
     check,
     check_aligned,
+    declare,
     launch,
     ptr,
     require_cuda,
@@ -40,6 +44,11 @@ def top_k_sorted(flat: torch.Tensor, k: int):
     stable descending sort does.  Returns (values, int32 indices)."""
     vals, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k].to(torch.int32)
+
+
+declare("radar_topk", [PTR] * 5      # x, val, idx, tickets, work
+        + [I64]                      # work words
+        + [I32] * 3)                 # rows, n, k
 
 
 def topk_cuda(flat: torch.Tensor, k: int):

@@ -19,8 +19,11 @@ On the card (marked ``card``; they skip without one): the kernel equal
 on the 181 x 61 grid and at V = 8 (the 2-TX planar layout), at B = 512,
 K = 16 and at N = 1; on exhausted slots and all-zero snapshots (ties to
 index 0), a tie across the plain scan's chunk boundary, NaN snapshots
-and a table with NaN powers (the first NaN in grid order wins); with TF32 on and off; ``launches.aoa2d``
-rising by one per ``refine_2d``.  This file imports no JAX, so the card
+and a table with NaN powers (the first NaN in grid order wins); with TF32 on and off; ``refine_2d``
+at the 3-TX deployment, B = 512, on ``detect``'s cells of a two-target
+scene (equal to the plain scan, each frame's strongest detection on a
+target); ``launches.aoa2d`` rising by one per ``refine_2d``, at B = 512
+too.  This file imports no JAX, so the card
 tests run where JAX is absent:
 
     python -m pytest tests/test_torch_aoa2d.py --noconftest -p no:cacheprovider
@@ -34,11 +37,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from card import cuda  # noqa: E402, F401
 from perfbench import scene_planar  # noqa: E402
 from perfbench.drivers.resident3d import radar_config  # noqa: E402
 from perfbench.reference import aoa2d as reference  # noqa: E402
 from radar_tpu_torch import _build  # noqa: E402
 from radar_tpu_torch.config import RadarConfig  # noqa: E402
+from radar_tpu_torch.io.synthetic import (  # noqa: E402
+    SceneTarget,
+    synthesize_capture,
+)
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops import aoa  # noqa: E402
 from radar_tpu_torch.ops.cuda.aoa2d import aoa_2d_scan_cuda  # noqa: E402
@@ -52,15 +60,11 @@ SMALL_3D = dict(RADAR_3D, num_chirps=96, num_samples=64)
 
 
 PLANAR3 = radar_config(RADAR_3D)                              # V = 12
+# a scene at PLANAR3: (range m, velocity m/s, azimuth deg, amplitude,
+# elevation deg)
+TARGETS_3D = ((3.0, 2.0, 20.0, 2500.0, 8.0), (8.0, -4.0, -35.0, 1500.0, -12.0))
 PLANAR2 = RadarConfig(num_tx=2, tx_positions_wl=((0.0, 0.0), (0.0, 0.5)))
 CONFIGS = {"3tx": PLANAR3, "2tx": PLANAR2}
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _snapshots(cfg, shape, seed):
@@ -251,6 +255,34 @@ def test_kernel_scan_on_exhausted_slots(cuda):
         assert torch.equal(a, b)
 
 
+@pytest.mark.card
+def test_refine_2d_on_the_deployments_cells(cuda):
+    """``refine_2d`` at the 3-TX deployment, B = 512, K = 16, on
+    ``detect``'s cells of a two-target scene: the kernel's angles equal
+    the plain scan's on ``refine_2d``'s own compensated snapshots,
+    ``refine_2d`` returns them, and each frame's strongest detection lies
+    on a target (within 8 degrees of azimuth and 4 of elevation)."""
+    capture = synthesize_capture([SceneTarget(*t) for t in TARGETS_3D],
+                                 513, PLANAR3, noise_std=5.0, seed=28)
+    pipe = RDPipeline(PLANAR3, 16, device=cuda)
+    base = pipe.prepare_base(capture[0])
+    x = torch.from_numpy(capture[1:]).to(cuda)
+    res = pipe.detect(x, base)
+    d_bin, r_bin = res.doppler_bin, res.range_bin
+    snaps = aoa.mimo_compensate(pipe.cell_snapshots(x, base, d_bin, r_bin),
+                                d_bin, PLANAR3)
+    got = _both(snaps, _grid(PLANAR3, cuda))
+    refined = pipe.refine_2d(x, base, d_bin, r_bin)
+    for a, b in zip(refined, got):
+        assert torch.equal(a, b)
+    assert res.valid[:, 0].all()
+    az, el = refined[0][:, 0], refined[1][:, 0]
+    on_target = torch.zeros_like(res.valid[:, 0])
+    for _, _, t_az, _, t_el in TARGETS_3D:
+        on_target |= ((az - t_az).abs() <= 8.0) & ((el - t_el).abs() <= 4.0)
+    assert on_target.all(), int((~on_target).sum())
+
+
 def _table(cfg, dev):
     """A copy of ``cfg``'s grid, its steering table writable."""
     az, el, steer = _grid(cfg, dev)
@@ -321,9 +353,11 @@ def test_kernel_scan_independent_of_tf32(cuda):
 
 
 @pytest.mark.card
-def test_launches_aoa2d_one_per_refine_2d(cuda):
-    cfg = radar_config(SMALL_3D)
-    frames = scene_planar.make_frames(SMALL_3D, 9, 9, cuda)
+@pytest.mark.parametrize("radar,n", [(SMALL_3D, 8), (RADAR_3D, 512)],
+                         ids=["small", "b512"])
+def test_launches_aoa2d_one_per_refine_2d(cuda, radar, n):
+    cfg = radar_config(radar)
+    frames = scene_planar.make_frames(radar, n + 1, 9, cuda)
     pipe = RDPipeline(cfg, 16, device=cuda)
     base = pipe.prepare_base(frames[0])
     res = pipe.detect(frames[1:], base)

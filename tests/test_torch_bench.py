@@ -11,7 +11,7 @@
   ``HeadlineLoop.step`` against JAX ``RDPipeline(RadarConfig(
   dft_precision='default'), 16).detect(frames ^ i, base)``, each
   RDResult field within the JAX package's cross-implementation gate
-  (``chip_smoke.compare``, as tests/test_torch_pipeline.py holds
+  (``testing.compare``, as tests/test_torch_pipeline.py holds
   ``detect``: at most 2 detection flips, power 2e-4 relative, azimuth
   1e-3 deg), and the fold within 2e-4 relative of JAX's carry (the
   fold is dominated by the power sums, which the gate holds to 2e-4);
@@ -37,7 +37,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
 from radar_tpu.models import rd_pipeline as jax_rd  # noqa: E402
@@ -45,6 +44,7 @@ from radar_tpu_torch import bench  # noqa: E402
 from radar_tpu_torch.convert import config_from_jax, result_to_numpy  # noqa: E402
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops.cuda.megakernel import detections_from_shorts  # noqa: E402
+from radar_tpu_torch.testing import compare  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 KEYS = {"metric", "value", "unit", "vs_baseline", "high_mode_fps",

@@ -8,7 +8,7 @@
   cluster ids, counts, cells and extents exact, total power and
   centroids within rtol 1e-5 (the two sum the map in different orders);
 * ``detect_objects`` end to end against JAX's (which runs the maps
-  kernel in interpret mode): ``chip_smoke.compare`` on the detections,
+  kernel in interpret mode): ``testing.compare`` on the detections,
   the cluster fields exact on flip-free frames (power-derived ones at
   compare's power tolerance).
 """
@@ -23,7 +23,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare  # noqa: E402
 from radar_tpu import golden as jax_golden  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
@@ -37,6 +36,7 @@ from radar_tpu_torch.convert import (  # noqa: E402
 )
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops import cluster  # noqa: E402
+from radar_tpu_torch.testing import compare, nbr_of  # noqa: E402
 
 SMALL = dict(num_samples=64, num_chirps=64, num_rx=2)
 INT_FIELDS = ("cluster_id", "num_clusters", "cells", "extent_doppler_bins",
@@ -241,8 +241,6 @@ def test_detect_objects_matches_jax(geometry):
     power = pipe._maps(torch.from_numpy(frames),
                        None if base is None else base_from_numpy(base),
                        want_hits=False)[0]
-    from chip_smoke import nbr_of
-
     got["nbr"] = nbr_of(power, got)
     flips, _ = compare(got, want, cfg, max_flips=2)
     clean = [f for f in range(len(frames))

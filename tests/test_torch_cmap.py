@@ -8,8 +8,8 @@ golden, on the CPU.
   self-seeded form (a tail block shorter than ``block`` included), the
   seeded form, and a batch shorter than one block;
 * ``detect_cmap`` end to end against JAX's (the maps kernel in interpret
-  mode): ``chip_smoke.compare`` on the detections, the returned map as
-  ``chip_smoke.maps_check`` holds power maps.
+  mode): ``testing.compare`` on the detections, the returned map as
+  ``testing.maps_check`` holds power maps.
 """
 
 import functools
@@ -22,7 +22,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare, maps_check, nbr_of  # noqa: E402
 from radar_tpu import golden as jax_golden  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
@@ -35,6 +34,7 @@ from radar_tpu_torch.convert import (  # noqa: E402
 )
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops import cmap  # noqa: E402
+from radar_tpu_torch.testing import compare, maps_check, nbr_of  # noqa: E402
 
 SMALL = dict(num_samples=64, num_chirps=64, num_rx=2)
 

@@ -25,12 +25,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import F32_EPS  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.capture import write_capture  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
 from radar_tpu_torch import cli  # noqa: E402
+from radar_tpu_torch.testing import F32_EPS  # noqa: E402
 from radar_tpu_torch.utils.points import write_point_cloud  # noqa: E402
 
 SLOPE4 = 4 * 5.987

@@ -11,7 +11,7 @@ the CPU, at the small geometry of ``tests/test_evaluate.py`` (64 x 64,
   default geometry's ratio is asserted, 108 / 128;
 * ``pd_curve`` at 1 and 4 frames integrated: every ``EvalPoint`` exact;
 * ``object_metrics`` and ``track_metrics`` (EKF and alpha-beta, with
-  clustering on and off), held by ``chip_smoke.metrics_close``, as
+  clustering on and off), held by ``testing.metrics_close``, as
   phase 22 holds the card: counts, ids and switches exact.  An RMSE is
   an error of estimates, and |RMSE(a) - RMSE(b)| <= max |a - b|, so
   each RMSE is held as its estimates are: the range and velocity RMSEs
@@ -20,7 +20,7 @@ the CPU, at the small geometry of ``tests/test_evaluate.py`` (64 x 64,
   larger of the RMSE and the largest truth (a centroid a few mm off
   leaves an RMSE of ~2 mm, whose 1e-5 is below f32 rounding of the
   centroids); the azimuth RMSE within 1e-3 deg, the azimuth gate of
-  ``chip_smoke.compare`` (the two packages' angle FFTs differ by ~1e-4
+  ``testing.compare`` (the two packages' angle FFTs differ by ~1e-4
   deg a detection, as large as the RMSE itself at ~1e-3 deg);
 * ``device='cuda'``, the default, raises ``RuntimeError`` without CUDA;
 * ``cli eval --device cpu`` with ``--objects --tracks`` and with
@@ -37,12 +37,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import metrics_close  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu import evaluate as jax_eval  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu_torch import cli, evaluate  # noqa: E402
 from radar_tpu_torch.convert import config_from_jax  # noqa: E402
+from radar_tpu_torch.testing import metrics_close  # noqa: E402
 
 SMALL = RadarConfig(num_samples=64, num_chirps=64, num_rx=2, cfar_pfa=1e-4)
 

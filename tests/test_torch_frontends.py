@@ -9,7 +9,7 @@ package, on the CPU.
 * ``RDPipeline.detect`` for 'fused-pallas', 'planar', 'fft' and 'mxu',
   with and without ``use_base_frame``, against the JAX pipeline of the
   same ``rd_impl`` with ``cfar_impl='xla'``: detections exact (0 flips)
-  and power within rtol 2e-4 (``chip_smoke.compare``).  'fused-pallas'
+  and power within rtol 2e-4 (``testing.compare``).  'fused-pallas'
   pins kernel 8, which raises for CPU tensors; here its wrapper is
   replaced by the plain version, so the test holds the pipeline's
   plumbing around the kernel, and ``chip_smoke.py`` holds the kernel
@@ -35,7 +35,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.capture import write_capture  # noqa: E402
@@ -71,6 +70,7 @@ from radar_tpu_torch.ops.fuseddft import (  # noqa: E402
     fused_range_planes,
     fused_rd_planes,
 )
+from radar_tpu_torch.testing import compare  # noqa: E402
 
 TARGETS = [
     SceneTarget(range_m=3.0, velocity_mps=2.0, azimuth_deg=20.0,

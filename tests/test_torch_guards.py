@@ -33,6 +33,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "radar_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "os_ab.py"
 ]
+LOWER_FILES = sorted((ROOT / "radar_tpu_torch" / "ops").rglob("*.py")) + sorted(
+    (ROOT / "radar_tpu_torch" / "utils").rglob("*.py"))
 SMALL = dict(num_samples=64, num_chirps=64, num_rx=2)
 
 
@@ -59,6 +61,21 @@ def test_no_jax_imports(path):
         assert not _foreign(module), f"{path.name} imports {module}"
 
 
+@pytest.mark.parametrize("path", LOWER_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_ops_and_utils_import_no_higher_layer(path):
+    """The ops and utilities sit below the models, the CLI and the
+    benchmark: none of their modules imports one of those, at the top or
+    inside a function."""
+    higher = ("models", "cli", "bench")
+    for module, name in _imports(path):
+        parts = module.split(".")
+        assert not (parts[0] == "radar_tpu_torch" and (
+            parts[1:2] and parts[1] in higher
+            or len(parts) == 1 and name in higher)), (
+            f"{path.name} imports {module} {name or ''}")
+
+
 def test_importing_the_port_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -76,6 +93,34 @@ def test_importing_the_port_loads_no_jax():
                          timeout=120).stdout.split(maxsplit=1)
     assert int(out[0]) >= 22          # every module was imported
     assert out[1].strip() == "[]"
+
+
+def _top_level_names(path: Path) -> set:
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+    return names
+
+
+def test_tests_take_the_checking_helpers_from_testing():
+    """The oracles live in ``radar_tpu_torch/testing.py``: no test imports
+    one from ``chip_smoke``, by name or as an attribute."""
+    helpers = _top_level_names(ROOT / "radar_tpu_torch" / "testing.py")
+    assert {"compare", "tier_power", "ReadyWatch"} <= helpers
+    for path in sorted((ROOT / "tests").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.ImportFrom) and node.module == "chip_smoke":
+                taken = {a.name for a in node.names}
+            elif (isinstance(node, ast.Attribute)
+                  and isinstance(node.value, ast.Name)
+                  and node.value.id == "chip_smoke"):
+                taken = {node.attr}
+            else:
+                continue
+            assert not taken & helpers, (path.name, sorted(taken & helpers))
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch, tmp_path):

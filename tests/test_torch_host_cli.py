@@ -35,10 +35,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import azimuth_error  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu_torch import cli  # noqa: E402
 from radar_tpu_torch.config import RadarConfig as PortConfig  # noqa: E402
+from radar_tpu_torch.testing import azimuth_error  # noqa: E402
 from test_torch_detect_cli import _assert_records_equal  # noqa: E402
 from test_torch_scene_cli import _assert_events_equal  # noqa: E402
 

@@ -9,7 +9,7 @@ golden, on the CPU, at the walking-target geometry of
   gate: the on-device phase is f32), at one and two TX, any chunk;
 * the unvirtualized cube refused with JAX's error;
 * ``RDPipeline(keystone=True)`` end to end against JAX's through
-  ``chip_smoke.compare``, the walking target refocused; an rd_impl that
+  ``testing.compare``, the walking target refocused; an rd_impl that
   has no complex cube refused with JAX's ``ValueError``.
 """
 
@@ -24,7 +24,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare, nbr_of  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.synthetic import (  # noqa: E402
     SceneTarget,
@@ -45,6 +44,7 @@ from radar_tpu_torch.models.rd_pipeline import (  # noqa: E402
     virtualize_cube,
 )
 from radar_tpu_torch.ops import keystone  # noqa: E402
+from radar_tpu_torch.testing import compare, nbr_of  # noqa: E402
 
 WALK_CFG = RadarConfig(num_chirps=512, slope_hz_per_s=4 * 5.987e12)
 WALK_TDM = dataclasses.replace(WALK_CFG, num_chirps=256, num_tx=2)

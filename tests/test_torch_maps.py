@@ -9,7 +9,7 @@ geometries (64 samples x 64 chirps x 2 RX, and a 2-TX case), with
 inputs made from numpy seeds:
 
 * power maps within rtol 2e-4 plus the f32 rounding floor of a DFT
-  dominated by the frame's peak (``chip_smoke.maps_check``), with the
+  dominated by the frame's peak (``testing.maps_check``), with the
   JAX kernel at 'highest': the port computes every tier in plain f32,
   and the JAX 'high' tier's bf16 3-pass products err by up to 7%
   relative on cells 65-70 dB under the peak (2.2x that floor) — the
@@ -21,7 +21,7 @@ inputs made from numpy seeds:
 * top-K bit-exact, ties and exhausted slots included (one total order);
 * snapshots within 1e-4 relative (the port subtracts the base in raw
   space, JAX after the range DFT);
-* the pipelines and the CLI through ``chip_smoke.compare``, the JAX
+* the pipelines and the CLI through ``testing.compare``, the JAX
   package's cross-implementation gate.
 """
 
@@ -36,7 +36,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare, maps_check, threshold_check  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.capture import write_capture  # noqa: E402
@@ -68,6 +67,11 @@ from radar_tpu_torch.ops.cuda.megakernel import (  # noqa: E402
     snapshots_from_shorts,
 )
 from radar_tpu_torch.ops.cuda.topk import top_k_sorted  # noqa: E402
+from radar_tpu_torch.testing import (  # noqa: E402
+    compare,
+    maps_check,
+    threshold_check,
+)
 
 TARGETS = [
     SceneTarget(range_m=3.0, velocity_mps=2.0, azimuth_deg=20.0,

@@ -31,7 +31,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare, golden_check, run_detect  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
 from radar_tpu.models import rd_pipeline as jax_rd  # noqa: E402
@@ -45,6 +44,11 @@ from radar_tpu_torch.convert import (  # noqa: E402
 )
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops.cuda.megakernel import detections_from_shorts  # noqa: E402
+from radar_tpu_torch.testing import (  # noqa: E402
+    compare,
+    golden_check,
+    run_detect,
+)
 
 TARGETS = [
     SceneTarget(range_m=3.0, velocity_mps=2.0, azimuth_deg=20.0,

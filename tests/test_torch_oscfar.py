@@ -12,7 +12,7 @@ made from numpy seeds:
   tests/test_pallas.py);
 * hits equal to ``os_cfar_hits_pallas(interpret=True)`` in both its
   forms and to ``power > threshold``, the exact tie included;
-* the OS pipelines and the CLI through ``chip_smoke.compare``, the JAX
+* the OS pipelines and the CLI through ``testing.compare``, the JAX
   package's cross-implementation gate.
 """
 
@@ -27,7 +27,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu import golden as jax_golden  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
@@ -47,6 +46,7 @@ from radar_tpu_torch.ops.cfar import (  # noqa: E402
     os_cfar_hits,
 )
 from radar_tpu_torch.ops.cuda import layout, oscfar  # noqa: E402
+from radar_tpu_torch.testing import compare  # noqa: E402
 from test_torch_maps import (  # noqa: E402
     TARGETS,
     _jax_pipeline,

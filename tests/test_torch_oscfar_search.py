@@ -3,13 +3,13 @@
 A CUDA kernel cannot run here, so the passes it runs are modelled in
 NumPy and held to the sort:
 
-* ``chip_smoke.os_search_model`` is kernel 5's search pass for pass (the
+* ``testing.os_search_model`` is kernel 5's search pass for pass (the
   ring's min and max as the first bracket, counting passes against a
   pivot interpolated in bit space and clamped to the middle half of the
   bracket, the stop at lo == hi, n_hi == k or n_lo == k - 1, the snap to
-  a ring value).  It lives in ``chip_smoke.py``, whose phase 11 runs it
-  over the card's own maps, holds its thresholds to the kernel's bit for
-  bit and reports its passes.  Here hypothesis-made rings (ties, zeros,
+  a ring value).  ``chip_smoke.py``'s phase 11 runs it over the card's
+  own maps, holds its thresholds to the kernel's bit for bit and reports
+  its passes.  Here hypothesis-made rings (ties, zeros,
   subnormals, +inf, all equal, k = 1, k = N) hold it to ``np.sort``'s
   k-th value, and maps from a seed hold it to the JAX package's OS
   kernels in interpret mode, decimated rings included.
@@ -31,13 +31,6 @@ import jax.numpy as jnp  # noqa: E402
 from hypothesis import given, settings  # noqa: E402
 from hypothesis import strategies as st  # noqa: E402
 
-from chip_smoke import (  # noqa: E402
-    OS_CELLS,
-    OS_STALL,
-    os_pivot,
-    os_search_model,
-    os_warp_passes,
-)
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.ops import cfar as jax_cfar  # noqa: E402
 from radar_tpu.ops.pallas.oscfar_kernel import (  # noqa: E402
@@ -57,6 +50,13 @@ from radar_tpu_torch.ops.cfar import (  # noqa: E402
 )
 from radar_tpu_torch.ops.cuda import layout  # noqa: E402
 from radar_tpu_torch.ops.cuda.megakernel import power_from_shorts_reference  # noqa: E402
+from radar_tpu_torch.testing import (  # noqa: E402
+    OS_CELLS,
+    OS_STALL,
+    os_pivot,
+    os_search_model,
+    os_warp_passes,
+)
 
 WORST_PASSES = 72    # the clamp's bound, stated in oscfar.cu's header
 F32_MAX = np.finfo(np.float32).max

@@ -42,7 +42,6 @@ import jax.numpy as jnp  # noqa: E402
 import torch.distributed as dist  # noqa: E402
 from jax.sharding import Mesh  # noqa: E402
 
-from chip_smoke import finish_ranks, start_ranks  # noqa: E402
 
 from radar_tpu.config import RadarConfig as JaxConfig  # noqa: E402
 from radar_tpu.models.range_detector import (  # noqa: E402
@@ -75,6 +74,7 @@ from radar_tpu_torch.parallel.multihost import (  # noqa: E402
     parse_case,
     worker_capture,
 )
+from radar_tpu_torch.testing import finish_ranks, start_ranks  # noqa: E402
 
 SMALL = dict(num_samples=32, num_chirps=32)
 BATCH, K = 8, 8

@@ -20,7 +20,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import compare  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.capture import write_capture  # noqa: E402
@@ -41,6 +40,7 @@ from radar_tpu_torch.models.rd_pipeline import (  # noqa: E402
 from radar_tpu_torch.ops.cuda.megakernel import detections_from_shorts  # noqa: E402
 from radar_tpu_torch.ops.preproc import mean_clutter_removal  # noqa: E402
 from radar_tpu_torch.ops.window import make_window  # noqa: E402
+from radar_tpu_torch.testing import compare  # noqa: E402
 from radar_tpu_torch.utils import records  # noqa: E402
 
 TARGETS = [

@@ -11,7 +11,7 @@ given the same detected cells):
 * grid angles (Capon's 181-angle scan, the 181 x 61 planar scan) equal
   wherever the golden spectrum's peak beats its runner-up by more than
   1e-3 relative, and within one grid step elsewhere
-  (``chip_smoke.grid_angle_check`` counts those cells);
+  (``testing.grid_angle_check`` counts those cells);
 * the disambiguated angle-FFT azimuth within compare's 1e-3 deg.
 """
 
@@ -24,11 +24,6 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import (  # noqa: E402
-    capon_golden_spectrum,
-    grid_angle_check,
-    planar_golden_spectrum,
-)
 from radar_tpu import golden as jax_golden  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
@@ -41,6 +36,11 @@ from radar_tpu_torch.models.rd_pipeline import (  # noqa: E402
     mimo_compensate,
 )
 from radar_tpu_torch.ops import aoa  # noqa: E402
+from radar_tpu_torch.testing import (  # noqa: E402
+    capon_golden_spectrum,
+    grid_angle_check,
+    planar_golden_spectrum,
+)
 
 MIMO = dict(num_tx=2)
 PLANAR = dict(num_tx=2, tx_positions_wl=((0.0, 0.0), (0.0, 0.5)))

@@ -15,7 +15,7 @@ the angle DFT truncates, a Blackman window, a 61-angle grid); base and
   within 1e-5 of JAX (two f32 implementations of the same sums);
 * the Capon map within 4 kappa eps_f32 of JAX, kappa the largest
   condition number of the loaded covariances the frame inverts
-  (``chip_smoke.capon_condition``, ~4e3 at the default scene): MVDR
+  (``testing.capon_condition``, ~4e3 at the default scene): MVDR
   multiplies the f32 rounding of its covariance by kappa, so two f32
   implementations differ by about that much at the peak (JAX's map is
   itself 1.8e-4 - 4.6e-4 of its peak from the golden here, so a 1e-4
@@ -36,7 +36,6 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import F32_EPS, capon_condition  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
 from radar_tpu.ops import aoa as jax_aoa  # noqa: E402
@@ -46,6 +45,7 @@ from radar_tpu_torch import golden  # noqa: E402
 from radar_tpu_torch.convert import config_from_jax  # noqa: E402
 from radar_tpu_torch.io.capture import decode_shorts  # noqa: E402
 from radar_tpu_torch.ops import aoa, mdoppler  # noqa: E402
+from radar_tpu_torch.testing import F32_EPS, capon_condition  # noqa: E402
 
 GEOMETRIES = {
     "default": (dict(), [(3.0, 2.0, 20.0, 2500.0), (8.0, -4.0, -35.0, 1500.0)]),

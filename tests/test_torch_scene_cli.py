@@ -30,7 +30,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import F32_EPS, capon_condition  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.golden import mount_rotation  # noqa: E402
@@ -43,6 +42,7 @@ from radar_tpu.io.synthetic import (  # noqa: E402
 from radar_tpu_torch import cli  # noqa: E402
 from radar_tpu_torch.config import RadarConfig as PortConfig  # noqa: E402
 from radar_tpu_torch.io.capture import decode_shorts, read_capture  # noqa: E402
+from radar_tpu_torch.testing import F32_EPS, capon_condition  # noqa: E402
 
 MOUNTS = [(0.6, 0.8, -20.0), (-0.6, 0.8, 20.0)]
 

@@ -205,8 +205,8 @@ def test_tools_need_a_card_by_default(tool, argv, monkeypatch):
 
 
 def test_chip_smoke_reexports_the_timing_helpers():
-    """os_ab.py loads each tree's ``chip_smoke.alternate``: the names stay
-    importable there and are the port's one copy."""
+    """``chip_smoke.alternate`` and its kin, which the phases time with,
+    are the port's one copy of the timing helpers."""
     import chip_smoke
     from radar_tpu_torch.utils import device, timing
 

@@ -15,7 +15,7 @@ against the JAX package, and ``cli detect --base-frames K``.
 * ``--base-frames K``: the port's range detector takes the mean of the
   K base frames, as its RD pipeline does, and equals the JAX range
   detector fed the mean of JAX's own bases; ``radar_tpu.cli`` takes
-  ``capture[0]`` (the reference's fault (c), ROADMAP.md queue 3).
+  ``capture[0]`` (the reference's fault (c), ROADMAP.md, Queue F).
 """
 
 import json

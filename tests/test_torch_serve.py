@@ -50,7 +50,6 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import F32_EPS, ReadyWatch  # noqa: E402
 from radar_tpu import cli as jax_cli  # noqa: E402
 from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io import live as jax_live  # noqa: E402
@@ -65,6 +64,7 @@ from radar_tpu_torch.convert import config_from_jax  # noqa: E402
 from radar_tpu_torch.io import live  # noqa: E402
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.models.tracker import group_peaks  # noqa: E402
+from radar_tpu_torch.testing import F32_EPS, ReadyWatch  # noqa: E402
 
 TWO = [SceneTarget(3.0, 2.0, 20.0, 2500.0), SceneTarget(8.0, -4.0, -35.0, 1500.0)]
 _DRIVE = static_scene_targets((1.5, 8.0), [3, 5, 7, 9], [-40, -15, 10, 35],

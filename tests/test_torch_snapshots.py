@@ -15,7 +15,7 @@ On the CPU:
 On the card (marked ``card``; they skip without one): the kernel's
 planes within 1 f32 ulp of the plain float64 rows on the same CUDA
 tensors, with the count of elements that are not bit-equal printed, at
-the benchmark's three deployments (``dca1000-ref-1tx4rx``: 2S = 200, a
+64 frames (512 under the base frame) of the benchmark's three deployments (``dca1000-ref-1tx4rx``: 2S = 200, a
 ragged last chunk; ``awr1843-2tx4rx-256``; ``awr1843-3tx4rx-3d``) under
 a base frame, no base, 'mean' and MTI clutter, and ``snapshots_from_
 shorts`` there close to its plain version; a base averaged over three
@@ -38,7 +38,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import chip_smoke  # noqa: E402
+from card import cuda  # noqa: E402, F401
 from perfbench import scene, scene_planar  # noqa: E402
 from perfbench.drivers.resident3d import radar_config  # noqa: E402
 from radar_tpu_torch import _build  # noqa: E402
@@ -55,6 +55,7 @@ from radar_tpu_torch.ops.fuseddft import (  # noqa: E402
     base_raw_interleave,
     interleaved_range_matrices,
 )
+from radar_tpu_torch.testing import f32_ulps_apart  # noqa: E402
 from radar_tpu_torch.utils import spans  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -105,7 +106,7 @@ def _within_one_ulp(got: torch.Tensor, want: torch.Tensor) -> int:
     neighbour towards it; return the count that are not bit-equal."""
     assert got.dtype == want.dtype == torch.float32
     assert got.shape == want.shape
-    not_equal, beyond = chip_smoke.f32_ulps_apart(got, want)
+    not_equal, beyond = f32_ulps_apart(got, want)
     assert beyond == 0, f"{beyond} elements more than 1 ulp apart"
     return not_equal
 
@@ -218,13 +219,6 @@ def test_kernel_wrapper_checks(monkeypatch, case, error, match):
 # the card
 # --------------------------------------------------------------------------
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
 def _both(raw, base_raw, top_idx, a_re, a_im, what: str) -> None:
     got = snapshot_rows_cuda(raw, base_raw, top_idx, a_re, a_im)
     want = snapshot_rows_reference(raw, base_raw, top_idx, a_re, a_im)
@@ -234,16 +228,18 @@ def _both(raw, base_raw, top_idx, a_re, a_im, what: str) -> None:
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("mode", ["base", "none", "mean", "mti2"])
+@pytest.mark.parametrize("mode,n", [("base", 64), ("none", 64), ("mean", 64),
+                                    ("mti2", 64), ("base", 512)])
 @pytest.mark.parametrize("name", DEPLOYMENTS)
-def test_kernel_rows_within_one_ulp(cuda, name, mode):
-    """The planes at 64 frames and K = 16 (mode 'none', 'mean' and 'mti2'
-    feed the kernel no base); then ``snapshots_from_shorts(exact=True)``
-    in the mode against the same function on the plain rows."""
+def test_kernel_rows_within_one_ulp(cuda, name, mode, n):
+    """The planes at 64 frames, and at the benchmark's 512 under its base
+    frame, K = 16 (mode 'none', 'mean' and 'mti2' feed the kernel no
+    base); then ``snapshots_from_shorts(exact=True)`` in the mode against
+    the same function on the plain rows."""
     radar = dict(_radar(name), clutter_mode="auto" if mode == "none"
                  else mode)
     raw, base_raw, top_idx, a_re, a_im, cfg, frames, base_cube = _args(
-        radar, 64, 16, 11, cuda, base=mode == "base")
+        radar, n, 16, 11, cuda, base=mode == "base")
     _both(raw, base_raw, top_idx, a_re, a_im, f"{name} {mode}")
     if mode == "none":
         return     # 'auto' without a base is 'mean'
@@ -341,10 +337,11 @@ def test_kernel_rows_independent_of_tf32(cuda):
 
 
 @pytest.mark.card
-def test_launches_snapshots_one_per_cell_snapshots(cuda):
+@pytest.mark.parametrize("n", [8, 512])
+def test_launches_snapshots_one_per_cell_snapshots(cuda, n):
     radar = _radar("awr1843-3tx4rx-3d")
     cfg = radar_config(radar)
-    frames = _frames(radar, 9, 17, cuda)
+    frames = _frames(radar, n + 1, 17, cuda)
     pipe = RDPipeline(cfg, 16, device=cuda)
     base = pipe.prepare_base(frames[0])
     count = lambda: spans.counts().get("launches.snapshots", 0)  # noqa: E731

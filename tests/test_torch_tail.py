@@ -16,9 +16,11 @@ held to the plain tail by ``selftest._det_fields`` on kernel 1's
 outputs at both benchmark configurations (the reference's 1 TX x 4 RX
 and the AWR1843's 2 TX x 4 RX TDM, V = 8), a calibrated array, 32 and
 128 angle bins, fewer bins than channels, K = 1 and K = 128, B = 1 and
-one unbatched frame, and exhausted (-inf) slots; ``launches.tail``
-rising by one per ``detect``; a CUDA graph of ``detect`` replaying the
-uncaptured fields bit for bit.  This file imports no JAX, so the card
+one unbatched frame, B = 512 (the benchmark's batch), and exhausted
+(-inf) slots; ``launches.tail`` rising by one per ``detect``; a CUDA
+graph of ``detect`` replaying the uncaptured fields bit for bit; the
+benchmark's own graph (``bench.HeadlineLoop``) at B = 512, its replay
+held to the plain tail.  This file imports no JAX, so the card
 tests run where JAX is absent:
 
     python -m pytest tests/test_torch_tail.py --noconftest -p no:cacheprovider
@@ -34,7 +36,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from radar_tpu_torch import _build  # noqa: E402
+from card import cuda  # noqa: E402, F401
+from perfbench.drivers.resident3d import radar_config  # noqa: E402
+from radar_tpu_torch import _build, bench  # noqa: E402
 from radar_tpu_torch.config import LIGHT_SPEED, RadarConfig  # noqa: E402
 from radar_tpu_torch.io.synthetic import (  # noqa: E402
     SceneTarget,
@@ -49,6 +53,7 @@ from radar_tpu_torch.ops import physics  # noqa: E402
 from radar_tpu_torch.ops.aoa import angle_fft_spectrum  # noqa: E402
 from radar_tpu_torch.ops.cuda import megakernel, tail  # noqa: E402
 from radar_tpu_torch.selftest import _det_fields  # noqa: E402
+from radar_tpu_torch.testing import bits_equal  # noqa: E402
 from radar_tpu_torch.utils import spans  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,10 +68,8 @@ CAL = (1.0 + 0.0j, 0.9 * complex(math.cos(0.3), math.sin(0.3)),
 
 def bench_config(name: str) -> RadarConfig:
     """The ``radar`` block of ``perfbench/configs/<name>.json``."""
-    radar = json.loads((ROOT / "perfbench" / "configs" / f"{name}.json")
-                       .read_text())["radar"]
-    return RadarConfig(**{k: tuple(v) if isinstance(v, list) else v
-                          for k, v in radar.items()})
+    return radar_config(json.loads((ROOT / "perfbench" / "configs"
+                                    / f"{name}.json").read_text())["radar"])
 
 
 REF = bench_config("dca1000-ref-1tx4rx")
@@ -81,13 +84,6 @@ CONFIGS = {
     "awr-4-bins": dataclasses.replace(AWR, num_angle_bins=4),   # V > n
     "small": SMALL,
 }
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
 
 
 def _frames(cfg, n, seed=0):
@@ -253,6 +249,8 @@ CASES = {   # config, B, K
     "ref-k128": ("ref", 16, 128),
     "awr-k128": ("awr", 8, 128),
     "ref-b1": ("ref", 1, 16),
+    "ref-b512": ("ref", 512, 16),     # the benchmark's batch
+    "awr-b512": ("awr", 512, 16),
 }
 
 
@@ -308,10 +306,11 @@ def test_kernel_tail_on_one_unbatched_frame(cuda):
 
 
 @pytest.mark.card
+@pytest.mark.parametrize("b", [8, 512])
 @pytest.mark.parametrize("name", ["ref", "awr"])
-def test_launches_tail_one_per_detect(cuda, name):
+def test_launches_tail_one_per_detect(cuda, name, b):
     cfg = CONFIGS[name]
-    pipe, frames, base, _ = _kernel1(cfg, cuda, 8, 16)
+    pipe, frames, base, _ = _kernel1(cfg, cuda, b, 16)
     before = spans.counts()
     for _ in range(3):
         pipe.detect(frames, base)
@@ -346,3 +345,26 @@ def test_graph_replay_of_detect_equals_uncaptured(cuda, name):
     torch.cuda.synchronize()
     for field, a, b in zip(want._fields, got, want):
         assert torch.equal(a, b), field
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["ref", "awr"])
+def test_headline_graph_at_the_benchmark_batch(cuda, name):
+    """The benchmark's own graph (``bench.HeadlineLoop``) at B = 512:
+    kernel 1 once a replay; the tail kernel at the two warm-ups and the
+    capture, none at replay; replay 0 bit-equal to an uncaptured
+    ``detect`` and held to the plain tail by ``_det_fields``."""
+    cfg = CONFIGS[name]
+    pipe, frames, base, out = _kernel1(cfg, cuda, 512, 16)
+    plain = assemble_result_from_kernel_reference(*out, cfg)
+    loop = bench.HeadlineLoop(pipe, frames, base)
+    before = spans.counts().get("launches.tail", 0)
+    assert loop.capture() == [1, 0, 0, 0, 0, 0, 0, 0]
+    assert spans.counts()["launches.tail"] == before + 3
+    loop.run(1)
+    torch.cuda.synchronize()
+    assert spans.counts()["launches.tail"] == before + 3
+    uncaptured = pipe.detect(frames, base)
+    for field, a, b in zip(plain._fields, loop.out, uncaptured):
+        assert bits_equal(a, b), field
+    _det_fields(loop.out, plain)

@@ -10,17 +10,20 @@ and 'default'), on the CPU: the CUDA kernels run only on a GPU, where
   ``gmma_tiles`` cuts a matrix into wgmma's K-major tiles and pads with
   zeros; the split constants the kernels read (``a2_split``, ``dop_l``)
   are ``split_tf32`` of the original constants, bit for bit, so cut.
-* The emulated tiers (``chip_smoke.tier_planes`` / ``tier_power``, the
+* The emulated tiers (``testing.tier_planes`` / ``tier_power``, the
   kernels' products exactly in f32): at the default geometry the 3-pass
   power map is within 1e-5 of the float64 golden relative to each map's
   peak (at most 4.2e-7 measured), the 1-pass map within 1e-3 (at most
   3.2e-4);
   the 3-pass detection sets equal the JAX package's 'high' pipeline's
   and, on several geometries and clutter modes, the f32 plain version's.
-* ``dft_passes`` maps each tier to its kernel mode; each C entry's
-  ctypes argument count matches its C signature.
+* ``dft_passes`` maps each tier to its kernel mode; each C entry of
+  ``csrc/`` is declared by its wrapper with its C signature's types.
 """
 
+import ctypes
+import importlib
+import pkgutil
 import re
 import types
 from pathlib import Path
@@ -33,16 +36,6 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import (  # noqa: E402
-    TIER_UNIT,
-    compare,
-    golden_power,
-    maps_check,
-    run_detect,
-    tier_detections,
-    tier_planes,
-    tier_power,
-)
 from radar_tpu.config import RadarConfig as JaxConfig  # noqa: E402
 from radar_tpu.io.synthetic import SceneTarget, synthesize_capture  # noqa: E402
 from radar_tpu.models import rd_pipeline as jax_rd  # noqa: E402
@@ -52,6 +45,14 @@ from radar_tpu_torch.convert import config_from_jax, result_to_numpy  # noqa: E4
 from radar_tpu_torch.models.rd_pipeline import (  # noqa: E402
     RDPipeline,
     assemble_result_from_kernel,
+)
+from radar_tpu_torch.ops import cuda as cuda_ops  # noqa: E402
+from radar_tpu_torch.ops.cuda._launch import (  # noqa: E402
+    F32,
+    I32,
+    I64,
+    PTR,
+    SIGNATURES,
 )
 from radar_tpu_torch.ops.cuda.megakernel import (  # noqa: E402
     detections_from_shorts_reference,
@@ -67,6 +68,16 @@ from radar_tpu_torch.ops.tf32 import (  # noqa: E402
     split_matmul,
     split_tf32,
     tf32_round,
+)
+from radar_tpu_torch.testing import (  # noqa: E402
+    TIER_UNIT,
+    compare,
+    golden_power,
+    maps_check,
+    run_detect,
+    tier_detections,
+    tier_planes,
+    tier_power,
 )
 
 TARGETS = [
@@ -381,34 +392,50 @@ def test_default_config_runs_the_three_pass_tier():
     assert dft_passes(RadarConfig()) == 3
 
 
-ENTRIES = ["radar_mega_detect", "radar_mega_maps", "radar_fused_range",
-           "radar_detect_tail",
-           "radar_cfar_threshold", "radar_topk", "radar_os_hits",
-           "radar_os_threshold", "radar_masked_argmax",
-           "radar_aoa2d_scan", "radar_snapshot_rows",
-           "radar_cuda_error_string"]
-
-
-def c_signatures() -> dict[str, int]:
-    """Parameter counts of the exported C functions of csrc/*.cu."""
-    counts = {}
+def c_entries() -> dict[str, tuple[str, list[str]]]:
+    """The exported C functions of csrc/*.cu: name -> (return type,
+    parameter types)."""
+    entries = {}
     for src in sorted(_build.CSRC_DIR.glob("*.cu")):
-        text = src.read_text()
-        for m in re.finditer(r"^(?:int|const char\*) (radar_\w+)\(([^)]*)\)",
-                             text, re.M):
-            counts[m.group(1)] = len([p for p in m.group(2).split(",")
-                                      if p.strip()])
-    return counts
+        for m in re.finditer(r"^(int|const char\*) (radar_\w+)\(([^)]*)\)",
+                             src.read_text(), re.M):
+            entries[m.group(2)] = (m.group(1), [
+                " ".join(p.split()[:-1]) for p in m.group(3).split(",")
+                if p.strip()])
+    return entries
 
 
-@pytest.mark.parametrize("name", ENTRIES)
+C_ENTRIES = c_entries()
+INTERNAL = {"radar_detect_stage": "megakernel.cu"}   # stage -> its caller
+
+
+def _ctype(c_type: str):
+    if c_type == "const char*":
+        return ctypes.c_char_p
+    if c_type.endswith("*"):
+        return PTR
+    return {"int": I32, "long long": I64, "float": F32}[c_type]
+
+
+@pytest.mark.parametrize("name", sorted(C_ENTRIES))
 def test_entry_argtypes_match_the_c_signature(name):
-    """_build._declare gives each C entry as many ctypes arguments as
-    its C signature has parameters (a missing one would pass garbage)."""
-    fake = types.SimpleNamespace(**{n: types.SimpleNamespace()
-                                    for n in ENTRIES})
-    _build._declare(fake)
-    assert len(getattr(fake, name).argtypes) == c_signatures()[name]
+    """Each C entry of csrc/*.cu is declared by the ``ops/cuda`` wrapper
+    that launches it, with the ctypes type of each C parameter in order
+    (a missing or wrong one would pass garbage); the one entry that no
+    wrapper declares, ``INTERNAL``, is a stage that another csrc/ file
+    calls."""
+    for mod in pkgutil.iter_modules(cuda_ops.__path__):
+        importlib.import_module(f"{cuda_ops.__name__}.{mod.name}")
+    restype, params = C_ENTRIES[name]
+    if name in INTERNAL:
+        assert name not in SIGNATURES
+        assert f"return {name}(" in (
+            _build.CSRC_DIR / INTERNAL[name]).read_text()
+        return
+    assert name in SIGNATURES, f"no ops/cuda wrapper declares {name}"
+    argtypes, declared_restype = SIGNATURES[name]
+    assert argtypes == [_ctype(p) for p in params]
+    assert declared_restype is _ctype(restype)
 
 
 def test_megakernel_entries_take_the_tier():
