@@ -37,7 +37,8 @@ here times it; the phases keep the checks they already hold.
 16. ``cli selftest`` on the card;
 17. the three ``dft_precision`` tiers of kernels 1, 2 and 8 against the
    f32 plain versions and the emulated tiers, the digests, device times
-   beside cuBLAS, stage (c) and its bound;
+   beside cuBLAS and the FFT range stage beside ``range_tc_kernel<3>``,
+   stage (c) and its bound;
 18. the six selftest geometries at B=64;
 19. the object level: ``detect_objects``, ``detect_cmap``, clustering,
    ``disambiguate``, ``capon_refine``, ``refine_2d``, keystone and their
@@ -1247,8 +1248,10 @@ def selftest_phase() -> None:
         ln for ln in lines if ln.startswith("speed-mode flips")))
 
 
-HIGH_DIGEST = "42c4276b4e5b21f1"  # kernel 1 at dft_precision 'high', as CA_DIGEST
-DEFAULT_DIGEST = "0f65ede98afe8f0e"  # and at 'default'
+# kernel 1 at dft_precision 'high', as CA_DIGEST, and at 'default': the
+# range stage is the f32 FFT kernel there (csrc/range_fft.cu)
+HIGH_DIGEST = "c603a751acd80299"
+DEFAULT_DIGEST = "23ba843ca31e8dc2"
 TIER_DIGEST = {"highest": None, "high": HIGH_DIGEST, "default": DEFAULT_DIGEST}
 
 
@@ -1266,15 +1269,17 @@ def planes_gate(name, got, want, x, a2, unit) -> float:
 
 def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
     """Phase 17: the three dft_precision tiers of kernels 1, 2 and 8
-    ('highest': the SIMT f32 stages; 'high' and 'default': the
-    split-TF32 tensor-core stages at 3 and 1 passes) at B=512 against
+    ('highest': the SIMT f32 stages; 'high' and 'default': the FFT range
+    stage and the split-TF32 tensor-core Doppler stage at 3 and 1
+    passes) at B=512 against
     the f32 plain versions ('default''s kernel 1 against its tier's own
     plain version, :func:`tier_detections`, with its flips against the
     f32 one counted), 'mega' against 'mega-maps' bit for bit, the
     golden on 4 frames, kernel 1's CA checksums, device-only times taken
-    in turns, the stages' profiler times, kernel 8 beside cuBLAS, and
-    the host-inclusive ``detect``.  Returns the kernels-line entries of the
-    two tensor-core stages at 'high' and 'default', and the device-only
+    in turns, the stages' profiler times, kernel 8 beside cuBLAS and
+    beside ``range_tc_kernel<3>``, and the host-inclusive ``detect``.
+    Returns the kernels-line entries of the range and Doppler stages at
+    'high' and 'default', and the device-only
     ms of each kernel at each tier (``'kernel 1 high'``, ...)."""
     import dataclasses
 
@@ -1296,6 +1301,7 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
         doppler_from_range_planes,
         fused_range_planes,
     )
+    from radar_tpu_torch.scripts.stage_budget import stage_kernels
 
     dev = frames.device
     tiers = ("highest", "high", "default")
@@ -1401,6 +1407,20 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
         fns[f"kernel 8 {tier}"] = (lambda f, ct=ct: fused_range_planes_cuda(
             f, base, ct, consts))
     t = alternate(fns, frames, device_only=True)
+    # the range stage it replaced at the tensor-core tiers, in turns
+    # with the FFT: range_tc_kernel<3>, the rule patched off
+    rule = megakernel.range_fft_taken
+
+    def tc_range(f):
+        megakernel.range_fft_taken = lambda c: False
+        try:
+            return fused_range_planes_cuda(f, base, cfgs["high"], consts)
+        finally:
+            megakernel.range_fft_taken = rule
+
+    t_tc = alternate({"range_fft_kernel": fns["kernel 8 high"],
+                      "range_tc_kernel<3>": tc_range}, frames,
+                     device_only=True)
     x_lib = frames.reshape(-1, s2).to(torch.float32)
     lib = alternate({"cuBLAS SGEMM": lambda m: torch.matmul(m, consts["a2"])},
                     x_lib, device_only=True)
@@ -1421,6 +1441,8 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
         device_only=True)
     say(f"timing on {gpu} B={BATCH} (device only, median of 10, in turns): "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+        + "; kernel 8 'high' on each range kernel: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in t_tc.items())
         + "; kernel 8's GEMM as one call: "
         + ", ".join(f"{k} {v:.4f} ms" for k, v in lib.items())
         + "; plain: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t_plain.items()))
@@ -1437,10 +1459,7 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
     for tier, ct in cfgs.items():
         rows = kernel_us(lambda ct=ct: detections_from_shorts_cuda(
             frames, base, K_DET, ct, consts))
-        rng, dop = (("range_gemm_kernel", "doppler_power_kernel")
-                    if tier == "highest" else
-                    (f"range_tc_kernel<{megakernel.dft_passes(ct)}>",
-                     f"doppler_tc_kernel<{megakernel.dft_passes(ct)}>"))
+        (_, rng), (_, dop), _ = stage_kernels(ct)
         stages[tier] = (stage_us(rows, rng), stage_us(rows, dop),
                         stage_us(rows, "detect_band_kernel"))
     say("stages of kernel 1 (profiler, device us per launch, one launch "
@@ -1498,8 +1517,8 @@ def tiers_phase(cfg, capture, frames, base, consts, gpu) -> tuple[list, dict]:
     for tier in ("high", "default"):
         lib_ms = lib["cuBLAS SGEMM" if tier == "high" else "torch.matmul TF32"]
         out.append(dict(
-            name=f"range_tc[{tier}]", route="cuda",
-            source="radar_tpu_torch/csrc/megakernel.cu",
+            name=f"range_fft[{tier}]", route="cuda",
+            source="radar_tpu_torch/csrc/range_fft.cu",
             replaces="radar_tpu/ops/pallas/megakernel.py:234",
             launches=launched[tier], max_abs_err=errs[("k8", tier)],
             ms=t[f"kernel 8 {tier}"], plain_ms=t_plain["plain range"],
@@ -3178,9 +3197,11 @@ def eval_phase(gpu, dev) -> None:
     say(f"phase 22 took {time.perf_counter() - t_phase:.1f} s")
 
 
-# the stages of kernel 1 at 'high' / 'default' (csrc/megakernel.cu's
-# tensor-core range and Doppler stages, csrc/detect.cu's stage (c))
-KERNEL1_STAGES = ("range_tc_kernel", "doppler_tc_kernel", "detect_band_kernel")
+# the stages of kernel 1 at 'high' / 'default' (csrc/range_fft.cu's FFT
+# range stage, csrc/megakernel.cu's tensor-core Doppler stage,
+# csrc/detect.cu's stage (c))
+KERNEL1_STAGES = ("range_fft_kernel", "doppler_tc_kernel",
+                  "detect_band_kernel")
 TAIL_KERNEL = "detect_tail_kernel"   # csrc/tail.cu, once per detect
 DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
 # the events that bound a trace's window: the ops, their CUDA calls and

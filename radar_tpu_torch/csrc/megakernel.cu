@@ -19,14 +19,16 @@
 //  10. five neighbour samples (range clamped, Doppler wrapped),
 //  11. K x TV complex snapshots from the clutter-removed range planes.
 //
-// What bounds it on an H100: about 120 MFLOP of dense DFT per frame at
-// the default geometry (52 range + 67 Doppler), 61 GFLOP per 512-frame
-// batch, while the bytes (105 MB of int16 in, 268 MB of range planes
+// What bounds it on an H100: as dense DFT products, about 120 MFLOP per
+// frame at the default geometry (52 range + 67 Doppler), 61 GFLOP per
+// 512-frame batch; the bytes (105 MB of int16 in, 268 MB of range planes
 // written and read back, 34 MB of power) need about 0.2 ms at 3.35 TB/s.
-// It runs in three stages with the intermediates in device memory,
-// because one frame's range planes (512 KB) do not fit a block's 227 KB
-// of shared memory:
-//   (a) the range DFT over all frames' rows, a GEMM
+// At the tensor-core tiers the range stage is an FFT (range_fft.cu) and
+// bound by its bytes, the int16 rows in and the planes out once; the
+// Doppler stage's products remain.  It runs in three stages with the
+// intermediates in device memory, because one frame's range planes (512
+// KB) do not fit a block's 227 KB of shared memory:
+//   (a) the range DFT over all frames' rows, an FFT or a GEMM
 //       chirp_mean_kernel      'mean' clutter only, in place on (a)'s planes
 //   (b) the Doppler DFT and power, per (frame, range tile)
 //   (c) detect.cu              one block per (frame, band of Doppler rows):
@@ -36,13 +38,18 @@
 // ``passes`` argument of every entry, ops/cuda/megakernel.dft_passes):
 //   'highest' (0)  range_gemm_kernel, doppler_power_kernel: plain f32
 //                  FMAs on the CUDA cores, 0.9 ms of work at 67 TFLOP/s;
-//   'high' (3)     range_tc_kernel<3>, doppler_tc_kernel<3>: split TF32
-//                  on the tensor cores (wgmma), hi*lo + lo*hi + hi*hi, each
-//                  product to about 2^-21, 183 GFLOP at 495 TFLOP/s;
-//   'default' (1)  the same kernels with hi*hi alone, about 2^-11.
+//   'high' (3)     range_fft_kernel (the ``range_fft`` argument, which
+//                  ops/cuda/megakernel.range_fft_taken sets for R <= 512;
+//                  past it range_tc_kernel<3>), doppler_tc_kernel<3>:
+//                  f32 FFT rows to about 2^-24 sqrt(log2 R) of their
+//                  norm, split TF32 on the tensor cores (wgmma), hi*lo +
+//                  lo*hi + hi*hi, each product to about 2^-21;
+//   'default' (1)  the same range stage, the Doppler kernel with hi*hi
+//                  alone, about 2^-11.
 // No tier gives way to another.  Stage (c) reads z and the Doppler
 // constant in f32 at every tier.  Fusing (a) and (b), so that the range
-// planes never reach device memory, is later work.
+// planes never reach device memory, is what is left of the range
+// stage's bytes (537 MB of planes a batch at 2 TX, 256 samples).
 //
 // The maps entry radar_mega_maps replaces the TPU kernel _mega_kernel
 // (launcher _mega_call; entries power_from_shorts_pallas and
@@ -60,9 +67,10 @@
 // radar_tpu/ops/pallas/fused_dft_kernel.py (the inline kernel of
 // fused_rd_planes_pallas): int16 frames minus the raw-space base, then
 // the two range-DFT dots, written as the range planes.  Its work is
-// stage (a) as it is, so it reuses range_stage (range_gemm_kernel or
-// range_tc_kernel by tier and, for 'mean' clutter, chirp_mean_kernel)
-// rather than a second GEMM; the Doppler stage stays outside, as in JAX.
+// stage (a) as it is, so it reuses range_stage (range_fft_kernel,
+// range_tc_kernel or range_gemm_kernel as above and, for 'mean' clutter,
+// chirp_mean_kernel) rather than a second transform; the Doppler stage
+// stays outside, as in JAX.
 // Its bound is the bytes: 105 MB of int16 in and 268 MB of planes out
 // per 512-frame batch, about 0.11 ms at 3.35 TB/s.
 //
@@ -75,6 +83,12 @@
 
 #include "cfar_common.cuh"
 #include "select_common.cuh"
+
+// Stage (a) as the f32 FFT at the tensor-core tiers (range_fft.cu).
+cudaError_t range_fft_stage(const int16_t* raw, const float* base,
+                            const float* window, const float* twiddles,
+                            float* z, int n_frames, int rows_per_frame,
+                            int n_samples, int r_size, cudaStream_t stream);
 
 namespace {
 
@@ -881,9 +895,15 @@ __global__ void __launch_bounds__(kTcThreads, kTcMinBlocks) doppler_tc_kernel(
 }
 
 // The precision tier: 0 is 'highest' (the SIMT f32 kernels), 3 'high'
-// and 1 'default' (the tensor-core kernels with that many passes).
+// and 1 'default' (the tensor-core kernels with that many passes); and
+// the range stage's choice, 0 or 1 (the FFT, which needs its tables).
 bool valid_passes(int passes) {
   return passes == 0 || passes == 1 || passes == 3;
+}
+
+bool valid_range(int range_fft, const float* window, const float* twiddles) {
+  return range_fft == 0 ||
+         (range_fft == 1 && window != nullptr && twiddles != nullptr);
 }
 
 // Launches a tensor-core kernel of P passes with its dynamic shared ring.
@@ -898,19 +918,26 @@ cudaError_t launch_tc(Kernel kernel, size_t smem, dim3 grid,
 
 // Stage (a): raw frames -> the clutter-removed range planes z (B*C*V,
 // 2R), with the chirp-mean pass for 'mean' clutter.  The front end of
-// both mega entries, and the whole of the fused range entry.  ``a2`` is
-// the f32 constant of passes 0, ``a2s`` its split of the other tiers.
+// both mega entries, and the whole of the fused range entry.  With
+// ``range_fft`` the FFT kernel (its tables ``window``, ``twiddles``);
+// else ``a2``, the f32 constant of passes 0, or ``a2s``, its split of the
+// other tiers.
 cudaError_t range_stage(const int16_t* raw, const float* base_raw,
-                        const float* a2, const float* a2s, float* z,
-                        int n_frames,
+                        const float* a2, const float* a2s,
+                        const float* window, const float* twiddles,
+                        float* z, int n_frames,
                         int n_chirps, int n_rx, int s2, int r_size,
-                        int clutter_mean, int passes, cudaStream_t stream) {
+                        int clutter_mean, int passes, int range_fft,
+                        cudaStream_t stream) {
   const int rows_per_frame = n_chirps * n_rx;
   const long long m_total = (long long)n_frames * rows_per_frame;
   const float* base = clutter_mean ? nullptr : base_raw;
 
   cudaError_t err;
-  if (passes == 0) {
+  if (range_fft) {
+    err = range_fft_stage(raw, base, window, twiddles, z, n_frames,
+                          rows_per_frame, s2 / 2, r_size, stream);
+  } else if (passes == 0) {
     dim3 grid_a((unsigned)((m_total + kRaBM - 1) / kRaBM),
                 (2 * r_size + kRaBN - 1) / kRaBN);
     range_gemm_kernel<<<grid_a, 256, 0, stream>>>(
@@ -940,15 +967,18 @@ cudaError_t range_stage(const int16_t* raw, const float* base_raw,
 // ``a2s`` and ``dop_l`` are the split constants of the tensor-core
 // tiers (unused at passes 0).
 cudaError_t front_end(const int16_t* raw, const float* base_raw,
-                      const float* a2, const float* a2s, const float* ft_re,
+                      const float* a2, const float* a2s, const float* window,
+                      const float* twiddles, const float* ft_re,
                       const float* ft_im, const float* dop_l, float* z,
                       float* power, int n_frames, int n_chirps, int n_rx,
                       int n_tx, int s2, int r_size, int d_size,
-                      int clutter_mean, int passes, cudaStream_t stream) {
+                      int clutter_mean, int passes, int range_fft,
+                      cudaStream_t stream) {
   const int kc_size = n_chirps / n_tx;
-  const cudaError_t err = range_stage(raw, base_raw, a2, a2s, z, n_frames,
-                                      n_chirps, n_rx, s2, r_size,
-                                      clutter_mean, passes, stream);
+  const cudaError_t err = range_stage(raw, base_raw, a2, a2s, window,
+                                      twiddles, z, n_frames, n_chirps, n_rx,
+                                      s2, r_size, clutter_mean, passes,
+                                      range_fft, stream);
   if (err != cudaSuccess) return err;
 
   if (passes == 0) {
@@ -987,7 +1017,9 @@ const char* radar_cuda_error_string(int err) {
 // clutter and the MTI modes (their canceller comes folded into ft_re /
 // ft_im, with clutter_mean 0); a2 (2S, 2R); a2s (2, ceil(2R / 128),
 // ceil(2S / 16), 128 x 16), its TF32 split [hi; lo] cut into the K-major
-// tiles of range_tc_kernel (megakernel.gmma_tiles of a2^T); ft_re/ft_im
+// tiles of range_tc_kernel (megakernel.gmma_tiles of a2^T); window (S)
+// and twiddles (R, 2), the tables of range_fft_kernel (NULL allowed
+// where range_fft is 0); ft_re/ft_im
 // (Kc, D); dop_l (2, ceil(M / 128), ceil(2 Kc8 / 16), 128 x 16), M = 16
 // ceil(D / 8), the split packed Doppler constant cut likewise for
 // doppler_tc_kernel (a2s and dop_l NULL allowed at passes 0); scratch z
@@ -995,10 +1027,13 @@ const char* radar_cuda_error_string(int err) {
 // ('default'); tickets, B int32 that are zero (left zero), and work, an
 // int32 workspace of work_words words: stage (c)'s (detect.cu); outputs
 // top_idx int32 (B, K), top_val (B, K), nbr (B, K, 5), num_hits int32
-// (B), snaps (B, K, TX*V, 2).  kind: 0 CA, 1 GO, 2 SO; coef = alpha /
-// n_train (CA) or the GO/SO multiplier.
+// (B), snaps (B, K, TX*V, 2).  range_fft: 1 runs stage (a) as
+// range_fft_kernel (R a power of two up to 512), 0 as the product of the
+// tier.  kind: 0 CA, 1 GO, 2 SO; coef = alpha / n_train (CA) or the
+// GO/SO multiplier.
 int radar_mega_detect(const int16_t* raw, const float* base_raw,
-                      const float* a2, const float* a2s, const float* ft_re,
+                      const float* a2, const float* a2s, const float* window,
+                      const float* twiddles, const float* ft_re,
                       const float* ft_im, const float* dop_l, float* z,
                       float* power, int* tickets, int* work,
                       long long work_words,
@@ -1006,20 +1041,20 @@ int radar_mega_detect(const int16_t* raw, const float* base_raw,
                       int32_t* num_hits, float* snaps, int n_frames,
                       int n_chirps, int n_rx, int n_tx, int s2, int r_size,
                       int d_size, int k_det, int clutter_mean, int passes,
-                      int kind, int range_wrap, int guard_d, int guard_r,
-                      int win_d, int win_r, int r_valid, float coef,
-                      void* stream_ptr) {
+                      int range_fft, int kind, int range_wrap, int guard_d,
+                      int guard_r, int win_d, int win_r, int r_valid,
+                      float coef, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n_frames <= 0) return cudaSuccess;
   if (n_chirps % n_tx != 0 || s2 % 8 != 0 || r_size % 4 != 0 ||
       d_size % 4 != 0 || kind < radar_cfar::kCA || kind > radar_cfar::kSO ||
-      !valid_passes(passes) ||
+      !valid_passes(passes) || !valid_range(range_fft, window, twiddles) ||
       (passes != 0 && (a2s == nullptr || dop_l == nullptr)))
     return cudaErrorInvalidValue;
   const cudaError_t err =
-      front_end(raw, base_raw, a2, a2s, ft_re, ft_im, dop_l, z, power,
-                n_frames, n_chirps, n_rx, n_tx, s2, r_size, d_size,
-                clutter_mean, passes, stream);
+      front_end(raw, base_raw, a2, a2s, window, twiddles, ft_re, ft_im,
+                dop_l, z, power, n_frames, n_chirps, n_rx, n_tx, s2, r_size,
+                d_size, clutter_mean, passes, range_fft, stream);
   if (err != cudaSuccess) return err;
   return radar_detect_stage(power, z, ft_re, ft_im, tickets, work,
                             work_words,
@@ -1034,23 +1069,26 @@ int radar_mega_detect(const int16_t* raw, const float* base_raw,
 // 2 SO; cfar.cu) of every power map.  Shapes as radar_mega_detect, plus
 // thresh (B, D, R) f32 or NULL.
 int radar_mega_maps(const int16_t* raw, const float* base_raw,
-                    const float* a2, const float* a2s, const float* ft_re,
+                    const float* a2, const float* a2s, const float* window,
+                    const float* twiddles, const float* ft_re,
                     const float* ft_im, const float* dop_l, float* z,
                     float* power, float* thresh,
                     int n_frames, int n_chirps, int n_rx, int n_tx, int s2,
                     int r_size, int d_size, int clutter_mean, int passes,
-                    int kind, int range_wrap, int guard_d, int guard_r,
-                    int win_d, int win_r, float coef, void* stream_ptr) {
+                    int range_fft, int kind, int range_wrap, int guard_d,
+                    int guard_r, int win_d, int win_r, float coef,
+                    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n_frames <= 0) return cudaSuccess;
   if (n_chirps % n_tx != 0 || s2 % 8 != 0 || r_size % 4 != 0 ||
       d_size % 4 != 0 || !valid_passes(passes) ||
+      !valid_range(range_fft, window, twiddles) ||
       (passes != 0 && (a2s == nullptr || dop_l == nullptr)))
     return cudaErrorInvalidValue;
   const cudaError_t err =
-      front_end(raw, base_raw, a2, a2s, ft_re, ft_im, dop_l, z, power,
-                n_frames, n_chirps, n_rx, n_tx, s2, r_size, d_size,
-                clutter_mean, passes, stream);
+      front_end(raw, base_raw, a2, a2s, window, twiddles, ft_re, ft_im,
+                dop_l, z, power, n_frames, n_chirps, n_rx, n_tx, s2, r_size,
+                d_size, clutter_mean, passes, range_fft, stream);
   if (err != cudaSuccess || thresh == nullptr) return err;
   return radar_cfar_threshold(power, thresh, n_frames, d_size, r_size, kind,
                               range_wrap, guard_d, guard_r, win_d, win_r,
@@ -1061,19 +1099,23 @@ int radar_mega_maps(const int16_t* raw, const float* base_raw,
 // C*V, 2S) -> z (B*C*V, 2R) f32, each row [zr | zi].  base_raw (C*V, 2S)
 // for 'base' clutter, or NULL: 'mean' (clutter_mean = 1) subtracts the
 // chirp mean in place; the MTI modes run with neither, and the caller
-// filters the planes.  passes as radar_mega_detect.
+// filters the planes.  window, twiddles, passes and range_fft as
+// radar_mega_detect.
 int radar_fused_range(const int16_t* raw, const float* base_raw,
-                      const float* a2, const float* a2s, float* z,
+                      const float* a2, const float* a2s, const float* window,
+                      const float* twiddles, float* z,
                       int n_frames, int n_chirps, int n_rx, int s2,
-                      int r_size, int clutter_mean, int passes,
+                      int r_size, int clutter_mean, int passes, int range_fft,
                       void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n_frames <= 0) return cudaSuccess;
   if (n_chirps < 1 || n_rx < 1 || s2 % 8 != 0 || r_size % 4 != 0 ||
-      !valid_passes(passes) || (passes != 0 && a2s == nullptr))
+      !valid_passes(passes) || !valid_range(range_fft, window, twiddles) ||
+      (passes != 0 && a2s == nullptr))
     return cudaErrorInvalidValue;
-  return range_stage(raw, base_raw, a2, a2s, z, n_frames, n_chirps, n_rx,
-                     s2, r_size, clutter_mean, passes, stream);
+  return range_stage(raw, base_raw, a2, a2s, window, twiddles, z, n_frames,
+                     n_chirps, n_rx, s2, r_size, clutter_mean, passes,
+                     range_fft, stream);
 }
 
 }  // extern "C"

@@ -9,10 +9,12 @@ range planes.  The Doppler stage stays outside the kernel
 * :func:`fused_range_planes_cuda` launches the ``radar_fused_range``
   entry of ``csrc/megakernel.cu`` — kernel 1's range stage as it is, at
   the tier of ``cfg.dft_precision`` (``megakernel.dft_passes``: the f32
-  GEMM for 'highest', the split-TF32 tensor-core GEMM for 'high' and
-  'default'), plus its chirp-mean pass for 'mean' clutter, not a second
-  GEMM — and counts its launches in the counter
-  ``launches.fused_range`` (``utils.spans``).  For 'mti2' / 'mti3' it
+  GEMM for 'highest'; for 'high' and 'default' the f32 FFT kernel where
+  ``megakernel.range_fft_taken`` says so, else the split-TF32
+  tensor-core GEMM), plus its chirp-mean pass for 'mean' clutter, not a
+  second transform — and counts its launches in the counter
+  ``launches.fused_range`` (``utils.spans``; the FFT's also in
+  ``launches.range_fft``).  For 'mti2' / 'mti3' it
   runs the GEMM with no base and applies the plain canceller to the planes, as
   the JAX wrapper applies ``declutter_planes`` after its kernel.
 * Its plain version is :func:`radar_tpu_torch.ops.fuseddft.fused_range_planes`.
@@ -41,8 +43,10 @@ from radar_tpu_torch.ops.cuda._launch import (
 )
 from radar_tpu_torch.ops.cuda.megakernel import (
     check_range_consts,
+    count_range_fft,
     dft_passes,
     mega_constants,
+    range_stage_args,
 )
 from radar_tpu_torch.ops.fuseddft import (
     base_raw_interleave,
@@ -60,13 +64,17 @@ def fused_range_supported(cfg: RadarConfig) -> bool:
     return (2 * cfg.num_samples) % 8 == 0 and cfg.range_fft_size % 4 == 0
 
 
+RANGE_CONSTANTS = ("a2", "a2_split", "range_window", "range_twiddles")
+
+
 @lru_cache(maxsize=16)
 def range_constants(cfg: RadarConfig, device: torch.device) -> dict:
-    """``a2`` and ``a2_split`` of ``megakernel.mega_constants(cfg)`` on
-    ``device``, built once per (cfg, device): the constants the kernel
-    reads (callers must not modify them)."""
+    """The range stage's entries of ``megakernel.mega_constants(cfg)``
+    (:data:`RANGE_CONSTANTS`) on ``device``, built once per (cfg,
+    device): the constants the kernel reads (callers must not modify
+    them)."""
     consts = mega_constants(cfg)
-    return {n: consts[n].to(device) for n in ("a2", "a2_split")}
+    return {n: consts[n].to(device) for n in RANGE_CONSTANTS}
 
 
 def range_planes(shorts: torch.Tensor, base_cube: torch.Tensor | None,
@@ -80,15 +88,16 @@ def range_planes(shorts: torch.Tensor, base_cube: torch.Tensor | None,
 
 
 declare("radar_fused_range",
-        [PTR] * 5          # raw, base_raw, a2, a2s, z
-        + [I32] * 7)       # frames, chirps, rx, 2S, R, clutter_mean, passes
+        [PTR] * 7          # raw, base_raw, a2, a2s, window, twiddles, z
+        + [I32] * 8)       # frames, chirps, rx, 2S, R, clutter_mean,
+                           # passes, range_fft
 
 
 def fused_range_planes_cuda(shorts: torch.Tensor,
                             base_cube: torch.Tensor | None,
                             cfg: RadarConfig = DEFAULT_CONFIG, consts=None):
     """:func:`range_planes` through the CUDA kernel.  ``consts`` holds
-    ``megakernel.mega_constants``'s ``a2`` and ``a2_split`` on the
+    ``megakernel.mega_constants``'s :data:`RANGE_CONSTANTS` on the
     frames' device (:func:`range_constants` when None).
     Returns the planes as views of the kernel's (B*C*V, 2R) output; no
     frames launch nothing; non-contiguous frames are copied first.
@@ -124,10 +133,12 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
     b = x.shape[0]
     z = torch.empty((b * c * v, 2 * r_size), dtype=torch.float32, device=dev)
     if b:
-        launch("radar_fused_range", dev, ptr(x), ptr(base_raw),
-               ptr(consts["a2"]), ptr(consts["a2_split"]), ptr(z), b, c, v,
-               s2, r_size, int(mode == "mean"), passes)
+        range_ptrs, range_fft = range_stage_args(consts, cfg)
+        launch("radar_fused_range", dev, ptr(x), ptr(base_raw), *range_ptrs,
+               ptr(z), b, c, v, s2, r_size, int(mode == "mean"), passes,
+               range_fft)
         spans.count("launches.fused_range")
+        count_range_fft(cfg, b)
     planes = z.reshape(shorts.shape[:-1] + (c, v, 2 * r_size))
     re, im = planes[..., :r_size], planes[..., r_size:]
     if mode in ("base", "mean"):

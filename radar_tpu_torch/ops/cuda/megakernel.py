@@ -30,9 +30,14 @@ The kernels' two DFT stages run at the tier of ``cfg.dft_precision``
 (:func:`dft_passes`, the JAX package's tiers in TF32 instead of bf16):
 'highest' in plain f32 on the CUDA cores; 'high' as three split-TF32
 passes on the tensor cores (hi*lo + lo*hi + hi*hi, each product to
-about 2^-21); 'default' as one pass (hi*hi, about 2^-11).  The plain
-versions compute in f32 at every tier; ``ops/tf32.py`` emulates the
-tensor-core products for the tests.
+about 2^-21); 'default' as one pass (hi*hi, about 2^-11).  At those two
+tiers the range stage, shared by kernels 1, 2 and 8, is an f32 FFT
+(``csrc/range_fft.cu``) wherever :func:`range_fft_taken` says so, which
+keeps both tiers' promises at a fraction of the products' work; its
+launches are counted in ``launches.range_fft``, and
+:func:`range_fft_reference` is its plain version.  The plain versions
+compute in f32 at every tier; ``ops/tf32.py`` emulates the tensor-core
+products for the tests.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import numpy as np
 import torch
 
 from radar_tpu_torch.config import DEFAULT_CONFIG, RadarConfig
+from radar_tpu_torch.golden import window_fn
 from radar_tpu_torch.ops.cells import gather_snapshots, neighbour_samples
 from radar_tpu_torch.ops.cfar import cfar_detect
 from radar_tpu_torch.ops.cuda import layout
@@ -68,7 +74,7 @@ from radar_tpu_torch.ops.fuseddft import (
     fused_range_planes,
     interleaved_range_matrices,
 )
-from radar_tpu_torch.ops.preproc import mti_clutter_removal
+from radar_tpu_torch.ops.preproc import declutter_planes, mti_clutter_removal
 from radar_tpu_torch.ops.window import resolve_window
 from radar_tpu_torch.utils import spans
 
@@ -89,6 +95,61 @@ def dft_passes(cfg: RadarConfig) -> int:
         raise ValueError(
             f"dft_precision must be one of {tuple(_PASSES)}, not "
             f"{cfg.dft_precision!r}") from None
+
+
+# the FFT range kernel's largest R (csrc/range_fft.cu kFftMaxLog2): a
+# row's team of R / 16 threads fits one warp
+RANGE_FFT_MAX = 512
+
+
+def range_fft_taken(cfg: RadarConfig) -> bool:
+    """Whether the range stage of kernels 1, 2 and 8 runs as the f32 FFT
+    kernel (``csrc/range_fft.cu``): at the tensor-core tiers ('high',
+    'default') where R is at most :data:`RANGE_FFT_MAX`.  'highest'
+    keeps the f32 product ``range_gemm_kernel``, which reproduces the
+    JAX package's HIGHEST; longer rows keep ``range_tc_kernel``.  The
+    one place the choice is made: the wrappers pass it to the C entries
+    as their ``range_fft`` argument."""
+    return dft_passes(cfg) != 0 and cfg.range_fft_size <= RANGE_FFT_MAX
+
+
+def range_fft_tables(cfg: RadarConfig) -> tuple[np.ndarray, np.ndarray]:
+    """The FFT range kernel's tables, f32: the window (S,), ``a2[i_col(t),
+    0]`` of :func:`mega_constants` bit for bit (the f32 taps of
+    ``resolve_window``'s kind), and the twiddles (R, 2), ``exp(-2 pi i n
+    / R)`` in float64 rounded once, as (re, im) pairs."""
+    window = window_fn(cfg.num_samples, resolve_window(True, cfg))
+    r_size = cfg.range_fft_size
+    tw = np.exp(-2j * np.pi * np.arange(r_size) / r_size)
+    return (window.astype(np.float32),
+            np.ascontiguousarray(np.stack([tw.real, tw.imag], axis=-1),
+                                 np.float32))
+
+
+def range_fft_reference(shorts: torch.Tensor, base_cube, cfg: RadarConfig,
+                        window: bool = True):
+    """The plain version of the FFT range kernel, on any device: raw
+    int16 frames (..., shorts_per_frame) -> range planes (re, im), each
+    f32 (..., C, V, R).  The I/Q decode of the ``(I0, I1, Q0, Q1)``
+    interleave, the raw-space base subtracted in f32, the window, then
+    ``torch.fft.fft`` zero-padded to R; the clutter modes as
+    :func:`radar_tpu_torch.ops.fuseddft.fused_range_planes` (the kernel
+    leaves 'mean' to ``chirp_mean_kernel`` and MTI to its callers)."""
+    mode = cfg.effective_clutter(base_cube is not None)
+    c, v, s = cfg.num_chirps, cfg.num_rx, cfg.num_samples
+    raw = shorts.reshape(shorts.shape[:-1] + (c, v, 2 * s)).to(torch.float32)
+    if mode == "base":
+        raw = raw - base_raw_interleave(base_cube)
+    t = torch.arange(s, device=raw.device)
+    i_col = 4 * (t // 2) + (t % 2)
+    w = torch.as_tensor(window_fn(s, resolve_window(window, cfg))
+                        if window else np.ones(s), dtype=torch.float32,
+                        device=raw.device)
+    x = torch.complex(raw[..., i_col] * w, raw[..., i_col + 2] * w)
+    z = torch.fft.fft(x, n=cfg.range_fft_size, dim=-1)
+    if mode == "base":
+        return z.real, z.imag
+    return declutter_planes(z.real, z.imag, mode, cfg.num_tx)
 
 
 def _mti_matrix(kc: int, order: int) -> np.ndarray:
@@ -182,7 +243,9 @@ def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]
       :func:`doppler_lhs` of ``ft_re`` / ``ft_im``, each half cut by
       :func:`gmma_tiles` (``a2`` transposed, K-major): (2, ceil(2R /
       128), ceil(2S / 16), 2048) and (2, ceil(16 ceil(D / 8) / 128),
-      ceil(2 Kc8 / 16), 2048).
+      ceil(2 Kc8 / 16), 2048);
+    * ``range_window`` (S,) and ``range_twiddles`` (R, 2), the tables of
+      the FFT range kernel (:func:`range_fft_tables`).
     """
     window = resolve_window(True, cfg)
     a_re, a_im = _interleaved_range_factors(cfg.num_samples,
@@ -196,6 +259,7 @@ def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]
     ft_im = np.ascontiguousarray(f_dop.imag.T.astype(np.float32))
     a2 = np.ascontiguousarray(np.concatenate([a_re.T, a_im.T], axis=1),
                               np.float32)
+    range_window, range_twiddles = range_fft_tables(cfg)
     return {
         "a2": torch.from_numpy(a2),
         "a2_split": torch.from_numpy(
@@ -204,6 +268,8 @@ def mega_constants(cfg: RadarConfig = DEFAULT_CONFIG) -> dict[str, torch.Tensor]
         "ft_im": torch.from_numpy(ft_im),
         "dop_l": torch.from_numpy(np.stack(
             [gmma_tiles(h) for h in tf32_split(doppler_lhs(ft_re, ft_im))])),
+        "range_window": torch.from_numpy(range_window),
+        "range_twiddles": torch.from_numpy(range_twiddles),
     }
 
 
@@ -281,15 +347,37 @@ def _tiles_shape(rows: int, depth: int) -> tuple:
 
 
 def check_range_consts(consts, cfg: RadarConfig, dev) -> None:
-    """The range stage's constants in ``consts``: ``a2`` (2S, 2R) and
-    ``a2_split`` (:func:`mega_constants`), f32 on ``dev``, 16-byte
-    aligned (the kernels read them in 16-byte chunks)."""
+    """The range stage's constants in ``consts``: ``a2`` (2S, 2R),
+    ``a2_split``, ``range_window`` (S,) and ``range_twiddles`` (R, 2)
+    (:func:`mega_constants`), f32 on ``dev``, 16-byte aligned (the
+    kernels read them in 16-byte chunks)."""
     s2, r2 = 2 * cfg.num_samples, 2 * cfg.range_fft_size
     check("a2", consts["a2"], torch.float32, (s2, r2), dev)
     check("a2_split", consts["a2_split"], torch.float32,
           _tiles_shape(r2, s2), dev)
-    for name in ("a2", "a2_split"):
+    check("range_window", consts["range_window"], torch.float32,
+          (cfg.num_samples,), dev)
+    check("range_twiddles", consts["range_twiddles"], torch.float32,
+          (cfg.range_fft_size, 2), dev)
+    for name in ("a2", "a2_split", "range_window", "range_twiddles"):
         check_aligned(name, consts[name])
+
+
+def range_stage_args(consts, cfg: RadarConfig) -> tuple:
+    """The range stage's arguments of the three C entries, in order: the
+    pointers ``a2``, ``a2_split``, ``range_window``, ``range_twiddles``
+    (after the base), and the flag ``range_fft`` (after ``passes``), of
+    :func:`range_fft_taken`."""
+    return ([ptr(consts[n]) for n in ("a2", "a2_split", "range_window",
+                                      "range_twiddles")],
+            int(range_fft_taken(cfg)))
+
+
+def count_range_fft(cfg: RadarConfig, n_frames: int) -> None:
+    """Count one launch of the FFT range kernel (``launches.range_fft``)
+    where an entry's call over ``n_frames`` frames ran it."""
+    if n_frames and range_fft_taken(cfg):
+        spans.count("launches.range_fft")
 
 
 def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
@@ -347,12 +435,12 @@ def _detect_gate(cfg: RadarConfig, k: int, n_frames: int = 1) -> int:
 
 
 declare("radar_mega_detect",
-        [PTR] * 11         # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
-                           # z, power, tickets, work
+        [PTR] * 13         # raw, base_raw, a2, a2s, window, twiddles,
+                           # ft_re, ft_im, dop_l, z, power, tickets, work
         + [I64]            # work words
         + [PTR] * 5        # top_idx, top_val, nbr, num_hits, snaps
-        + [I32] * 17       # geometry, clutter, passes, CFAR kind and
-                           # window integers
+        + [I32] * 18       # geometry, clutter, passes, range_fft, CFAR
+                           # kind and window integers
         + [F32])           # coef
 
 
@@ -386,17 +474,19 @@ def detections_from_shorts_cuda(
     num_hits = torch.empty((b,), dtype=torch.int32, device=dev)
     snaps = torch.empty((b, k, tx * v, 2), **f32)
     tickets, work = selection_buffers(dev, b, words)
+    range_ptrs, range_fft = range_stage_args(consts, cfg)
 
     launch("radar_mega_detect", dev,
-           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["a2_split"]),
+           ptr(x), ptr(base_raw), *range_ptrs,
            ptr(consts["ft_re"]), ptr(consts["ft_im"]), ptr(consts["dop_l"]),
            ptr(z), ptr(power), ptr(tickets), ptr(work), words,
            ptr(top_idx), ptr(top_val), ptr(nbr),
            ptr(num_hits), ptr(snaps),
            b, c, v, tx, s2, r_size, d_size, k, int(mode == "mean"), passes,
-           kind_id, range_wrap, gd, gr, wd, wr,
+           range_fft, kind_id, range_wrap, gd, gr, wd, wr,
            r_size - cfg.range_edge_guard_effective, coef)
     spans.count("launches.detect")
+    count_range_fft(cfg, b)
     return (top_idx.reshape(lead + (k,)), top_val.reshape(lead + (k,)),
             nbr.reshape(lead + (k, 5)), num_hits.reshape(lead),
             torch.view_as_complex(snaps).reshape(lead + (k, tx * v)))
@@ -475,10 +565,10 @@ def power_cfar_from_shorts_cuda(shorts, base_cube,
 
 
 declare("radar_mega_maps",
-        [PTR] * 10         # raw, base_raw, a2, a2s, ft_re, ft_im, dop_l,
-                           # z, power, thresh
-        + [I32] * 15       # geometry, clutter, passes, CFAR kind and
-                           # window
+        [PTR] * 12         # raw, base_raw, a2, a2s, window, twiddles,
+                           # ft_re, ft_im, dop_l, z, power, thresh
+        + [I32] * 16       # geometry, clutter, passes, range_fft, CFAR
+                           # kind and window
         + [F32])           # coef
 
 
@@ -500,12 +590,15 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
     z = torch.empty((b * c * v, 2 * r_size), **f32)
     power = torch.empty((b, d_size, r_size), **f32)
     thresh = torch.empty((b, d_size, r_size), **f32) if with_cfar else None
+    range_ptrs, range_fft = range_stage_args(consts, cfg)
     launch("radar_mega_maps", dev,
-           ptr(x), ptr(base_raw), ptr(consts["a2"]), ptr(consts["a2_split"]),
+           ptr(x), ptr(base_raw), *range_ptrs,
            ptr(consts["ft_re"]), ptr(consts["ft_im"]), ptr(consts["dop_l"]),
            ptr(z), ptr(power), ptr(thresh), b, c, v, cfg.num_tx, s2, r_size,
-           d_size, int(mode == "mean"), passes, *threshold_args(cfg, kind))
+           d_size, int(mode == "mean"), passes, range_fft,
+           *threshold_args(cfg, kind))
     spans.count("launches.maps")
+    count_range_fft(cfg, b)
     shape = shorts.shape[:-1] + (d_size, r_size)
     if not with_cfar:
         return power.reshape(shape)

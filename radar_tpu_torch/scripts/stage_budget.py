@@ -5,7 +5,8 @@ Two views, at ``RadarConfig()`` (tier ``--precision``) on the two-target
 scene's ``--frames`` frames:
 
 * the shipped path's stages: kernel 1 is three launches (the range
-  stage, ``range_tc_kernel<3|1>`` or ``range_gemm_kernel`` at
+  stage, ``range_fft_kernel`` where ``megakernel.range_fft_taken``
+  says so, else ``range_tc_kernel<3|1>``, or ``range_gemm_kernel`` at
   'highest'; the Doppler stage, ``doppler_tc_kernel`` or
   ``doppler_power_kernel``; stage (c), ``detect_band_kernel``), each
   measured in device us per launch with ``torch.profiler``, so the
@@ -101,6 +102,8 @@ def stage_kernels(cfg: RadarConfig) -> list[tuple[str, str]]:
         rng, dop = "range_gemm_kernel", "doppler_power_kernel"
     else:
         rng, dop = f"range_tc_kernel<{p}>", f"doppler_tc_kernel<{p}>"
+    if megakernel.range_fft_taken(cfg):
+        rng = "range_fft_kernel"
     return [("range stage", rng), ("+ Doppler stage", dop),
             ("+ stage (c)", "detect_band_kernel")]
 

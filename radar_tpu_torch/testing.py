@@ -277,11 +277,13 @@ def tier_unit(cfg) -> float:
 
 
 def tier_planes(shorts, base_cube, cfg, consts, passes: int):
-    """The range stage of kernels 1, 2 and 8 at ``passes`` (1 or 3),
-    emulated with ``tf32.split_matmul``: (B*C*V, 2R) rows ``[zr | zi]``
-    of (raw - base) . a2, then the chirp mean for 'mean' clutter; the
-    MTI modes' planes unfiltered, as the kernels leave them.  Exact
-    products; only the order of the sums differs from the card."""
+    """The tensor-core range stage (``range_tc_kernel``) at ``passes`` (1
+    or 3), emulated with ``tf32.split_matmul``: (B*C*V, 2R) rows ``[zr |
+    zi]`` of (raw - base) . a2, then the chirp mean for 'mean' clutter;
+    the MTI modes' planes unfiltered, as the kernels leave them.  Exact
+    products; only the order of the sums differs from the card.  Kernels
+    1, 2 and 8 run it past R = 512; up to it their range stage is the
+    f32 FFT (``megakernel.range_fft_taken``)."""
     from radar_tpu_torch.ops.fuseddft import base_raw_interleave
     from radar_tpu_torch.ops.tf32 import split_matmul
 
