@@ -78,8 +78,9 @@
 //
 // What bounds them on an H100: one compare and one add per (cell, ring
 // cell) is the least any exact selection does: 248 ring cells x 8.4 M
-// cells at B = 512 = 4.2 G operations, 0.062 ms at 67 TFLOP/s, against
-// 34 MB in and 34 MB (threshold) or 8 MB (hits) out, ~0.02 ms at
+// cells at B = 512 = 4.2 G instructions, 0.124 ms at 132 SMs x 128
+// lanes a clock x 1.98 GHz (the 67 TFLOP/s of f32 counts an FMA as two),
+// against 34 MB in and 34 MB (threshold) or 8 MB (hits) out, ~0.02 ms at
 // 3.35 TB/s.  So operations bound them.  Kernel 6 issues about 2
 // instructions per (cell, ring cell), FSET on the half-rate ALU pipe and
 // FADD on the FMA pipe; kernel 5 runs that count once a pass, plus its

@@ -240,25 +240,33 @@ def assemble_result(power, rd_snaps, hits, k: int, cfg: RadarConfig,
                     topk_impl: str = "xla") -> RDResult:
     """Tail of the maps path: range-edge guard, top-K, physics, AoA.
 
+    Spans (``utils.spans``): ``tail.select`` (the guard and the top-K),
+    ``tail.snapshots`` (``rd_snaps``), then ``tail.assemble`` (the
+    sub-bin interpolation, physics and AoA).
+
     Args:
       power: (..., D, R) integrated power (full map).
       rd_snaps: callable top_idx -> (..., K, rx) snapshot gatherer.
       topk_impl: as :func:`topk_cells`.
     """
-    guard = cfg.range_edge_guard_effective
-    if guard:
-        # top-edge range bins excluded from detection (RadarConfig
-        # .range_edge_guard); the detect op applies the identical cut
-        r_idx = torch.arange(power.shape[-1], device=power.device)
-        hits = hits & (r_idx < power.shape[-1] - guard)
-    num_hits, top_idx, top_power, valid, d_bin, r_bin = topk_cells(
-        power, hits, k, topk_impl
-    )
-    range_interp, vel_interp = interp_cell_physics(
-        power, top_idx, d_bin, r_bin, cfg
-    )
-    return _result(num_hits, d_bin, r_bin, top_power, valid,
-                   rd_snaps(top_idx), range_interp, vel_interp, cfg)
+    with span("tail.select"):
+        guard = cfg.range_edge_guard_effective
+        if guard:
+            # top-edge range bins excluded from detection (RadarConfig
+            # .range_edge_guard); the detect op applies the identical cut
+            r_idx = torch.arange(power.shape[-1], device=power.device)
+            hits = hits & (r_idx < power.shape[-1] - guard)
+        num_hits, top_idx, top_power, valid, d_bin, r_bin = topk_cells(
+            power, hits, k, topk_impl
+        )
+    with span("tail.snapshots"):
+        snaps = rd_snaps(top_idx)
+    with span("tail.assemble"):
+        range_interp, vel_interp = interp_cell_physics(
+            power, top_idx, d_bin, r_bin, cfg
+        )
+        return _result(num_hits, d_bin, r_bin, top_power, valid, snaps,
+                       range_interp, vel_interp, cfg)
 
 
 def assemble_result_from_kernel(
@@ -507,7 +515,9 @@ class RDPipeline(nn.Module):
         'auto', the base when one is given, else the mean over chirps.
         Spans (``utils.spans``): ``detect``, inside it ``detect.launch``
         (the inputs on the device through kernel 1's launch) or
-        ``detect.maps``, then ``detect.tail``."""
+        ``detect.maps``, then ``detect.tail``; on the maps path
+        ``detect.tail`` holds :func:`assemble_result`'s ``tail.select``,
+        ``tail.snapshots`` and ``tail.assemble``."""
         with span("detect"):
             if self._detect_kernel():
                 with span("detect.launch"):

@@ -12,7 +12,7 @@ and what records into them, on the CPU.
 * The counters: always on; ``ops.cuda.launch_counts`` /
   ``reset_launch_counts`` are the kernel launch counters among them.
 * What the port records: ``RDPipeline.detect`` (kernel-1 path and maps
-  path) and ``pack_detections``; a CPU ``FrameStreamer`` pass (its span
+  path, the maps tail's ``tail.*`` spans) and ``pack_detections``; a CPU ``FrameStreamer`` pass (its span
   sits on the CUDA branch); ``cli serve --span-stats`` on a socket-free
   source, whose ``span_stats`` line counts the dispatches and the
   frames of ``latency_stats``, and whose ``detect_fetch_*`` come from
@@ -236,9 +236,15 @@ def test_counters_are_always_on_and_hold_the_launches():
     assert spans.counts()["serve.frames"] == 0
 
 
-@pytest.mark.parametrize("rd_impl,front", [("auto", "detect.launch"),
-                                           ("mega-maps", "detect.maps")])
-def test_detect_records_its_spans_in_order(rd_impl, front):
+MAPS_TAIL = ["tail.select", "tail.snapshots", "tail.assemble"]
+
+
+@pytest.mark.parametrize("rd_impl,front,tail", [
+    ("auto", "detect.launch", []), ("mega-maps", "detect.maps", MAPS_TAIL)])
+def test_detect_records_its_spans_in_order(rd_impl, front, tail):
+    """Kernel 1's path: ``detect.launch`` then ``detect.tail``; the maps
+    path: ``detect.maps`` then ``detect.tail``, which holds the maps
+    tail's three spans in turn."""
     frames = synthesize_capture(TWO, 5, SMALL, noise_std=2.0, seed=3)
     pipe = RDPipeline(SMALL, 8, device="cpu", rd_impl=rd_impl)
     base = pipe.prepare_base(frames[0])
@@ -248,13 +254,19 @@ def test_detect_records_its_spans_in_order(rd_impl, front):
         pack_detections(out)
     spans.disable()
     snap = spans.snapshot()
-    assert names(snap) == ["batch", "detect", front, "detect.tail", "pack"]
+    assert names(snap) == ["batch", "detect", front, "detect.tail", *tail,
+                           "pack"]
     parents = [s[3] for s in snap["spans"]]
-    assert parents == [-1, 0, 1, 1, 0]
+    assert parents == [-1, 0, 1, 1, *[3] * len(tail), 0]
     assert {s[4] for s in snap["spans"]} == {41}
     t = [(s[1], s[2]) for s in snap["spans"]]
     assert t[1][0] <= t[2][0] < t[2][1] <= t[3][0] < t[3][1] <= t[1][1]
-    assert t[1][1] <= t[4][0]
+    inner = t[4:4 + len(tail)]
+    for a in inner:
+        assert t[3][0] <= a[0] < a[1] <= t[3][1]
+    for a, b in zip(inner, inner[1:]):
+        assert a[1] <= b[0]
+    assert t[1][1] <= t[-1][0]
     assert launch_counts() == [0] * 8               # the plain versions
 
 
