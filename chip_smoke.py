@@ -67,7 +67,10 @@ here times it; the phases keep the checks they already hold.
 29. the float64 snapshot rows kernel (``csrc/snapshots.cu``) there:
    within 1 f32 ulp of the plain rows, its launches, device times beside
    the plain rows and their cuBLAS products, its bound and registers,
-   ``refine_2d``'s split.
+   ``refine_2d``'s split;
+30. the maps path's tail on the tail kernel at the OS deployment: its
+   launches over one OS ``detect``, against the plain tail on the same
+   maps, device and host times of both, its bound and registers.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.  Any failed
 check raises, so the script exits non-zero before its last line;
@@ -164,6 +167,21 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     memory rate."""
     t_ops, t_bytes = flops / F32_RATE * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def plain_maps_tail(fn, *args):
+    """``fn(*args)`` with the maps path's plain tail
+    (``models.rd_pipeline.assemble_result_reference``) in place of the
+    tail kernel that ``assemble_result`` launches on the card, so that a
+    plain pipeline is plain to its end."""
+    from radar_tpu_torch.models import rd_pipeline
+
+    kernel_tail = rd_pipeline.assemble_result
+    rd_pipeline.assemble_result = rd_pipeline.assemble_result_reference
+    try:
+        return fn(*args)
+    finally:
+        rd_pipeline.assemble_result = kernel_tail
 
 
 def front_end_flops(cfg, b: int) -> float:
@@ -717,9 +735,10 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     assert (det_counts["os_hits"] > 0 and det_counts["os_threshold"] == 0
             and det_counts["mega_maps"] > 0 and det_counts["topk"] > 0), \
         det_counts
+    # the plain path: 'fused', the plain OS hits and top-K, the plain tail
     plain = RDPipeline(cfg_os, K_DET, device=dev, rd_impl="fused",
                        cfar_impl="xla", topk_impl="xla")
-    want = result_to_numpy(plain.detect(frames, base))
+    want = result_to_numpy(plain_maps_tail(plain.detect, frames, base))
     got["nbr"] = nbr_of(power, got)
     want["nbr"] = nbr_of(power_from_shorts_reference(frames, base, cfg), want)
     flips, _ = compare(got, want, cfg_os, max_flips=2, f32_floor=True,
@@ -735,7 +754,8 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
     nci_counts = counts()
     assert nci_counts["os_hits"] > 0 and nci_counts["os_threshold"] == 0, \
         nci_counts
-    want_n = result_to_numpy(plain_nci.detect_integrated(frames, base, n_int))
+    want_n = result_to_numpy(plain_maps_tail(plain_nci.detect_integrated,
+                                             frames, base, n_int))
     got_n["nbr"] = nbr_of(nci.integrated_power(frames, base, n_int), got_n)
     want_n["nbr"] = nbr_of(plain_nci.integrated_power(frames, base, n_int),
                            want_n)
@@ -806,7 +826,7 @@ def os_phases(cfg, capture, frames, base, consts, gpu, targets) -> list:
         t6_adv[name] = alternate(f6, maps_n, device_only=True)
     e2e = alternate({
         "OS detect": lambda x: pipe.detect(x, base),
-        "plain OS detect": lambda x: plain.detect(x, base),
+        "plain OS detect": lambda x: plain_maps_tail(plain.detect, x, base),
         "OS detect_integrated": lambda x: nci.detect_integrated(x, base,
                                                                 n_int)},
         frames)
@@ -1748,7 +1768,7 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     from radar_tpu_torch.models.rd_pipeline import (
         RDPipeline,
         RDResult,
-        assemble_result,
+        assemble_result_reference,
         virtualize_cube,
     )
     from radar_tpu_torch.ops import cluster
@@ -1833,7 +1853,7 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
                                      block=block,
                                      n_pulses=cfg.cfar_pulses_effective)
     assert torch.equal(m_out, m_ref)
-    plain = result_to_numpy(assemble_result(
+    plain = result_to_numpy(assemble_result_reference(
         pw, lambda top_idx: snapshots_from_shorts(frames, base, top_idx, cfg),
         hits_c, K_DET, cfg, topk_impl="xla"))
     got_c = result_to_numpy(out_c)
@@ -1844,7 +1864,8 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     assert not got_c["valid"][:block].any()
     assert BATCH <= block or got_c["valid"][block:].any()
     say(f"detect_cmap B={BATCH} beta={beta} block={block}: RDResult "
-        f"bit-identical to the plain top-K of the same power; launches "
+        f"bit-identical to the plain top-K and plain tail of the same "
+        f"power; launches "
         f"{n_cmap}; hits vs golden.clutter_map_cfar on the card's maps: "
         f"{flips} differ, all within 1e-5 of alpha*m; "
         f"{int(got_c['valid'].sum())} detections after the "
@@ -4369,6 +4390,145 @@ def snapshots_phase(gpu, dev) -> dict:
     }
 
 
+MAPS_TAIL_CONFIG = "dca1000-ref-os"   # phase 30's deployment
+
+
+def maps_tail_phase(gpu, dev) -> dict:
+    """Phase 30, the maps path's tail on the tail kernel
+    (``csrc/tail.cu``'s map-reading variant, ``ops/cuda/tail
+    .result_from_maps_cuda``) at the OS deployment
+    (``perfbench/configs/dca1000-ref-os.json``), B=512, K=16, on the
+    benchmark's scene: (a) ``launches.tail`` 1 over one OS ``detect``
+    (the main path), the counter set to 0 just before it; on the same
+    card tensors (``_maps``' power, hits and snapshot gatherer), the
+    kernel tail (``assemble_result``) equal to that ``detect`` bit for
+    bit and held to the plain tail (``assemble_result_reference``) by
+    ``selftest._det_fields``; (b) device-only times in turns of the
+    kernel alone and of the plain tail's physics and AoA on the same
+    top-K lists and snapshots, and of the two whole tails; the host's
+    enqueue of each; the kernel's bound, registers and a profile line.
+    Returns the kernel's entry of the ``kernels`` line."""
+    from perfbench import scene
+    from radar_tpu_torch import _build
+    from radar_tpu_torch.models import rd_pipeline
+    from radar_tpu_torch.models.rd_pipeline import (
+        RDPipeline,
+        assemble_result_reference,
+        interp_cell_physics,
+        select_cells,
+    )
+    from radar_tpu_torch.ops.cuda import tail
+    from radar_tpu_torch.selftest import _det_fields
+    from radar_tpu_torch.utils import spans
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           f"{MAPS_TAIL_CONFIG}.json")) as f:
+        radar = json.load(f)["radar"]
+    cfg = bench_config(MAPS_TAIL_CONFIG)
+    assert cfg.cfar_kind == "os", cfg.cfar_kind
+    frames = scene.make_frames(radar, BATCH + 1, 2**31 + 30, dev)
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    base = pipe.prepare_base(frames[0])
+    x = frames[1:]
+    del frames
+
+    # -- (a) the main path, one launch; the kernel tail vs the plain tail
+    torch.cuda.synchronize()
+    spans.clear_counts(["launches.tail"])
+    main = pipe.detect(x, base)
+    torch.cuda.synchronize()
+    launches = spans.counts()["launches.tail"]
+    assert launches == 1, launches
+    power, hits, snaps_fn = pipe._maps(x, base)
+    topk = RDPipeline._resolve(pipe.topk_impl, power)
+    got = rd_pipeline.assemble_result(power, snaps_fn, hits, K_DET, cfg,
+                                      topk)
+    same = [bits_equal(a, b) for a, b in zip(got, main)]
+    assert all(same), [f for f, ok in zip(main._fields, same) if not ok]
+    want = assemble_result_reference(power, snaps_fn, hits, K_DET, cfg,
+                                     topk)
+    _det_fields(got, want)
+    az_gap = float((got.azimuth_deg - want.azimuth_deg).abs().max())
+    az_bits = int((got.azimuth_deg != want.azimuth_deg).sum())
+    ab_flips = int((got.angle_bin != want.angle_bin).sum())
+    n_valid = int(got.valid.sum())
+    assert n_valid == BATCH * K_DET, n_valid
+    say(f"maps tail kernel {MAPS_TAIL_CONFIG} B={BATCH} K={K_DET}: "
+        f"launches.tail {launches} over one OS detect; the kernel tail "
+        f"bit-equal to detect() and held to the plain tail by _det_fields "
+        f"on the same maps (azimuth: {az_bits} of {got.azimuth_deg.numel()}"
+        f" differ, widest {az_gap:.3g} deg; angle bins differ: {ab_flips})"
+        f"; {n_valid} valid")
+
+    # -- (b) times, bound, registers ---------------------------------------
+    hits_g = rd_pipeline._edge_guarded(hits, cfg)
+    num_hits, top_idx, top_val = select_cells(power, hits_g, K_DET, topk)
+    snaps = snaps_fn(top_idx)
+
+    def given(idx):   # the snapshots, taken once
+        return snaps
+
+    n_hits, idx_p, top_power, valid, d_bin, r_bin = rd_pipeline.topk_cells(
+        power, hits_g, K_DET, topk)
+
+    def plain_assemble():
+        return rd_pipeline._result(
+            n_hits, d_bin, r_bin, top_power, valid, snaps,
+            *interp_cell_physics(power, idx_p, d_bin, r_bin, cfg), cfg)
+
+    dev_ms = alternate({
+        "kernel": lambda: tail.result_from_maps_cuda(
+            power, top_idx, top_val, num_hits, snaps, cfg),
+        "plain": plain_assemble,
+        "kernel tail": lambda: rd_pipeline.assemble_result(
+            power, given, hits, K_DET, cfg, topk),
+        "plain tail": lambda: assemble_result_reference(
+            power, given, hits, K_DET, cfg, topk),
+    }, device_only=True, spin_cycles=TAIL_SPIN_CYCLES)
+    host_ms = {
+        "kernel": host_enqueue_ms(tail.result_from_maps_cuda, power, top_idx,
+                                  top_val, num_hits, snaps, cfg, iters=50),
+        "plain": host_enqueue_ms(plain_assemble, iters=50),
+        "detect()": host_enqueue_ms(pipe.detect, x, base, iters=50),
+    }
+    n_det, n_ch = BATCH * K_DET, cfg.num_virtual_rx
+    n_bins = cfg.num_angle_bins
+    # each detection: its index, value, five map samples and snapshots
+    # read, 37 bytes of fields written; the angle rows read once; the
+    # spectrum's complex products and the three bins recomputed
+    nbytes = n_det * (4 + 4 + 5 * 4 + 8 * n_ch + 37) + 8 * n_ch * n_bins
+    flops = n_det * 8.0 * n_ch * (n_bins + 3)
+    bound_ms, bound_by = bound(flops, nbytes)
+    resources = [r for r in ptxas_summary(_build.build_log()).split(" | ")
+                 if "detect_tail_kernel" in r]
+    say(f"maps tail {MAPS_TAIL_CONFIG} B={BATCH} on {gpu}, device only "
+        "(median of 10, in turns): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+        + f"; the kernel at {100 * bound_ms / dev_ms['kernel']:.1f} % of "
+        f"its {bound_ms:.5f} ms bound ({bound_by}); host enqueue (median "
+        "of 50): " + ", ".join(f"{k} {v:.4f} ms" for k, v in host_ms.items())
+        + "; registers: " + " | ".join(resources))
+    say(profile_line(lambda: pipe.detect(x, base),
+                     f"OS detect {MAPS_TAIL_CONFIG} B={BATCH}"))
+    del pipe, base, x, power, hits, snaps, main, got, want
+    torch.cuda.empty_cache()
+    say(f"phase 30 took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "maps_tail",
+        "route": "cuda",
+        "source": "radar_tpu_torch/csrc/tail.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": az_gap,
+        "ms": dev_ms["kernel"],
+        "plain_ms": dev_ms["plain"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4566,6 +4726,7 @@ def main() -> int:
     tail_phase(gpu, dev)
     kernels.append(aoa2d_phase(gpu, dev))
     kernels.append(snapshots_phase(gpu, dev))
+    kernels.append(maps_tail_phase(gpu, dev))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

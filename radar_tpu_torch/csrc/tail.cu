@@ -1,6 +1,13 @@
 // The detect op's tail for Hopper (sm_90a): from kernel 1's detection
 // lists, every field of the RDResult that RDPipeline.detect returns (all
-// but num_hits, which passes through) in one launch.
+// but num_hits, which passes through) in one launch.  The maps path's tail
+// (models/rd_pipeline.assemble_result: the top-K kernel's raw lists over
+// a power map) is the same work but for where the five power samples of
+// the sub-bin parabolas come from, so one kernel serves both, templated
+// on that source: kernel 1 hands them over (kFromMap = false, entry
+// radar_detect_tail), the maps path hands over the (..., D, R) power map,
+// which the kernel reads at the indices of ops/cells.neighbour_samples
+// (kFromMap = true, entry radar_maps_tail).
 //
 // Replaces no TPU kernel.  The JAX package leaves this O(B*K) work to XLA,
 // which fuses it into a few ops; in eager PyTorch the same formulas
@@ -47,6 +54,10 @@
 // bins lane, lane + 32, ... of the spectrum, the argmax reduced across
 // the warp, then one more pass for the peak's two neighbours (recomputed
 // with the same arithmetic, so the same bits).  Four detections a block.
+// From a map, lanes 0-4 each issue one of the five scattered reads before
+// the spectrum, so their latency hides under it; the top-K lists' slots
+// past the hits carry untaken in-range cells (csrc/topk.cu), so every
+// read lies inside its frame's map.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -146,13 +157,17 @@ __device__ float bin_power(int j, const float2* __restrict__ snap,
   return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
 }
 
+// samples: kFromMap = false, kernel 1's (n_det, 5) samples (centre, range
+// -1 / +1, Doppler -1 / +1); true, the power maps (n_det / k, D, R), k
+// detections a map.
+template <bool kFromMap>
 __global__ void __launch_bounds__(kThreads) detect_tail_kernel(
     const int32_t* __restrict__ top_idx, const float* __restrict__ top_val,
-    const float* __restrict__ nbr, const float2* __restrict__ snaps,
+    const float* __restrict__ samples, const float2* __restrict__ snaps,
     const float2* __restrict__ rows, const float2* __restrict__ cal,
     float* __restrict__ out_f, int32_t* __restrict__ out_i,
     bool* __restrict__ valid, int n_det, int n_ch, int v, int n, int r_size,
-    int d_size, int num_rx, int num_tx, Scalars s) {
+    int d_size, int num_rx, int num_tx, Scalars s, int k) {
   const int lane = threadIdx.x % 32;
   const long long det =
       (long long)blockIdx.x * kWarps + threadIdx.x / 32;
@@ -163,6 +178,23 @@ __global__ void __launch_bounds__(kThreads) detect_tail_kernel(
   if (r_bin < 0) {   // floor division, as torch's // and %
     r_bin += r_size;
     d_bin -= 1;
+  }
+  // from a map: lane i reads sample i (neighbour_samples' order; range
+  // neighbours clamp at the map's edges, Doppler neighbours wrap)
+  float mine = 0.0f;
+  if constexpr (kFromMap) {
+    if (lane < 5) {
+      // det < n_det fits an int: a 32-bit division, no 64-bit call
+      const float* map =
+          samples + (long long)((int)det / k) * ((long long)d_size * r_size);
+      long long at = idx;
+      if (lane == 1) at = idx - (r_bin > 0);
+      if (lane == 2) at = idx + (r_bin < r_size - 1);
+      if (lane >= 3)
+        at = (long long)((d_bin + (lane == 3 ? d_size - 1 : 1)) % d_size) *
+                 r_size + r_bin;
+      mine = map[at];
+    }
   }
   const int d_rel = d_bin - d_size / 2;
   const float fd = __fmul_rn((float)d_rel, s.dopp_recip);   // doppler_hz
@@ -199,15 +231,32 @@ __global__ void __launch_bounds__(kThreads) detect_tail_kernel(
   const float gm = __shfl_sync(kFull, g, 0);
   const float gc = __shfl_sync(kFull, g, 1);
   const float gp = __shfl_sync(kFull, g, 2);
+  // the five samples, each in a register: centre, range -1 / +1,
+  // Doppler -1 / +1
+  float c, r_m, r_p, d_m, d_p;
+  if constexpr (kFromMap) {
+    c = __shfl_sync(kFull, mine, 0);
+    r_m = __shfl_sync(kFull, mine, 1);
+    r_p = __shfl_sync(kFull, mine, 2);
+    d_m = __shfl_sync(kFull, mine, 3);
+    d_p = __shfl_sync(kFull, mine, 4);
+  }
   if (lane != 0) return;
 
   const float val = top_val[det];
   const bool ok = isfinite(val);
-  const float* nb = nbr + 5 * det;   // centre, range -1 / +1, Doppler -1 / +1
+  if constexpr (!kFromMap) {
+    const float* nb = samples + 5 * det;
+    c = nb[0];
+    r_m = nb[1];
+    r_p = nb[2];
+    d_m = nb[3];
+    d_p = nb[4];
+  }
 
-  float r_off = parabolic(nb[1], nb[0], nb[2]);
+  float r_off = parabolic(r_m, c, r_p);
   if (r_bin == 0 || r_bin == r_size - 1) r_off = 0.0f;
-  const float d_off = parabolic(nb[3], nb[0], nb[4]);
+  const float d_off = parabolic(d_m, c, d_p);
   const float a_off = parabolic(gm, gc, gp);
   const float sin_theta = __fmul_rn(
       __fsub_rn(__fadd_rn((float)ab, a_off), (float)(n / 2)), s.angle_recip);
@@ -227,6 +276,28 @@ __global__ void __launch_bounds__(kThreads) detect_tail_kernel(
   out_i[m + det] = r_bin;
   out_i[2 * m + det] = ab;
   valid[det] = ok;
+}
+
+// Checks the sizes and launches one variant over n_det detections.
+template <bool kFromMap>
+int launch_tail(const int32_t* top_idx, const float* top_val,
+                const float* samples, const float* snaps, const float* rows,
+                const float* cal, float* out_f, int32_t* out_i,
+                uint8_t* valid, int n_det, int k, int n_ch, int v,
+                int n_bins, int r_size, int d_size, int num_rx, int num_tx,
+                const Scalars& s, cudaStream_t stream) {
+  if (n_det <= 0) return cudaSuccess;
+  if (v < 1 || v > n_ch || v > n_bins || r_size < 1 || d_size < 1 ||
+      num_rx < 1 || num_tx < 1 || k < 1 || n_det % k != 0)
+    return cudaErrorInvalidValue;
+  const int blocks = (n_det + kWarps - 1) / kWarps;
+  detect_tail_kernel<kFromMap><<<blocks, kThreads, 0, stream>>>(
+      top_idx, top_val, samples, reinterpret_cast<const float2*>(snaps),
+      reinterpret_cast<const float2*>(rows),
+      reinterpret_cast<const float2*>(cal), out_f, out_i,
+      reinterpret_cast<bool*>(valid), n_det, n_ch, v, n_bins, r_size, d_size,
+      num_rx, num_tx, s, k);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -249,21 +320,33 @@ int radar_detect_tail(const int32_t* top_idx, const float* top_val,
                       float range_interp, float dopp_recip, float half_wl,
                       float tdm_coef, float angle_recip, float rad2deg,
                       void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n_det <= 0) return cudaSuccess;
-  if (v < 1 || v > n_ch || v > n_bins || r_size < 1 || d_size < 1 ||
-      num_rx < 1 || num_tx < 1)
-    return cudaErrorInvalidValue;
   const Scalars s{range_hz, range_m,  range_interp, dopp_recip,
                   half_wl,  tdm_coef, angle_recip,  rad2deg};
-  const int blocks = (n_det + kWarps - 1) / kWarps;
-  detect_tail_kernel<<<blocks, kThreads, 0, stream>>>(
-      top_idx, top_val, nbr, reinterpret_cast<const float2*>(snaps),
-      reinterpret_cast<const float2*>(rows),
-      reinterpret_cast<const float2*>(cal), out_f, out_i,
-      reinterpret_cast<bool*>(valid), n_det, n_ch, v, n_bins, r_size, d_size,
-      num_rx, num_tx, s);
-  return cudaGetLastError();
+  return launch_tail<false>(top_idx, top_val, nbr, snaps, rows, cal, out_f,
+                            out_i, valid, n_det, 1, n_ch, v, n_bins, r_size,
+                            d_size, num_rx, num_tx, s,
+                            static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The maps path's tail: as radar_detect_tail, with the power maps f32
+// (n_det / k, d_size, r_size) and k, the detections a map, in place of
+// nbr; top_idx are the top-K kernel's flat cells of each map (slots past
+// the hits carry untaken in-range cells, top_val -inf).
+int radar_maps_tail(const int32_t* top_idx, const float* top_val,
+                    const float* power, int k, const float* snaps,
+                    const float* rows, const float* cal, float* out_f,
+                    int32_t* out_i, uint8_t* valid, int n_det, int n_ch,
+                    int v, int n_bins, int r_size, int d_size, int num_rx,
+                    int num_tx, float range_hz, float range_m,
+                    float range_interp, float dopp_recip, float half_wl,
+                    float tdm_coef, float angle_recip, float rad2deg,
+                    void* stream_ptr) {
+  const Scalars s{range_hz, range_m,  range_interp, dopp_recip,
+                  half_wl,  tdm_coef, angle_recip,  rad2deg};
+  return launch_tail<true>(top_idx, top_val, power, snaps, rows, cal, out_f,
+                           out_i, valid, n_det, k, n_ch, v, n_bins, r_size,
+                           d_size, num_rx, num_tx, s,
+                           static_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // extern "C"

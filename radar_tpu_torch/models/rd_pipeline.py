@@ -13,7 +13,8 @@ detection lists in the detect op of ``ops/cuda/megakernel.py`` (kernel
 more hand-written kernel (``ops/cuda/tail.py``) and CPU tensors as plain
 torch ops.  'mega-maps' runs the maps op of
 the same module (kernel 2: power and CA / GO / SO threshold maps), then
-top-K (kernel 3) and :func:`assemble_result`.  The verification front
+top-K (kernel 3) and :func:`assemble_result`, whose physics and AoA take
+the same tail kernel on CUDA tensors.  The verification front
 ends produce the RD planes, then the CFAR (kernel 4 for CA) and top-K
 (kernel 3) kernels run on their power: 'fused-pallas' (kernel 8, the
 range DFT of ``ops/cuda/fused_dft.py``, then the Doppler DFT), and in
@@ -70,7 +71,10 @@ from radar_tpu_torch.ops.cuda.megakernel import (
     snapshots_from_shorts,
 )
 from radar_tpu_torch.ops.cuda.fused_dft import fused_range_planes_cuda
-from radar_tpu_torch.ops.cuda.tail import result_from_kernel_cuda
+from radar_tpu_torch.ops.cuda.tail import (
+    result_from_kernel_cuda,
+    result_from_maps_cuda,
+)
 from radar_tpu_torch.ops.cuda.topk import top_k_sorted, topk_cuda
 from radar_tpu_torch.ops.decode import decode_to_cube, decode_to_planes
 from radar_tpu_torch.ops.dftmat import range_doppler_mxu, range_doppler_planes
@@ -121,19 +125,29 @@ def topk_cells(power: torch.Tensor, hits: torch.Tensor, k: int,
       (num_hits (...,), top_idx (..., K) flat cell index, top_power,
       valid, d_bin, r_bin).
     """
-    d_size, r_size = power.shape[-2], power.shape[-1]
-    num_hits = hits.sum(dim=(-2, -1)).to(torch.int32)
-    masked = torch.where(hits, power, float("-inf"))
-    flat = masked.reshape(masked.shape[:-2] + (d_size * r_size,))
-    if topk_impl == "pallas":
-        top_power, top_idx = topk_cuda(flat, k)
-    else:
-        top_power, top_idx = top_k_sorted(flat, k)
+    r_size = power.shape[-1]
+    num_hits, top_idx, top_power = select_cells(power, hits, k, topk_impl)
     valid = torch.isfinite(top_power)
     top_power = torch.where(valid, top_power, 0.0)
     d_bin = top_idx // r_size
     r_bin = top_idx % r_size
     return num_hits, top_idx, top_power, valid, d_bin, r_bin
+
+
+def select_cells(power: torch.Tensor, hits: torch.Tensor, k: int,
+                 topk_impl: str = "xla"):
+    """The selection of :func:`topk_cells`: (num_hits (...,), top_idx
+    (..., K) flat cell index, top_val (..., K)) as the top-K returns them,
+    -inf in the slots past the hits."""
+    d_size, r_size = power.shape[-2], power.shape[-1]
+    num_hits = hits.sum(dim=(-2, -1)).to(torch.int32)
+    masked = torch.where(hits, power, float("-inf"))
+    flat = masked.reshape(masked.shape[:-2] + (d_size * r_size,))
+    if topk_impl == "pallas":
+        top_val, top_idx = topk_cuda(flat, k)
+    else:
+        top_val, top_idx = top_k_sorted(flat, k)
+    return num_hits, top_idx, top_val
 
 
 def virtualize_cube(cube: torch.Tensor, cfg: RadarConfig) -> torch.Tensor:
@@ -236,28 +250,55 @@ def _result(num_hits, d_bin, r_bin, top_power, valid, snaps,
     )
 
 
+def _edge_guarded(hits, cfg: RadarConfig):
+    """``hits`` without the top-edge range bins (RadarConfig
+    .range_edge_guard); the detect op applies the identical cut."""
+    guard = cfg.range_edge_guard_effective
+    if not guard:
+        return hits
+    r_idx = torch.arange(hits.shape[-1], device=hits.device)
+    return hits & (r_idx < hits.shape[-1] - guard)
+
+
 def assemble_result(power, rd_snaps, hits, k: int, cfg: RadarConfig,
                     topk_impl: str = "xla") -> RDResult:
     """Tail of the maps path: range-edge guard, top-K, physics, AoA.
 
-    Spans (``utils.spans``): ``tail.select`` (the guard and the top-K),
-    ``tail.snapshots`` (``rd_snaps``), then ``tail.assemble`` (the
-    sub-bin interpolation, physics and AoA).
+    CPU tensors take the plain version (:func:`assemble_result_reference`);
+    CUDA tensors hand the top-K's lists and the power map to the tail
+    kernel (``ops/cuda/tail.result_from_maps_cuda``, one launch), which
+    reads the neighbour samples itself and keeps the plain version's f32
+    arithmetic as it runs on the card.  Spans (``utils.spans``), on both:
+    ``tail.select`` (the guard and the top-K), ``tail.snapshots``
+    (``rd_snaps``), then ``tail.assemble`` (the sub-bin interpolation,
+    physics and AoA).
 
     Args:
       power: (..., D, R) integrated power (full map).
       rd_snaps: callable top_idx -> (..., K, rx) snapshot gatherer.
       topk_impl: as :func:`topk_cells`.
     """
+    if power.device.type == "cpu":
+        return assemble_result_reference(power, rd_snaps, hits, k, cfg,
+                                         topk_impl)
     with span("tail.select"):
-        guard = cfg.range_edge_guard_effective
-        if guard:
-            # top-edge range bins excluded from detection (RadarConfig
-            # .range_edge_guard); the detect op applies the identical cut
-            r_idx = torch.arange(power.shape[-1], device=power.device)
-            hits = hits & (r_idx < power.shape[-1] - guard)
+        num_hits, top_idx, top_val = select_cells(
+            power, _edge_guarded(hits, cfg), k, topk_impl)
+    with span("tail.snapshots"):
+        snaps = rd_snaps(top_idx)
+    with span("tail.assemble"):
+        return result_from_maps_cuda(power, top_idx, top_val, num_hits,
+                                     snaps, cfg)
+
+
+def assemble_result_reference(power, rd_snaps, hits, k: int,
+                              cfg: RadarConfig,
+                              topk_impl: str = "xla") -> RDResult:
+    """The plain PyTorch version of :func:`assemble_result`, on any
+    device, with the same spans."""
+    with span("tail.select"):
         num_hits, top_idx, top_power, valid, d_bin, r_bin = topk_cells(
-            power, hits, k, topk_impl
+            power, _edge_guarded(hits, cfg), k, topk_impl
         )
     with span("tail.snapshots"):
         snaps = rd_snaps(top_idx)

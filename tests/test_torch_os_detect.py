@@ -9,10 +9,11 @@ On the CPU: with spans on, ``detect`` records the maps tail's
 
 On the card (marked ``card``; it skips without one), at B = 512 on the
 benchmark's scene: ``detect`` (kernel 2's power maps, the OS hits
-kernel, the top-K kernel) held by ``selftest._det_fields`` to the same
-pipeline with the plain OS hits and the plain top-K on kernel 2's maps;
-``launches.maps``, ``launches.os_hits`` and ``launches.topk`` rise by
-one per ``detect`` and ``launches.detect`` by none.  This file imports
+kernel, the top-K kernel, the tail kernel) held by
+``selftest._det_fields`` to the same pipeline with the plain OS hits and
+the plain top-K on kernel 2's maps; ``launches.maps``,
+``launches.os_hits``, ``launches.topk`` and ``launches.tail`` rise by one
+per ``detect`` and ``launches.detect`` by none.  This file imports
 no JAX, so the card case runs where JAX is absent:
 
     python -m pytest tests/test_torch_os_detect.py --noconftest -p no:cacheprovider
@@ -39,7 +40,7 @@ RADAR = json.loads((ROOT / "perfbench" / "configs" / "dca1000-ref-os.json")
 OS = radar_config(RADAR)
 MAPS_TAIL = ["tail.select", "tail.snapshots", "tail.assemble"]
 COUNTED = ("launches.detect", "launches.maps", "launches.os_hits",
-           "launches.topk")
+           "launches.topk", "launches.tail")
 
 
 @pytest.fixture(autouse=True)
@@ -116,7 +117,8 @@ def test_os_detect_on_the_card_equals_its_plain_version(cuda):
         after = spans.counts()
         rise = {n: after.get(n, 0) - before.get(n, 0) for n in COUNTED}
         assert rise == {"launches.detect": 0, "launches.maps": 1,
-                        "launches.os_hits": 1, "launches.topk": 1}, rise
+                        "launches.os_hits": 1, "launches.topk": 1,
+                        "launches.tail": 1}, rise
     want = plain.detect(frames[1:], base)
     assert int(got.valid.sum()) == 512 * 16
     _det_fields(got, want)
