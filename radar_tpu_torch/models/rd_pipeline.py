@@ -597,7 +597,9 @@ class RDPipeline(nn.Module):
         R) f32, each the sum of ``n_integrate`` consecutive frames' maps,
         range-aligned per Doppler bin onto the group's last frame first
         when ``range_walk`` (cells shifted in from outside the map are
-        zero)."""
+        zero).  Spans (``utils.spans``): ``nci.maps`` (the front end's
+        power maps, on the card kernel 2's launch), then ``nci.sum``
+        (the grouping, the alignment and the sum)."""
         n = int(n_integrate)
         if n < 1:
             raise ValueError(f"n_integrate must be >= 1, got {n}")
@@ -609,14 +611,16 @@ class RDPipeline(nn.Module):
                 f"batch of {b} frames does not divide into groups of "
                 f"{n}; pass a multiple (cli detect --integrate trims)"
             )
-        power = self._maps(shorts, base, want_hits=False)[0]
-        pw = power.reshape((b // n, n) + power.shape[1:])
-        if range_walk and n > 1:
-            src, ok = (t.to(pw.device)
-                       for t in range_walk_sources(self.cfg, n))
-            pw = torch.where(ok, torch.gather(pw, -1, src.expand(pw.shape)),
-                             0.0)
-        return pw.sum(dim=1)
+        with span("nci.maps"):
+            power = self._maps(shorts, base, want_hits=False)[0]
+        with span("nci.sum"):
+            pw = power.reshape((b // n, n) + power.shape[1:])
+            if range_walk and n > 1:
+                src, ok = (t.to(pw.device)
+                           for t in range_walk_sources(self.cfg, n))
+                pw = torch.where(
+                    ok, torch.gather(pw, -1, src.expand(pw.shape)), 0.0)
+            return pw.sum(dim=1)
 
     @torch.no_grad()
     def detect_integrated(self, shorts, base_cube=None, n_integrate: int = 2,
@@ -629,21 +633,30 @@ class RDPipeline(nn.Module):
         :class:`RDResult` row per group (``B // n_integrate`` rows); the
         batch must divide.  Pair it with a fresh-noise clutter mode
         ('mean'): under base subtraction every frame carries the same
-        base noise, which integrates coherently."""
+        base noise, which integrates coherently.  Spans (``utils.spans``):
+        ``nci``, inside it :meth:`integrated_power`'s ``nci.maps`` and
+        ``nci.sum``, then ``nci.cfar`` (the matched configuration and the
+        CFAR, on the card kernel 4 for CA) and ``nci.tail``
+        (:func:`assemble_result`, with its ``tail.*`` spans)."""
         n = int(n_integrate)
-        shorts = self._as_tensor(shorts)
-        base = self._base(base_cube)
-        p_int = self.integrated_power(shorts, base, n, range_walk)
-        cfg_int = dataclasses.replace(
-            self.cfg, cfar_n_pulses=n * self.cfg.cfar_pulses_effective)
-        hits = self._cfar(p_int, cfg_int)
-        last = shorts.reshape((-1, n) + shorts.shape[1:])[:, -1]
-        if self._rd_impl() in ("auto", "mega", "mega-maps"):
-            def snaps_fn(top_idx):
-                return snapshots_from_shorts(last, base, top_idx, self.cfg)
-        else:
-            snaps_fn = self._maps(last, base, want_hits=False)[2]
-        return self._tail(p_int, hits, snaps_fn)
+        with span("nci"):
+            shorts = self._as_tensor(shorts)
+            base = self._base(base_cube)
+            p_int = self.integrated_power(shorts, base, n, range_walk)
+            with span("nci.cfar"):
+                cfg_int = dataclasses.replace(
+                    self.cfg,
+                    cfar_n_pulses=n * self.cfg.cfar_pulses_effective)
+                hits = self._cfar(p_int, cfg_int)
+            with span("nci.tail"):
+                last = shorts.reshape((-1, n) + shorts.shape[1:])[:, -1]
+                if self._rd_impl() in ("auto", "mega", "mega-maps"):
+                    def snaps_fn(top_idx):
+                        return snapshots_from_shorts(last, base, top_idx,
+                                                     self.cfg)
+                else:
+                    snaps_fn = self._maps(last, base, want_hits=False)[2]
+                return self._tail(p_int, hits, snaps_fn)
 
     @torch.no_grad()
     def detect_objects(self, shorts, base_cube=None

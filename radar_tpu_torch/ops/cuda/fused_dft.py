@@ -14,7 +14,8 @@ range planes.  The Doppler stage stays outside the kernel
   tensor-core GEMM), plus its chirp-mean pass for 'mean' clutter, not a
   second transform — and counts its launches in the counter
   ``launches.fused_range`` (``utils.spans``; the FFT's also in
-  ``launches.range_fft``).  For 'mti2' / 'mti3' it
+  ``launches.range_fft``, the chirp-mean pass's in
+  ``launches.chirp_mean``).  For 'mti2' / 'mti3' it
   runs the GEMM with no base and applies the plain canceller to the planes, as
   the JAX wrapper applies ``declutter_planes`` after its kernel.
 * Its plain version is :func:`radar_tpu_torch.ops.fuseddft.fused_range_planes`.
@@ -43,6 +44,7 @@ from radar_tpu_torch.ops.cuda._launch import (
 )
 from radar_tpu_torch.ops.cuda.megakernel import (
     check_range_consts,
+    count_chirp_mean,
     count_range_fft,
     dft_passes,
     mega_constants,
@@ -139,6 +141,7 @@ def fused_range_planes_cuda(shorts: torch.Tensor,
                range_fft)
         spans.count("launches.fused_range")
         count_range_fft(cfg, b)
+        count_chirp_mean(mode, b)
     planes = z.reshape(shorts.shape[:-1] + (c, v, 2 * r_size))
     re, im = planes[..., :r_size], planes[..., r_size:]
     if mode in ("base", "mean"):

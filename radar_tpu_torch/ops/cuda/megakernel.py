@@ -35,7 +35,9 @@ tiers the range stage, shared by kernels 1, 2 and 8, is an f32 FFT
 (``csrc/range_fft.cu``) wherever :func:`range_fft_taken` says so, which
 keeps both tiers' promises at a fraction of the products' work; its
 launches are counted in ``launches.range_fft``, and
-:func:`range_fft_reference` is its plain version.  The plain versions
+:func:`range_fft_reference` is its plain version.  Clutter 'mean' adds
+one pass after the range stage, ``chirp_mean_kernel``, counted in
+``launches.chirp_mean`` (:func:`count_chirp_mean`).  The plain versions
 compute in f32 at every tier; ``ops/tf32.py`` emulates the tensor-core
 products for the tests.
 """
@@ -380,6 +382,15 @@ def count_range_fft(cfg: RadarConfig, n_frames: int) -> None:
         spans.count("launches.range_fft")
 
 
+def count_chirp_mean(mode: str, n_frames: int) -> None:
+    """Count one launch of ``chirp_mean_kernel`` (``launches.chirp_mean``)
+    where an entry's call over ``n_frames`` frames ran it: clutter
+    ``mode`` 'mean', whose pass follows the range stage of kernels 1, 2
+    and 8."""
+    if n_frames and mode == "mean":
+        spans.count("launches.chirp_mean")
+
+
 def _front_end_args(shorts, base_cube, cfg: RadarConfig, consts, what):
     """Checks shared by the two mega kernels' wrappers; returns (frames
     (B, shorts_per_frame), base in the raw interleave or None, consts,
@@ -487,6 +498,7 @@ def detections_from_shorts_cuda(
            r_size - cfg.range_edge_guard_effective, coef)
     spans.count("launches.detect")
     count_range_fft(cfg, b)
+    count_chirp_mean(mode, b)
     return (top_idx.reshape(lead + (k,)), top_val.reshape(lead + (k,)),
             nbr.reshape(lead + (k, 5)), num_hits.reshape(lead),
             torch.view_as_complex(snaps).reshape(lead + (k, tx * v)))
@@ -599,6 +611,7 @@ def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
            *threshold_args(cfg, kind))
     spans.count("launches.maps")
     count_range_fft(cfg, b)
+    count_chirp_mean(mode, b)
     shape = shorts.shape[:-1] + (d_size, r_size)
     if not with_cfar:
         return power.reshape(shape)
