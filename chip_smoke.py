@@ -71,6 +71,10 @@ here times it; the phases keep the checks they already hold.
 30. the maps path's tail on the tail kernel at the OS deployment: its
    launches over one OS ``detect``, against the plain tail on the same
    maps, device and host times of both, its bound and registers.
+31. the maps path's snapshots kernel (``csrc/snapshots.cu``) there:
+   its launches over one OS ``detect``, its error and the plain f32
+   path's against float64, device and host times of both and of the
+   plain path's two cuBLAS products, its bound and registers.
 
 The main path runs at ``RadarConfig()``'s tier, 'high'.  Any failed
 check raises, so the script exits non-zero before its last line;
@@ -4529,6 +4533,141 @@ def maps_tail_phase(gpu, dev) -> dict:
     }
 
 
+def maps_snapshots_phase(gpu, dev) -> dict:
+    """Phase 31, the maps path's snapshots kernel (``csrc/snapshots.cu``'s
+    ``maps_snapshots_kernel``, ``ops/cuda/snapshots.maps_snapshots_cuda``)
+    at phase 30's OS deployment, B=512, K=16, on the benchmark's scene:
+    (a) ``launches.maps_snapshots`` 1 over one OS ``detect``, the counter
+    set to 0 just before it; on that ``detect``'s cells the kernel's
+    snapshots (``snapshots_from_shorts``) and the plain f32 path's
+    (``snapshots_from_shorts_reference``) against the float64 steps, the
+    kernel's largest error no larger than the plain path's; (b)
+    device-only times in turns of the kernel, the plain path and its two
+    cuBLAS products alone on operands made beforehand (the library's
+    share), the host's enqueue of the kernel and the plain path, the
+    kernel's bound, registers and spills, a profile line of the OS
+    ``detect``.  Returns the kernel's entry of the ``kernels`` line."""
+    from perfbench import scene
+    from radar_tpu_torch import _build
+    from radar_tpu_torch.models import rd_pipeline
+    from radar_tpu_torch.models.rd_pipeline import RDPipeline, select_cells
+    from radar_tpu_torch.ops.cuda.megakernel import (
+        snapshots_from_shorts,
+        snapshots_from_shorts_reference,
+    )
+    from radar_tpu_torch.ops.dftmat import dft_matrix
+    from radar_tpu_torch.ops.fuseddft import (
+        base_raw_interleave,
+        interleaved_range_matrices,
+    )
+    from radar_tpu_torch.ops.window import resolve_window
+    from radar_tpu_torch.utils import spans
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(ROOT, "perfbench", "configs",
+                           f"{MAPS_TAIL_CONFIG}.json")) as f:
+        radar = json.load(f)["radar"]
+    cfg = bench_config(MAPS_TAIL_CONFIG)
+    frames = scene.make_frames(radar, BATCH + 1, 2**31 + 31, dev)
+    pipe = RDPipeline(cfg, K_DET, device=dev)
+    base = pipe.prepare_base(frames[0])
+    x = frames[1:]
+    del frames
+
+    # -- (a) one launch an OS detect; kernel and plain against float64 ---
+    torch.cuda.synchronize()
+    spans.clear_counts(["launches.maps_snapshots"])
+    pipe.detect(x, base)
+    torch.cuda.synchronize()
+    launches = spans.counts()["launches.maps_snapshots"]
+    assert launches == 1, launches
+    power, hits, _ = pipe._maps(x, base)
+    _, top_idx, _ = select_cells(power, rd_pipeline._edge_guarded(hits, cfg),
+                                 K_DET, RDPipeline._resolve(pipe.topk_impl,
+                                                            power))
+    got = snapshots_from_shorts(x, base, top_idx, cfg)
+    plain = snapshots_from_shorts_reference(x, base, top_idx, cfg)
+    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
+    r_size, tx, kc = cfg.range_fft_size, cfg.num_tx, cfg.chirps_per_tx
+    window = resolve_window(True, cfg)
+    a_re, a_im = interleaved_range_matrices(cfg.num_samples, r_size, window,
+                                            dev)
+    f_dop = dft_matrix(kc, cfg.doppler_fft_size, window, True, dev)
+    top = top_idx.to(torch.int64)
+    x32 = (x.reshape(BATCH, c * v, s2).to(torch.float32)
+           - base_raw_interleave(base).reshape(c * v, s2))
+    rows = top % r_size
+    t_re, t_im = a_re[rows], a_im[rows]
+    x64 = x32.double()
+    g = torch.complex(torch.einsum("bkj,bmj->bkm", t_re.double(), x64),
+                      torch.einsum("bkj,bmj->bkm", t_im.double(), x64))
+    del x64
+    g = g.reshape(BATCH, K_DET, kc, tx * v)
+    twin = torch.einsum("bkc,bkcu->bku",
+                        f_dop.to(torch.complex128)[top // r_size], g)
+    del g
+    err = float((got.to(torch.complex128) - twin).abs().max())
+    err_plain = float((plain.to(torch.complex128) - twin).abs().max())
+    assert err <= err_plain, (err, err_plain)
+    say(f"maps snapshots kernel {MAPS_TAIL_CONFIG} B={BATCH} K={K_DET}: "
+        f"launches.maps_snapshots {launches} over one OS detect; largest "
+        f"error against float64 {err:.4g} (the plain f32 path "
+        f"{err_plain:.4g}; largest snapshot "
+        f"{float(twin.abs().max()):.4g})")
+
+    # -- (b) times, bound, registers ---------------------------------------
+    def library():
+        return (torch.einsum("bkj,bmj->bkm", t_re, x32),
+                torch.einsum("bkj,bmj->bkm", t_im, x32))
+
+    dev_ms = alternate({
+        "kernel": lambda: snapshots_from_shorts(x, base, top_idx, cfg),
+        "plain": lambda: snapshots_from_shorts_reference(x, base, top_idx,
+                                                         cfg),
+        "library": library,
+    }, device_only=True, spin_cycles=TAIL_SPIN_CYCLES)
+    host_ms = {
+        "kernel": host_enqueue_ms(snapshots_from_shorts, x, base, top_idx,
+                                  cfg, iters=50),
+        "plain": host_enqueue_ms(snapshots_from_shorts_reference, x, base,
+                                 top_idx, cfg, iters=50),
+    }
+    # the range rows' products (re and im, a multiply-add each) and the
+    # Doppler sums; the frames, base and gathered table rows read once,
+    # the snapshots written once
+    flops = 4.0 * BATCH * K_DET * c * v * s2 + 8.0 * BATCH * K_DET * c * v
+    nbytes = (2 * BATCH * c * v * s2 + 4 * c * v * s2
+              + 8 * BATCH * K_DET * s2 + 8 * BATCH * K_DET * tx * v)
+    bound_ms, bound_by = bound(flops, nbytes)
+    resources = [r for r in ptxas_summary(_build.build_log()).split(" | ")
+                 if "maps_snapshots_kernel" in r]
+    say(f"maps snapshots {MAPS_TAIL_CONFIG} B={BATCH} on {gpu}, device only "
+        "(median of 10, in turns): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+        + f"; the kernel at {100 * bound_ms / dev_ms['kernel']:.1f} % of "
+        f"its {bound_ms:.4f} ms bound ({bound_by}); host enqueue (median "
+        "of 50): " + ", ".join(f"{k} {v:.4f} ms" for k, v in host_ms.items())
+        + "; registers: " + " | ".join(resources))
+    say(profile_line(lambda: pipe.detect(x, base),
+                     f"OS detect {MAPS_TAIL_CONFIG} B={BATCH}"))
+    del pipe, base, x, x32, power, hits, got, plain, twin, t_re, t_im
+    torch.cuda.empty_cache()
+    say(f"phase 31 took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "name": "maps_snapshots",
+        "route": "cuda",
+        "source": "radar_tpu_torch/csrc/snapshots.cu",
+        "replaces": None,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": dev_ms["kernel"],
+        "plain_ms": dev_ms["plain"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": dev_ms["library"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -4727,6 +4866,7 @@ def main() -> int:
     kernels.append(aoa2d_phase(gpu, dev))
     kernels.append(snapshots_phase(gpu, dev))
     kernels.append(maps_tail_phase(gpu, dev))
+    kernels.append(maps_snapshots_phase(gpu, dev))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu",

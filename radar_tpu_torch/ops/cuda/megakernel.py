@@ -13,9 +13,11 @@ Port of ``radar_tpu/ops/pallas/megakernel.py``:
   threshold map (OS-CFAR, as in the JAX package, runs on the power maps
   through ``ops/cuda/oscfar.py``);
 * ``snapshots_from_shorts``, the maps path's AoA snapshots recomputed
-  from the raw frames at the detected cells (plain PyTorch, as the JAX
-  package leaves it to XLA; with ``exact=True`` on the card its float64
-  range rows run in a kernel of their own, ``ops/cuda/snapshots.py``).
+  from the raw frames at the detected cells (the JAX package leaves it
+  to XLA): on the card one launch of ``ops/cuda/snapshots.py``'s maps
+  snapshots kernel, or with ``exact=True`` its float64 range rows in a
+  kernel of their own and the rest in plain PyTorch; on the CPU plain
+  PyTorch.
 
 Each op has a ``*_cuda`` wrapper that launches the CUDA kernel
 (``csrc/megakernel.cu``; design and bounds are noted there) and counts
@@ -66,7 +68,10 @@ from radar_tpu_torch.ops.cuda._launch import (
     selection_buffers,
 )
 from radar_tpu_torch.ops.cuda.cfar import threshold_args, threshold_smem
-from radar_tpu_torch.ops.cuda.snapshots import snapshot_rows
+from radar_tpu_torch.ops.cuda.snapshots import (
+    maps_snapshots_cuda,
+    snapshot_rows,
+)
 from radar_tpu_torch.ops.cuda.topk import top_k_sorted
 from radar_tpu_torch.ops.dftmat import _dft_factors, dft_matrix
 from radar_tpu_torch.ops.fuseddft import (
@@ -622,9 +627,11 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
                           cfg: RadarConfig = DEFAULT_CONFIG,
                           window=True, exact: bool = False) -> torch.Tensor:
     """Per-detection virtual-RX snapshots recomputed from the raw frames
-    (port of the JAX function of this name, plain PyTorch on any device
-    but for the float64 range rows on the card, ``exact=True``, which
-    take the snapshots kernel, ``ops/cuda/snapshots.py``):
+    (port of the JAX function of this name; on CUDA tensors with
+    ``exact=False`` one launch of the maps snapshots kernel, with
+    ``exact=True`` the float64 range rows through the snapshot rows
+    kernel, both ``ops/cuda/snapshots.py``; plain PyTorch on the CPU and
+    around the rows kernel):
 
         snap[b, k, t*V + v] = sum_kc F_dop[d_k, kc] * rng[b, kc, t, v, r_k]
 
@@ -646,6 +653,41 @@ def snapshots_from_shorts(shorts, base_cube, top_idx,
       complex64 (..., K, TX*V), in the order of gathering from
       ``fused_rd_planes``, before MIMO compensation.
     """
+    if exact or shorts.device.type != "cuda":
+        return snapshots_from_shorts_reference(shorts, base_cube, top_idx,
+                                               cfg, window, exact)
+    mode = cfg.effective_clutter(base_cube is not None)
+    window = resolve_window(window, cfg)
+    c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
+    k = top_idx.shape[-1]
+    frames = shorts.reshape(-1, c, v, s2)
+    if (frames.stride()[1:] != (v * s2, s2, 1) or frames.stride(0) % 8
+            or frames.data_ptr() % 16):
+        frames = frames.contiguous()
+    if top_idx.dtype not in (torch.int32, torch.int64):
+        top_idx = top_idx.to(torch.int64)
+    snaps = maps_snapshots_cuda(
+        frames,
+        base_cube.to(torch.complex64).contiguous() if mode == "base"
+        else None,
+        top_idx.reshape(frames.shape[0], k).contiguous(),
+        *interleaved_range_matrices(cfg.num_samples, cfg.range_fft_size,
+                                    window, shorts.device),
+        dft_matrix(cfg.chirps_per_tx, cfg.doppler_fft_size, window, True,
+                   shorts.device),
+        cfg.num_tx, mode)
+    return snaps.reshape(shorts.shape[:-1] + (k, cfg.num_virtual_rx))
+
+
+def snapshots_from_shorts_reference(shorts, base_cube, top_idx,
+                                    cfg: RadarConfig = DEFAULT_CONFIG,
+                                    window=True,
+                                    exact: bool = False) -> torch.Tensor:
+    """The plain version of :func:`snapshots_from_shorts`, on any
+    device: the range rows in float32 (``exact=False``) or float64
+    (``ops/cuda/snapshots.snapshot_rows``, on the card the rows kernel),
+    then the clutter step, the TDM demux and the Doppler-row products in
+    float32 torch."""
     mode = cfg.effective_clutter(base_cube is not None)
     window = resolve_window(window, cfg)
     c, v, s2 = cfg.num_chirps, cfg.num_rx, 2 * cfg.num_samples
