@@ -1785,15 +1785,19 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     from radar_tpu_torch.ops.decode import decode_to_cube
     from radar_tpu_torch.ops.keystone import keystone_cube
     from radar_tpu_torch.ops.physics import mimo_compensate
+    from radar_tpu_torch.utils import spans
 
     def reset():
         reset_kernel_counts()
-        cluster.fixpoint_tests = 0
+        spans.clear_counts([cluster.FIXPOINT_TESTS])
+
+    def label_tests() -> int:
+        return spans.counts().get(cluster.FIXPOINT_TESTS, 0)
 
     def counts() -> dict:
         k = kernel_counts()
         return {"kernel 1": k[1], "kernel 2": k[2], "kernel 3": k[3],
-                "kernel 4": k[4], "label tests": cluster.fixpoint_tests}
+                "kernel 4": k[4], "label tests": label_tests()}
 
     pipe = RDPipeline(cfg, K_DET, device=dev)
     bit_fields = RDResult._fields
@@ -1824,16 +1828,17 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     want_cl = golden_clusters(p_all[:16].cpu().numpy(), hits16,
                               got["doppler_bin"][:16], got["range_bin"][:16],
                               got["valid"][:16], cfg)
-    spans = {"total_power": 0.0,
-             "centroid_range_m": cfg.sample_rate_hz * LIGHT_SPEED
-             / (2.0 * cfg.slope_hz_per_s),
-             "centroid_velocity_mps":
-                 cfg.wavelength_m / (2.0 * cfg.slow_time_interval_s)}
+    axis_span = {"total_power": 0.0,
+                 "centroid_range_m": cfg.sample_rate_hz * LIGHT_SPEED
+                 / (2.0 * cfg.slope_hz_per_s),
+                 "centroid_velocity_mps":
+                     cfg.wavelength_m / (2.0 * cfg.slow_time_interval_s)}
     for name in cluster.ClusterResult._fields:
-        if name in spans:   # centroids: rtol 1e-5 of the bin index
+        if name in axis_span:   # centroids: rtol 1e-5 of the bin index
             np.testing.assert_allclose(
                 cln[name][:16], want_cl[name], rtol=1e-5,
-                atol=1e-5 * spans[name], err_msg=f"detect_objects: {name}")
+                atol=1e-5 * axis_span[name],
+                err_msg=f"detect_objects: {name}")
         else:
             np.testing.assert_array_equal(cln[name][:16], want_cl[name],
                                           err_msg=f"detect_objects: {name}")
@@ -2104,7 +2109,7 @@ def objects_phase(cfg, capture, frames, base, consts, gpu, dev) -> None:
     }
     reset()
     cluster.label_hits(hits_all)
-    tests = cluster.fixpoint_tests
+    tests = label_tests()
     e2e = alternate({k: (lambda x, fn=fn: fn()) for k, fn in fns.items()},
                     None)
     ks_ms = alternate({"keystone detect": lambda x: pipe_k.detect(fr_w,

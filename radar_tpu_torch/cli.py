@@ -77,10 +77,13 @@ host spans and counters, ``utils.spans``); ``track``
 prints one JSON line per confirmed track; ``bench`` times streamed
 detection over a capture (``parallel/stream.py``), with ``--stages``
 the reference's stage buckets (or, with ``--full``, kernel 1 against
-the tail) and with ``--profile`` a ``torch.profiler`` trace; ``bench
---native`` runs the float64 C++ golden on the host (``native.py``) and
-``bench --compare`` the golden and the range-parity detector on one
-capture with the per-frame verification the reference left disabled.
+the tail) and with ``--profile`` a ``torch.profiler`` trace and an
+``idle_by_span`` line (the device's idle in ms under each host span of
+``utils.spans``: the ``cuda.<kernel>`` wrappers', the pipeline's);
+``bench --native`` runs the float64 C++ golden on the host
+(``native.py``) and ``bench --compare`` the golden and the range-parity
+detector on one capture with the per-frame verification the reference
+left disabled.
 
 ``detect`` writes the same ``DetectionRecord`` JSONL as ``radar_tpu.cli
 detect``: one record per frame, or with ``--integrate N`` one per group
@@ -1529,15 +1532,28 @@ TRACE_NAME = "bench_trace.json"   # the Chrome trace of bench --profile
 
 @contextlib.contextmanager
 def _profiled(out_dir: str, device):
-    """``torch.profiler`` (CPU and, on a card, CUDA activities) around
-    the block, its Chrome trace written to ``out_dir/TRACE_NAME``."""
+    """``torch.profiler`` (CPU and, on a card, CUDA activities) and the
+    span recorder (``utils.spans``) around the block, its Chrome trace
+    written to ``out_dir/TRACE_NAME``.  Yields a dict that, once the
+    block has ended, is the ``idle_by_span`` line: the profiled window
+    and its device idle put down to the host spans
+    (``spans.profile_idle``), in ms; none on the CPU."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=activities) as prof:
-        yield
+    line = {"event": "idle_by_span"}
+    spans.enable()
+    try:
+        with torch.profiler.profile(activities=activities) as prof:
+            yield line
+    finally:
+        spans.disable()
     os.makedirs(out_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(out_dir, TRACE_NAME))
+    window_s, idle = spans.profile_idle(prof, spans.snapshot())
+    line["window_ms"] = round(1e3 * window_s, 4)
+    line["idle_ms"] = {name: round(1e3 * s, 4) for name, s in
+                       sorted(idle.items(), key=lambda x: -x[1])}
 
 
 def _timing_header(device, mode: str, batch: int) -> str:
@@ -1655,9 +1671,9 @@ def cmd_bench(args) -> int:
     kernel 1 against the tail (``--full``) on one resident batch, timed
     with ``utils.timing.time_fn`` (host-inclusive wall time).
     ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the
-    timed loop into DIR.  ``--latency`` adds the dispatch ->
-    packed-result latency of one resident batch, the program ``serve``
-    runs.  ``--native`` runs the float64 C++ golden on the host instead
+    timed loop into DIR and prints its ``idle_by_span`` line.
+    ``--latency`` adds the dispatch -> packed-result latency of one
+    resident batch, the program ``serve`` runs.  ``--native`` runs the float64 C++ golden on the host instead
     (``native.py``); ``--compare`` runs the golden and the range-parity
     detector on the same capture with the per-frame verification loop
     (``--per-frame`` prints each frame)."""
@@ -1698,13 +1714,14 @@ def cmd_bench(args) -> int:
 
     # only the timed loop is profiled, as in the JAX package
     with (_profiled(args.profile, device) if args.profile
-          else contextlib.nullcontext()):
+          else contextlib.nullcontext()) as idle_line:
         t0 = time.perf_counter()
         results = stream_detect(streamer, fn)
         fence([r[0] for r in results])
         total = time.perf_counter() - t0
     if args.profile:
         print(f"profiler trace written to {args.profile}")
+        print(json.dumps(idle_line), flush=True)
     n = len(streamer.frames)
     mode = "range-Doppler-CFAR-AoA" if args.full else "range-parity"
     print(_timing_header(device, mode, args.batch))

@@ -23,12 +23,15 @@ import torch
 
 from radar_tpu_torch.config import RadarConfig
 from radar_tpu_torch.ops.physics import cell_physics
+from radar_tpu_torch.utils import spans
 
 # sweeps between two fixpoint tests: a sweep at the fixpoint changes
 # nothing, so testing every few sweeps gives the same labels with fewer
 # host syncs (each test reads one flag back from the device)
 SWEEPS_PER_TEST = 4
-fixpoint_tests = 0   # fixpoint tests (host syncs) made by label_hits
+# the counter (utils.spans) of the fixpoint tests, host syncs each, that
+# label_hits makes
+FIXPOINT_TESTS = "cluster.fixpoint_tests"
 
 
 class ClusterResult(NamedTuple):
@@ -99,12 +102,11 @@ def label_hits(hits: torch.Tensor) -> torch.Tensor:
                                            _shift_range(v, -1, big)))
         return torch.where(hits, h, big)
 
-    global fixpoint_tests
     while True:
         for _ in range(SWEEPS_PER_TEST - 1):
             lab = sweep(lab)
         nxt = sweep(lab)
-        fixpoint_tests += 1
+        spans.count(FIXPOINT_TESTS)
         if torch.equal(nxt, lab):
             break
         lab = nxt

@@ -2,8 +2,9 @@
 
 Each wrapper module owns its kernels' C entries: it declares each
 entry's argument types (``_launch.declare``), checks the tensors,
-launches the kernel for CUDA tensors and raises for anything else, and
-counts the launches in a counter ``launches.<name>`` of ``utils.spans``.
+launches the kernel for CUDA tensors and raises for anything else,
+counts the launches in a counter ``launches.<name>`` of ``utils.spans``,
+and records each call as the span ``cuda.<name>`` (``_launch.traced``).
 Each kernel's plain PyTorch version is what CPU tensors get through the
 dispatcher and what the tests hold the kernel to.
 :data:`LAUNCH_COUNTERS` names the counters of kernels 1-8, the ports of

@@ -1,18 +1,38 @@
-"""Checks, the C signatures and the launch call shared by the kernel
-wrappers.
+"""Checks, the C signatures, the launch call and the host span shared by
+the kernel wrappers.
 
 Each wrapper declares its C entry's argument types once, at import, next
 to the function that launches it (:func:`declare`); :func:`launch` hands
 them to ``ctypes`` at the entry's first call, with the trailing stream
-argument and the ``int`` CUDA error code that every entry returns."""
+argument and the ``int`` CUDA error code that every entry returns.  Each
+card entry is :func:`traced`: its host time, checks and allocations
+included, is the span ``cuda.<name>``."""
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from radar_tpu_torch import _build
+from radar_tpu_torch.utils import spans
+
+
+def traced(name: str):
+    """Decorate a card entry: each call is the span ``cuda.<name>``
+    (``utils.spans``) from entry to return or raise; ``name`` is that of
+    the entry's launch counter.  While no recording runs, the call goes
+    through :func:`spans.span`'s shared no-op and reads no clock."""
+    label = "cuda." + name
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with spans.span(label):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def require_cuda(t: torch.Tensor, kernel: str, plain: str) -> None:

@@ -29,6 +29,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     launch,
     ptr,
     require_cuda,
+    traced,
 )
 from radar_tpu_torch.utils import spans
 
@@ -38,6 +39,7 @@ declare("radar_aoa2d_scan",
         + [I32] * 4)       # n_det, v, n_az, n_el
 
 
+@traced("aoa2d")
 def aoa_2d_scan_cuda(snaps: torch.Tensor, az: torch.Tensor,
                      el: torch.Tensor, steer: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -38,6 +38,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     launch,
     ptr,
     require_cuda,
+    traced,
 )
 from radar_tpu_torch.utils import spans
 
@@ -72,6 +73,7 @@ def threshold_smem(d_size: int, r_size: int, cfg: RadarConfig) -> int:
 declare("radar_cfar_threshold", [PTR] * 2 + [I32] * 9 + [F32])
 
 
+@traced("cfar")
 def ca_cfar_2d_cuda(
     power: torch.Tensor,
     cfg: RadarConfig = DEFAULT_CONFIG,

@@ -41,6 +41,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     launch,
     ptr,
     require_cuda,
+    traced,
 )
 from radar_tpu_torch.ops.cuda.megakernel import (
     check_range_consts,
@@ -95,6 +96,7 @@ declare("radar_fused_range",
                            # passes, range_fft
 
 
+@traced("fused_range")
 def fused_range_planes_cuda(shorts: torch.Tensor,
                             base_cube: torch.Tensor | None,
                             cfg: RadarConfig = DEFAULT_CONFIG, consts=None):

@@ -29,6 +29,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     launch,
     ptr,
     require_cuda,
+    traced,
 )
 from radar_tpu_torch.ops.detect import scan_window_argmax
 from radar_tpu_torch.utils import spans
@@ -47,6 +48,7 @@ declare("radar_masked_argmax",
         [PTR] * 3 + [I32] * 3)   # x, idx, mag; rows, n, w
 
 
+@traced("masked_argmax")
 def masked_argmax_cuda(spectrum: torch.Tensor,
                        cfg: RadarConfig = DEFAULT_CONFIG):
     """:func:`masked_argmax` through the CUDA kernel.  Lead dims are

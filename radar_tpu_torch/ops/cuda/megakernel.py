@@ -66,6 +66,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     ptr,
     require_cuda,
     selection_buffers,
+    traced,
 )
 from radar_tpu_torch.ops.cuda.cfar import threshold_args, threshold_smem
 from radar_tpu_torch.ops.cuda.snapshots import (
@@ -460,6 +461,7 @@ declare("radar_mega_detect",
         + [F32])           # coef
 
 
+@traced("detect")
 def detections_from_shorts_cuda(
     shorts: torch.Tensor,
     base_cube: torch.Tensor | None,
@@ -589,6 +591,7 @@ declare("radar_mega_maps",
         + [F32])           # coef
 
 
+@traced("maps")
 def _maps_cuda(shorts, base_cube, cfg, consts, with_cfar):
     """The maps kernel: raises for a tensor that is not on a CUDA
     device, for a geometry it does not take, when the build fails and

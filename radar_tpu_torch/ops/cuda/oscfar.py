@@ -45,6 +45,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     launch,
     ptr,
     require_cuda,
+    traced,
 )
 from radar_tpu_torch.utils import spans
 
@@ -136,6 +137,7 @@ def _run(entry: str, power: torch.Tensor, out_dtype, cfg: RadarConfig,
     return out.reshape(power.shape)
 
 
+@traced("os_threshold")
 def os_cfar_2d_cuda(
     power: torch.Tensor,
     cfg: RadarConfig = DEFAULT_CONFIG,
@@ -150,6 +152,7 @@ def os_cfar_2d_cuda(
     return power > thresh, thresh
 
 
+@traced("os_hits")
 def os_cfar_hits_cuda(power: torch.Tensor,
                       cfg: RadarConfig = DEFAULT_CONFIG,
                       impl: str = "auto") -> torch.Tensor:

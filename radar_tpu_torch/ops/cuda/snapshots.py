@@ -42,6 +42,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     launch,
     ptr,
     require_cuda,
+    traced,
 )
 from radar_tpu_torch.ops.fuseddft import base_raw_interleave
 from radar_tpu_torch.utils import spans
@@ -70,6 +71,7 @@ declare("radar_snapshot_rows",
         + [I32] * 5)       # n_frames, k, n_rows, s2, r_size
 
 
+@traced("snapshots")
 def snapshot_rows_cuda(raw, base_raw, top_idx, a_re, a_im):
     """:func:`snapshot_rows_reference` in float64 through the CUDA
     kernel, one launch.  No host sync, so a CUDA graph captures it.
@@ -166,6 +168,7 @@ def maps_smem_bytes(num_chirps: int, num_rx: int, num_tx: int,
             + 128 * (num_chirps // num_tx) + 2 * 8 * 512 + 256 + 128 + 64)
 
 
+@traced("maps_snapshots")
 def maps_snapshots_cuda(raw, base_cube, top_idx, a_re, a_im, f_dop,
                         num_tx: int, clutter: str):
     """The maps path's complex64 snapshots (N, K, TX*V), before MIMO

@@ -46,6 +46,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     launch,
     ptr,
     require_cuda,
+    traced,
 )
 from radar_tpu_torch.utils import spans
 
@@ -156,6 +157,7 @@ _SHARED = ([PTR] * 6       # snaps, rows, cal, out_f, out_i, valid
 declare("radar_detect_tail", [PTR] * 3 + _SHARED)   # top_idx, top_val, nbr
 
 
+@traced("tail")
 def result_from_kernel_cuda(top_idx, top_val, nbr5, num_hits, snaps,
                             cfg: RadarConfig):
     """``assemble_result_from_kernel`` through the CUDA kernel, for the
@@ -182,6 +184,7 @@ def result_from_kernel_cuda(top_idx, top_val, nbr5, num_hits, snaps,
 declare("radar_maps_tail", [PTR] * 3 + [I32] + _SHARED)   # ..., power, k
 
 
+@traced("tail")
 def result_from_maps_cuda(power, top_idx, top_val, num_hits, snaps,
                           cfg: RadarConfig):
     """``models.rd_pipeline.assemble_result`` after its top-K, through

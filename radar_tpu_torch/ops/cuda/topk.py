@@ -33,6 +33,7 @@ from radar_tpu_torch.ops.cuda._launch import (
     ptr,
     require_cuda,
     selection_buffers,
+    traced,
 )
 from radar_tpu_torch.utils import spans
 
@@ -51,6 +52,7 @@ declare("radar_topk", [PTR] * 5      # x, val, idx, tickets, work
         + [I32] * 3)                 # rows, n, k
 
 
+@traced("topk")
 def topk_cuda(flat: torch.Tensor, k: int):
     """:func:`top_k_sorted` through the CUDA kernel, for f32 (..., N).
     Entries equal to the f32 minimum read as -inf (the kernel's

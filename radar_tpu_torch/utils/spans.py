@@ -27,16 +27,25 @@ Counters (:func:`count`) are always on, one integer add each; the
 kernel launch counters of ``ops.cuda`` are counters here.  The spans
 and counters are module state, one recorder per process, so that any
 layer can record without a handle passed down to it.
+
+:func:`idle_by_span` joins a recording to a CUDA profile taken over it:
+each stretch in which the device ran nothing goes to the innermost span
+open on the host over it (:func:`profile_idle` reads a finished
+``torch.profiler.profile``).
 """
 
 from __future__ import annotations
 
+import bisect
+import heapq
 import itertools
 import threading
 import time
 from collections import defaultdict
 
-CAPACITY = 1 << 18          # spans a recording holds
+# spans a recording holds: 8 MB of slots, made at enable(); a 20 s
+# window of 512-frame batches records ~220k (14 spans a batch)
+CAPACITY = 1 << 20
 
 _on = False
 _gen = 0                    # the recording an open span belongs to
@@ -192,7 +201,9 @@ def snapshot() -> dict:
     """``{"spans": [(name, start_ns, end_ns, parent, id), ...] in the
     order they began (spans still open left out), "clock": (perf_counter
     ns, epoch ns) read at :func:`enable`, "counts": {name: value}}``."""
-    done = [(slot, r) for slot, r in enumerate(_rec) if r is not None]
+    # a slot drawn here lies past every one handed out (and stays empty)
+    used = min(next(_slots), CAPACITY)
+    done = [(slot, r) for slot, r in enumerate(_rec[:used]) if r is not None]
     pos = {slot: i for i, (slot, _) in enumerate(done)}
     return {"spans": [(name, t0, t1, pos.get(parent, -1), id_)
                       for _, (name, t0, t1, parent, id_) in done],
@@ -233,3 +244,80 @@ def stats(names=None, recorded: list | None = None, keep=None) -> dict:
                          "p99_ms": 1e-6 * _percentile(xs, 99),
                          "max_ms": 1e-6 * xs[-1]}
     return out
+
+
+def idle_by_span(device_us, recorded: list, clock,
+                 trace_start_ns: int) -> dict[str, float]:
+    """Seconds of device idle put down to the host span behind it.
+
+    ``device_us``: the (start, end) of a profile's device intervals
+    (kernels, copies, memsets) in the profile's microseconds, which count
+    from ``trace_start_ns`` on the Unix-epoch clock (``torch.profiler``'s
+    ``time_range``); ``recorded`` and ``clock``: a :func:`snapshot`'s
+    ``spans`` and ``clock``.  The window runs from the first device
+    interval's start to the last one's end; idle is the window less the
+    intervals' union.  Each idle stretch is cut at the boundaries of the
+    recorded spans, and each piece goes to the innermost span open over
+    it (the open span that began last), ``"-"`` where none is.  Returns
+    ``{name: seconds}``; the arithmetic runs in whole nanoseconds, so the
+    values sum to the idle total."""
+    dev = sorted((round(s * 1e3), round(e * 1e3)) for s, e in device_us)
+    if not dev:
+        return {}
+    gaps, w1 = [], dev[0][1]
+    for s, e in dev:
+        if s > w1:
+            gaps.append((w1, s))
+        w1 = max(w1, e)
+    w0 = dev[0][0]
+    off = clock[1] - clock[0] - trace_start_ns
+    edges = []                  # (ns, opens, index); ends sort first
+    for i, (_, t0, t1, *_) in enumerate(recorded):
+        a, b = t0 + off, t1 + off
+        if a < b and b > w0 and a < w1:
+            edges += [(a, 1, i), (b, 0, i)]
+    edges.sort()
+    times, owners = [], []      # the innermost open span from each time
+    open_, ended = [], set()    # heap of (-start, -index)
+    for t, opens, i in edges:
+        if opens:
+            heapq.heappush(open_, (-t, -i))
+        else:
+            ended.add(i)
+        while open_ and -open_[0][1] in ended:
+            heapq.heappop(open_)
+        owner = recorded[-open_[0][1]][0] if open_ else "-"
+        if times and times[-1] == t:
+            owners[-1] = owner
+        else:
+            times.append(t)
+            owners.append(owner)
+    idle_ns: defaultdict = defaultdict(int)
+    for a, b in gaps:
+        j = bisect.bisect_right(times, a) - 1
+        owner = owners[j] if j >= 0 else "-"
+        for j in range(j + 1, len(times)):
+            if times[j] >= b:
+                break
+            idle_ns[owner] += times[j] - a
+            a, owner = times[j], owners[j]
+        idle_ns[owner] += b - a
+    return {name: ns * 1e-9 for name, ns in idle_ns.items() if ns}
+
+
+def profile_idle(prof, snap: dict) -> tuple[float, dict[str, float]]:
+    """(the window's seconds, :func:`idle_by_span`) of a finished
+    ``torch.profiler.profile`` ``prof`` with CUDA activity and a
+    :func:`snapshot` ``snap`` recorded over it; (0.0, {}) where the
+    profile holds no device activity."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [(e.time_range.start, e.time_range.end) for e in prof.events()
+           if e.device_type == cuda]
+    if not dev:
+        return 0.0, {}
+    window_s = 1e-6 * (max(e for _, e in dev) - min(s for s, _ in dev))
+    return window_s, idle_by_span(
+        dev, snap["spans"], snap["clock"],
+        prof.profiler.kineto_results.trace_start_ns())

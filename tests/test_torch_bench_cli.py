@@ -17,7 +17,7 @@
   at ``--rd-impl mega-maps``, ``--cfar-kind os`` and K = 200, JAX's note
   with the port's resolution.
 * ``--profile DIR``: a Chrome trace in DIR that parses as JSON with
-  ``traceEvents``, and JAX's line.
+  ``traceEvents``, JAX's line, then the port's ``idle_by_span`` line.
 * None of these builds the kernel library on the CPU.
 """
 
@@ -35,6 +35,7 @@ from radar_tpu.config import RadarConfig  # noqa: E402
 from radar_tpu.io.capture import write_capture  # noqa: E402
 from radar_tpu_torch import _build, cli  # noqa: E402
 from radar_tpu_torch.models.range_detector import RangeDetector  # noqa: E402
+from radar_tpu_torch.utils import spans  # noqa: E402
 
 FLOAT = re.compile(r"\d+\.\d+")
 PER_FRAME = re.compile(r"frame\[(\d+)\] native ([\d.]+) m \| tpu ([\d.]+) m "
@@ -206,12 +207,21 @@ def test_full_stages_note_elsewhere(cap_path, capsys, jax_full_stages, argv,
 @pytest.mark.parametrize("argv", [["--full"], []])
 def test_profile_writes_a_chrome_trace(cap_path, capsys, tmp_path, argv):
     out_dir = tmp_path / "trace"
+    spans.reset()
     rc, got = _port(capsys, cap_path, "--profile", str(out_dir), "--batch",
                     "5", *argv)
+    recorded = {s[0] for s in spans.snapshot()["spans"]}
+    spans.reset()
     assert rc == 0
+    # the span recorder ran over the profiled loop, and is off again
+    assert not spans._on
+    assert ("detect" in recorded) == bool(argv)
     assert got[0] == f"profiler trace written to {out_dir}"
-    assert got[1].startswith("PyTorch CPU Timing (")
-    assert got[2].startswith("Total Time for 9 frames ")
+    # the device's idle under the host spans: no device on the CPU
+    assert json.loads(got[1]) == {"event": "idle_by_span",
+                                  "window_ms": 0.0, "idle_ms": {}}
+    assert got[2].startswith("PyTorch CPU Timing (")
+    assert got[3].startswith("Total Time for 9 frames ")
     traces = list(out_dir.iterdir())
     assert [p.name for p in traces] == [cli.TRACE_NAME]
     events = json.loads(traces[0].read_text())["traceEvents"]

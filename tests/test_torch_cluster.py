@@ -37,6 +37,7 @@ from radar_tpu_torch.convert import (  # noqa: E402
 from radar_tpu_torch.models.rd_pipeline import RDPipeline  # noqa: E402
 from radar_tpu_torch.ops import cluster  # noqa: E402
 from radar_tpu_torch.testing import compare, nbr_of  # noqa: E402
+from radar_tpu_torch.utils import spans  # noqa: E402
 
 SMALL = dict(num_samples=64, num_chirps=64, num_rx=2)
 INT_FIELDS = ("cluster_id", "num_clusters", "cells", "extent_doppler_bins",
@@ -89,13 +90,24 @@ def test_label_hits_matches_jax_and_golden(case):
 
 def test_label_hits_fixpoint_tests(monkeypatch):
     """Testing for the fixpoint every sweep or every 7 gives the same
-    labels: a sweep at the fixpoint changes nothing."""
-    hits = _label_case("0.4")
-    want = cluster.label_hits(torch.from_numpy(hits)).numpy()
+    labels: a sweep at the fixpoint changes nothing.  The counter
+    ``cluster.fixpoint_tests`` (``utils.spans``) counts the tests: one a
+    sweep at 1, fewer at 4 (the default), fewer still at 7."""
+    hits = torch.from_numpy(_label_case("0.4"))
+
+    def tests_made(fn):
+        spans.clear_counts([cluster.FIXPOINT_TESTS])
+        out = fn()
+        return out, spans.counts()[cluster.FIXPOINT_TESTS]
+
+    want, made = tests_made(lambda: cluster.label_hits(hits).numpy())
+    assert made >= 1
+    seen = {4: made}
     for n in (1, 7):
         monkeypatch.setattr(cluster, "SWEEPS_PER_TEST", n)
-        np.testing.assert_array_equal(
-            cluster.label_hits(torch.from_numpy(hits)).numpy(), want)
+        got, seen[n] = tests_made(lambda: cluster.label_hits(hits).numpy())
+        np.testing.assert_array_equal(got, want)
+    assert seen[1] > seen[4] >= seen[7] >= 1
 
 
 def _assert_clusters_equal(got, want, cfg, rtol=1e-5, frames=None):

@@ -9,6 +9,13 @@ and what records into them, on the CPU.
   around a ``yield``, spans of two threads kept apart, the capacity
   overflow counted in ``spans.dropped``, ``reset`` / ``enable`` /
   ``snapshot``, and the clock pair read at ``enable``.
+* A card entry's ``cuda.<name>`` span (``ops.cuda._launch.traced``):
+  the shared no-op while off; on, one span a call inside its caller's,
+  closed when the call raises.
+* The join with a CUDA profile (``idle_by_span``, ``profile_idle``) on
+  synthetic intervals: a stretch cut at nested spans, a stretch under
+  none (``-``), spans outside the window ignored, the clock pair's
+  offset applied, the pieces summing to the idle total.
 * The counters: always on; ``ops.cuda.launch_counts`` /
   ``reset_launch_counts`` are the kernel launch counters among them.
 * What the port records: ``RDPipeline.detect`` (kernel-1 path and maps
@@ -45,6 +52,7 @@ from radar_tpu_torch.ops.cuda import (  # noqa: E402
     launch_counts,
     reset_launch_counts,
 )
+from radar_tpu_torch.ops.cuda._launch import traced  # noqa: E402
 from radar_tpu_torch.parallel import FrameStreamer  # noqa: E402
 from radar_tpu_torch.utils import spans  # noqa: E402
 
@@ -81,8 +89,16 @@ def test_off_hands_out_one_noop_and_reads_no_clock(monkeypatch):
     def no_clock():
         raise AssertionError("the clock was read while recording is off")
 
+    def no_span(*args):
+        raise AssertionError("a Span was made while recording is off")
+
+    @traced("probe")
+    def entry(x):
+        return x + 1
+
     monkeypatch.setattr(spans, "time", SimpleNamespace(
         perf_counter_ns=no_clock, time_ns=no_clock))
+    monkeypatch.setattr(spans, "Span", no_span)
     assert not spans._on
     a, b = spans.span("a"), spans.span("b", id=3)
     assert a is b
@@ -90,7 +106,128 @@ def test_off_hands_out_one_noop_and_reads_no_clock(monkeypatch):
         with spans.span("inner"):
             pass
     spans.end(spans.begin("gen"))
+    assert entry(1) == 2                        # a card entry's span
     assert spans.snapshot()["spans"] == []
+
+
+def test_traced_entry_records_one_span_under_its_caller(clock):
+    """On, each call of a traced entry is one ``cuda.<name>`` span inside
+    the caller's span, closed when the call raises too."""
+    @traced("probe")
+    def entry(x):
+        """The entry's own docstring."""
+        if x < 0:
+            raise ValueError("negative")
+        return x
+
+    assert entry.__name__ == "entry" and entry.__doc__.startswith("The")
+    spans.enable()
+    with spans.span("caller", id=5):
+        assert entry(3) == 3
+        with pytest.raises(ValueError, match="negative"):
+            entry(-1)
+    with spans.span("next"):
+        pass
+    snap = spans.snapshot()
+    assert names(snap) == ["caller", "cuda.probe", "cuda.probe", "next"]
+    assert [s[3] for s in snap["spans"]] == [-1, 0, 0, -1]
+    assert [s[4] for s in snap["spans"]] == [5, 5, 5, None]
+    t = [(s[1], s[2]) for s in snap["spans"]]
+    assert t[0][0] < t[1][0] < t[1][1] < t[2][0] < t[2][1] < t[0][1]
+    assert not spans._stack()                   # nothing left open
+
+
+# -- the join of a recording with a CUDA profile ---------------------------
+
+# the profile's clock: its events count microseconds from TRACE_START on
+# the Unix-epoch clock; the recording's clock pair puts perf_counter 0 at
+# CLOCK[1] - CLOCK[0], 3 us before TRACE_START
+TRACE_START = 5 * 10**18
+CLOCK = (8_000, TRACE_START + 5_000)
+
+
+def _on_perf(us: float) -> int:
+    """A time on the profile (us) in the recording's perf_counter ns."""
+    return round(us * 1e3) + TRACE_START - (CLOCK[1] - CLOCK[0])
+
+
+def _rec(name, a_us, b_us, parent=-1):
+    return (name, _on_perf(a_us), _on_perf(b_us), parent, None)
+
+
+DEVICE_US = [(10.0, 20.0), (15.0, 30.0), (60.0, 70.0), (90.0, 100.5),
+             (130.0, 140.0)]              # idle: 30-60, 70-90, 100.5-130
+
+
+def test_idle_by_span_splits_each_stretch_at_the_spans():
+    recorded = [
+        _rec("early", 0.0, 9.0),          # before the window: ignored
+        _rec("batch", 25.0, 80.0),
+        _rec("batch.inner", 40.0, 50.0, parent=1),
+        _rec("batch.inner2", 50.0, 55.0, parent=1),
+        _rec("late", 120.0, 135.0),
+        _rec("after", 141.0, 150.0),      # after the window: ignored
+    ]
+    got = spans.idle_by_span(DEVICE_US, recorded, CLOCK, TRACE_START)
+    want_us = {"batch": 10 + 5 + 10,      # 30-40, 55-60, 70-80
+               "batch.inner": 10, "batch.inner2": 5,
+               "-": 10 + 19.5,            # 80-90, 100.5-120
+               "late": 10}                # 120-130
+    assert got.keys() == want_us.keys()
+    for name, us in want_us.items():
+        assert got[name] == pytest.approx(us * 1e-6, abs=1e-12), name
+    assert sum(got.values()) == pytest.approx((30 + 20 + 29.5) * 1e-6,
+                                              rel=1e-12)
+
+
+def test_idle_by_span_sums_to_the_idle_total_on_ragged_times():
+    """Pieces on fractional microseconds, spans nested three deep and
+    overlapping the stretches' ends: the per-span nanoseconds sum to the
+    window less the device's union exactly."""
+    rng = np.random.default_rng(7)
+    ends = np.sort(rng.uniform(0, 5_000, 400))
+    device = [(float(a), float(a + w)) for a, w in
+              zip(ends[::2], rng.uniform(0.5, 20, 200))]
+    recorded = []
+    for i, t in enumerate(np.sort(rng.uniform(-100, 5_100, 60))):
+        top = len(recorded)
+        recorded.append(_rec(f"root{i % 3}", t, t + 80.123))
+        recorded.append(_rec("mid", t + 5.5, t + 60.25, parent=top))
+        recorded.append(_rec("leaf", t + 10.01, t + 20.7, parent=top + 1))
+    got = spans.idle_by_span(device, recorded, CLOCK, TRACE_START)
+    dev = sorted((round(a * 1e3), round(b * 1e3)) for a, b in device)
+    busy, end = 0, dev[0][0]
+    for a, b in dev:
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    idle_ns = end - dev[0][0] - busy
+    assert round(sum(got.values()) * 1e9) == idle_ns
+    assert {"-", "leaf", "mid"} <= got.keys()
+
+
+def test_idle_by_span_without_device_activity_or_spans():
+    assert spans.idle_by_span([], [_rec("s", 0, 5)], CLOCK,
+                              TRACE_START) == {}
+    got = spans.idle_by_span(DEVICE_US, [], CLOCK, TRACE_START)
+    assert got == {"-": pytest.approx(79.5e-6, abs=1e-12)}
+    # the clock pair moves a span onto the profile's timeline: 31-59 us
+    # with it, 34-62 us read as if the two clocks were one
+    one = [_rec("s", 31.0, 59.0)]
+    assert spans.idle_by_span(DEVICE_US, one, CLOCK, TRACE_START)[
+        "s"] == pytest.approx(28e-6, abs=1e-12)
+    assert spans.idle_by_span(DEVICE_US, one, (0, TRACE_START),
+                              TRACE_START)["s"] == pytest.approx(
+                                  26e-6, abs=1e-12)
+
+
+def test_profile_idle_reads_a_cpu_profile_as_no_device_activity():
+    spans.enable()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with spans.span("work"):
+            torch.ones(8).sum()
+    spans.disable()
+    assert spans.profile_idle(prof, spans.snapshot()) == (0.0, {})
 
 
 def test_timed_reads_the_clock_off_and_records_nothing(clock):
